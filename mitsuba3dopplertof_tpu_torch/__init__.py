@@ -1,0 +1,117 @@
+"""mitsuba3dopplertof_tpu_torch — the Doppler Time-of-Flight renderer in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of the JAX package ``mitsuba3dopplertof_tpu`` (the reference it is
+tested against), module for module. It imports torch and never jax.
+
+    import mitsuba3dopplertof_tpu_torch as mi
+    mi.set_variant("cuda_rgb")
+    mi.set_device("cuda")
+    scene = mi.load_file("scenes/canonical/scene.xml")
+    img = mi.render(scene, spp=1024, seed=0)      # (H, W, 3) tensor
+
+The device is explicit: ``set_device`` or the ``device=`` argument of
+``load_file``/``load_dict``/``render`` picks it, and the default is the CPU,
+as in torch. Nothing moves work from the card to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+import os as _os
+
+import torch as _torch
+
+# plugin registration side effects
+from . import shapes as _shapes            # noqa: F401
+from . import bsdfs as _bsdfs              # noqa: F401
+from . import emitters as _emitters        # noqa: F401
+from . import sensors as _sensors          # noqa: F401
+from . import films as _films              # noqa: F401
+from . import rfilters as _rfilters        # noqa: F401
+from . import samplers as _samplers        # noqa: F401
+from . import integrators as _integrators  # noqa: F401
+
+from .core.fresolver import file_resolver
+from .io.dict_loader import load_dict as _load_dict
+from .io.xml import xml_to_dict
+from .render.scene import Scene
+
+_DEVICE = _torch.device("cpu")
+
+# variant -> the ROADMAP item that ports it
+_VARIANTS = {
+    "cuda_rgb": None,
+    "cuda_spectral": "ROADMAP Queue A item 11",
+    "cuda_mono": "ROADMAP Queue A item 11",
+    "cuda_rgb_polarized": "ROADMAP Queue A item 11",
+    "cuda_spectral_polarized": "ROADMAP Queue A item 11",
+}
+_VARIANT = "cuda_rgb"
+
+
+def set_device(device) -> _torch.device:
+    """Select the device scenes compile to and render on by default."""
+    global _DEVICE
+    _DEVICE = _torch.device(device)
+    return _DEVICE
+
+
+def get_device() -> _torch.device:
+    return _DEVICE
+
+
+def variants():
+    return list(_VARIANTS)
+
+
+def variant() -> str:
+    return _VARIANT
+
+
+def set_variant(*names) -> str:
+    """Select the rendering variant (the reference's mitsuba.set_variant).
+    Only ``cuda_rgb`` is ported; the others raise NotImplementedError
+    naming the ROADMAP item that ports them."""
+    global _VARIANT
+    for n in names:
+        if n in _VARIANTS:
+            if _VARIANTS[n] is not None:
+                raise NotImplementedError(
+                    f"variant '{n}' is not ported yet ({_VARIANTS[n]})")
+            _VARIANT = n
+            return n
+    raise RuntimeError(f"No supported variant in {names}; "
+                       f"available: {list(_VARIANTS)}")
+
+
+def load_dict(d, device=None) -> Scene:
+    """Build a scene from the nested-dict description (mi.load_dict)."""
+    return _load_dict(d, device=device)
+
+
+def load_file(path: str, device=None, **params) -> Scene:
+    """Parse and build a scene from Mitsuba XML (reference xml.cpp:1483).
+    ``params`` override the file's ``<default>`` values; the file's
+    directory is searched for relative asset names."""
+    str_params = {k: str(v) for k, v in params.items()}
+    with file_resolver().scoped(_os.path.dirname(_os.path.abspath(path))):
+        return _load_dict(xml_to_dict(path, str_params, is_file=True),
+                          device=device)
+
+
+def render(scene: Scene, spp: int = 0, seed: int = 0, sensor=None,
+           integrator=None, device=None) -> _torch.Tensor:
+    """Render ``scene`` with its own integrator or ``integrator``; returns
+    the developed (H, W, C) image on the render device."""
+    integ = integrator if integrator is not None else scene.integrator
+    if integ is None:
+        raise RuntimeError("No integrator: pass one or add it to the scene")
+    return integ.render(scene, sensor=sensor, seed=seed, spp=spp,
+                        device=device)
+
+
+__all__ = ["load_file", "load_dict", "render", "Scene", "set_variant",
+           "variant", "variants", "set_device", "get_device", "xml_to_dict",
+           "__version__"]

@@ -1,0 +1,258 @@
+"""Emitter plugins and emitter sampling (port of the JAX package's
+``emitters/__init__.py``: the area emitter on rectangles and meshes).
+
+Sampling follows the masked type dispatch over the compiled emitter table;
+the uniform emitter choice replicates reference src/render/scene.cpp:170-188
+including the sample-reuse rescaling.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.math import mod
+from ..core.properties import Properties, register_plugin
+from ..core.vec import (Vec3, dot, cross, normalize, where3, cmat_lerp,
+                        cmat_apply_point, cmat_apply_vector)
+from ..render.types import DirectionSample
+
+# type ids (the JAX package's numbering)
+EMITTER_AREA_RECT = 1     # area emitter on a static rectangle
+EMITTER_AREA_MESH = 3     # area emitter on any other mesh (CDF-sampled)
+
+N_EMITTER_PARAMS = 16
+E_INTENSITY = 3    # rgb radiance
+E_AREA = 6         # total world-space surface area
+E_RAD_TEX = 8      # radiance texture id (-1 = constant)
+
+
+class Emitter:
+    def __init__(self, props: Properties):
+        self.id = props.id
+        self.shape = None       # set for area emitters during assembly
+
+
+@register_plugin("emitter", "area")
+class AreaEmitter(Emitter):
+    """reference src/emitters/area.cpp — constant radiance over the host
+    shape, emitted from its front side."""
+    type_id = EMITTER_AREA_RECT
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        self.radiance = _get_rgb(props, "radiance", [1.0, 1.0, 1.0])
+        for key, v in props.objects():
+            raise NotImplementedError(
+                f"area emitter child '{key}' is not ported yet "
+                "(ROADMAP Queue A item 9)")
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_INTENSITY:E_INTENSITY + 3] = self.radiance
+        p[E_RAD_TEX] = -1.0
+        return p
+
+
+def _anim_matrix(sa, ii: int, time):
+    """Per-lane keyframe lerp of instance ``ii`` at ``time``."""
+    t0a, t1a = sa.inst_t0[ii], sa.inst_t1[ii]
+    span = t1a - t0a
+    uu = torch.clamp((time - t0a) / torch.where(span != 0.0, span, 1.0),
+                     0.0, 1.0)
+    return cmat_lerp(sa.inst_cmat(0, ii), sa.inst_cmat(1, ii), uu)
+
+
+def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
+    """Emitter sample_direction over the table (masked multi-type).
+    Returns (DirectionSample, radiance / pdf) before visibility; the pdf
+    includes the discrete emitter-selection probability."""
+    n = ref_p.x.shape[0]
+    dev = ref_p.x.device
+    n_emitters = int(sa.n_emitters)
+    if n_emitters == 1:
+        index = torch.zeros((n,), dtype=torch.int64, device=dev)
+    else:
+        scaled = s_x * float(n_emitters)
+        index = torch.clamp(scaled.to(torch.int32), max=n_emitters - 1)
+        s_x = scaled - index.to(scaled.dtype)
+        index = index.long()
+
+    def param(j):
+        return sa.emitter_params[j][index]
+
+    def mrow(j):
+        return sa.emitter_m[j][index]
+
+    inten = Vec3(param(E_INTENSITY), param(E_INTENSITY + 1),
+                 param(E_INTENSITY + 2))
+    lane_type = sa.emitter_type[index]
+    z = torch.zeros((n,), device=dev)
+    false_ = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    best = None
+    for tid in sa.emitter_types_present:
+        if tid == EMITTER_AREA_RECT:
+            lx = 2.0 * s_x - 1.0
+            ly = 2.0 * s_y - 1.0
+            p = Vec3(mrow(0) * lx + mrow(1) * ly + mrow(3),
+                     mrow(4) * lx + mrow(5) * ly + mrow(7),
+                     mrow(8) * lx + mrow(9) * ly + mrow(11))
+            col0 = Vec3(mrow(0), mrow(4), mrow(8))
+            col1 = Vec3(mrow(1), mrow(5), mrow(9))
+            nrm = normalize(cross(col0, col1))
+            d = p - ref_p
+            dist2 = torch.clamp(dot(d, d), min=1e-20)
+            dist = torch.sqrt(dist2)
+            dirn = d * (1.0 / dist)
+            cos_theta = -dot(dirn, nrm)
+            pdf = torch.where(cos_theta > 1e-6,
+                              dist2 / (torch.abs(cos_theta) * param(E_AREA)),
+                              0.0)
+            w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
+                            0.0)
+            ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
+        elif tid == EMITTER_AREA_MESH:
+            # triangle-CDF area sampling over the host mesh (reference
+            # Mesh::sample_position). Animated emitter shapes sample their
+            # object-space CDF and move the point with the lerped matrix at
+            # the ray's time; the pdf uses that triangle's world area.
+            p = Vec3(z, z, z)
+            nrm = Vec3(z, z, z)
+            pdf = z
+            su = torch.sqrt(torch.clamp(mod(s_x * 4096.0, 1.0), 0.0, 1.0))
+            b0 = 1.0 - su
+            b1 = s_y * su
+            for (ei, start, cnt, cdf_off, anim, ii) in sa.mesh_em_meta:
+                cdf = sa.em_tri_cdf[cdf_off:cdf_off + cnt]
+                k = torch.clamp(torch.searchsorted(cdf, s_x, right=True),
+                                0, cnt - 1)
+                tri = start + k
+                pre = "a" if anim else "s"
+
+                def col(c):
+                    return sa.tri(pre, c)[tri]
+                v0 = Vec3(col("v0x"), col("v0y"), col("v0z"))
+                e1 = Vec3(col("e1x"), col("e1y"), col("e1z"))
+                e2 = Vec3(col("e2x"), col("e2y"), col("e2z"))
+                pe = v0 + e1 * b0 + e2 * b1
+                if anim:
+                    c_t = _anim_matrix(sa, ii, ref_time)
+                    pe = cmat_apply_point(c_t, pe)
+                    e1 = cmat_apply_vector(c_t, e1)
+                    e2 = cmat_apply_vector(c_t, e2)
+                cr = cross(e1, e2)
+                cr_len = torch.sqrt(torch.clamp(dot(cr, cr), min=1e-30))
+                ne = cr * (1.0 / cr_len)
+                if anim:
+                    prob = cdf[k] - torch.where(
+                        k > 0, cdf[torch.clamp(k - 1, min=0)], 0.0)
+                    inv_area = prob / torch.clamp(0.5 * cr_len, min=1e-20)
+                else:
+                    inv_area = 1.0 / torch.clamp(param(E_AREA), min=1e-20)
+                d = pe - ref_p
+                dist2 = torch.clamp(dot(d, d), min=1e-20)
+                dirn = d * torch.rsqrt(dist2)
+                cos_theta = -dot(dirn, ne)
+                pe_pdf = torch.where(
+                    cos_theta > 1e-6,
+                    dist2 * inv_area / torch.clamp(cos_theta, min=1e-6), 0.0)
+                mask = index == ei
+                p = where3(mask, pe, p)
+                nrm = where3(mask, ne, nrm)
+                pdf = torch.where(mask, pe_pdf, pdf)
+            d = p - ref_p
+            dist2 = torch.clamp(dot(d, d), min=1e-20)
+            dist = torch.sqrt(dist2)
+            dirn = d * (1.0 / dist)
+            w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
+                            0.0)
+            ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
+        else:
+            raise NotImplementedError(
+                f"emitter type {tid} is not ported yet "
+                "(ROADMAP Queue A items 5 and 9)")
+        spec = inten * w
+        if best is None:
+            best = (ds, spec)
+        else:
+            m = lane_type == tid
+            pds, pspec = best
+            best = (DirectionSample(*(
+                where3(m, a, b) if isinstance(a, Vec3) else
+                torch.where(m, a, b) for a, b in zip(ds, pds))),
+                where3(m, spec, pspec))
+
+    ds, spec = best
+    # discrete selection probability (reference scene.cpp:259-263)
+    if n_emitters > 1:
+        ds = ds._replace(pdf=ds.pdf * (1.0 / float(n_emitters)))
+        spec = spec * float(n_emitters)
+    return ds, spec
+
+
+def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
+    """pdf of NEE sampling the direction ``ds`` (reference scene.cpp:296-303
+    pdf_emitter_direction), for MIS on emitter hits. ``prim``/``time`` give
+    animated mesh emitters their per-triangle world area."""
+    n_emitters = int(sa.n_emitters)
+    idx = torch.clamp(ds.emitter, min=0).long()
+    lane_type = sa.emitter_type[idx]
+    pdf = torch.zeros_like(ds.dist)
+    for tid in sa.emitter_types_present:
+        if tid not in (EMITTER_AREA_RECT, EMITTER_AREA_MESH):
+            raise NotImplementedError(
+                f"emitter type {tid} is not ported yet "
+                "(ROADMAP Queue A items 5 and 9)")
+        area = sa.emitter_params[E_AREA][idx]
+        dist2 = ds.dist * ds.dist
+        cos_theta = -dot(ds.d, ds.n)
+        p = torch.where(cos_theta > 1e-6,
+                        dist2 / (torch.abs(cos_theta)
+                                 * torch.clamp(area, min=1e-20)), 0.0)
+        if prim is not None and time is not None:
+            for (ei, start, cnt, cdf_off, anim, ii) in sa.mesh_em_meta:
+                if not anim:
+                    continue
+                loc = prim.long() - sa.n_static_tris - start
+                m = (ds.emitter == ei) & (loc >= 0) & (loc < cnt)
+                locc = torch.clamp(loc, 0, cnt - 1)
+                tri = start + locc
+                e1 = Vec3(sa.a_e1x[tri], sa.a_e1y[tri], sa.a_e1z[tri])
+                e2 = Vec3(sa.a_e2x[tri], sa.a_e2y[tri], sa.a_e2z[tri])
+                c_t = _anim_matrix(sa, ii, time)
+                cr = cross(cmat_apply_vector(c_t, e1),
+                           cmat_apply_vector(c_t, e2))
+                tri_area = 0.5 * torch.sqrt(torch.clamp(dot(cr, cr),
+                                                        min=1e-30))
+                cdf = sa.em_tri_cdf[cdf_off:cdf_off + cnt]
+                prob = cdf[locc] - torch.where(
+                    locc > 0, cdf[torch.clamp(locc - 1, min=0)], 0.0)
+                p_anim = torch.where(
+                    cos_theta > 1e-6,
+                    dist2 * prob / (torch.abs(cos_theta)
+                                    * torch.clamp(tri_area, min=1e-20)),
+                    0.0)
+                p = torch.where(m, p_anim, p)
+        pdf = torch.where(lane_type == tid, p, pdf)
+    pdf = torch.where(ds.emitter >= 0, pdf, 0.0)
+    return pdf * (1.0 / float(n_emitters))
+
+
+def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter):
+    """Radiance of an emitter hit by a ray (reference area.cpp eval:82-90):
+    front side only. ``towards`` points from the surface to the viewer."""
+    idx = torch.clamp(lane_emitter, min=0).long()
+    ok = (lane_emitter >= 0) & (dot(si_n, towards) > 0.0)
+    inten = Vec3(sa.emitter_params[E_INTENSITY][idx],
+                 sa.emitter_params[E_INTENSITY + 1][idx],
+                 sa.emitter_params[E_INTENSITY + 2][idx])
+    return inten * torch.where(ok, 1.0, 0.0)
+
+
+__all__ = [
+    "Emitter", "AreaEmitter", "sample_direction", "pdf_direction",
+    "eval_emitter_hit", "N_EMITTER_PARAMS", "EMITTER_AREA_RECT",
+    "EMITTER_AREA_MESH", "E_INTENSITY", "E_AREA",
+]

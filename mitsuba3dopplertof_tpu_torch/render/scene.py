@@ -1,0 +1,420 @@
+"""Scene assembly and compilation into device SoA tables (port of the JAX
+package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs and
+emitters the port has, ``build_si``, ``ray_intersect`` and ``ray_test``).
+
+The host compiles the shape graph into flat component-wise triangle /
+instance / BSDF / emitter tables (each column a (T,) tensor). Triangle slot
+order is the JAX package's, so ``prim`` ids agree between the two: static
+triangles first, then each animated instance's object-space triangles.
+
+Motion blur: every shape is an instance with two keyframe matrices; rays
+enter an animated instance's object space through the exact inverse of the
+lerped matrix at their own time (reference src/shapes/instance.cpp:155-250,
+transform.h:458-466).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.vec import Vec3, dot, normalize, coordinate_system
+from .types import Ray, SurfaceInteraction
+
+# triangle component columns (all (T,) tensors)
+_TRI_COLS = ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z",
+             "n0x", "n0y", "n0z", "n1x", "n1y", "n1z", "n2x", "n2y", "n2z",
+             "uv0u", "uv0v", "uv1u", "uv1v", "uv2u", "uv2v")
+_TRI_INT_COLS = ("inst", "prim")
+
+
+class SceneArrays:
+    """Compiled tables on one device plus host-side metadata."""
+
+    ARRAY_FIELDS = (
+        ["s_" + c for c in _TRI_COLS] + ["s_" + c for c in _TRI_INT_COLS]
+        + ["a_" + c for c in _TRI_COLS] + ["a_" + c for c in _TRI_INT_COLS]
+        + ["inst_m0c", "inst_m1c", "inst_t0", "inst_t1",
+           "inst_bsdf", "inst_emitter", "inst_nsign",
+           "bsdf_type", "bsdf_params",       # bsdf_params: (P, B)
+           "emitter_type", "emitter_params", "emitter_m",  # (P, E), (12, E)
+           "sph_m0c", "sph_m1c", "sph_t0", "sph_t1", "sph_inst",
+           "em_tri_cdf", "bsphere_radius", "bsphere_center"]
+    )
+    META_FIELDS = [
+        "n_static_tris", "n_anim_tris", "anim_ranges", "bsdf_types_present",
+        "emitter_types_present", "n_emitters", "bsdf_flags_host",
+        "n_spheres", "sphere_animated", "mesh_em_meta", "any_flip",
+    ]
+    # a JAX SceneArrays with any of these set uses a feature the port
+    # does not have yet
+    _UNPORTED_META = {"has_environment": "ROADMAP Queue A item 9",
+                      "n_textures": "ROADMAP Queue A item 9",
+                      "n_media": "ROADMAP Queue A item 9",
+                      "any_nmap": "ROADMAP Queue A item 9",
+                      "spectral": "ROADMAP Queue A item 11",
+                      "polarized": "ROADMAP Queue A item 11"}
+
+    def __init__(self, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
+                 device):
+        for k in self.ARRAY_FIELDS:
+            a = np.asarray(arrays[k])
+            dt = torch.int32 if a.dtype.kind in "iu" else torch.float32
+            setattr(self, k, torch.tensor(a, dtype=dt, device=device))
+        # the tensors' own device: "cuda" resolves to "cuda:<current>"
+        self.device = self.inst_t0.device
+        for k in self.META_FIELDS:
+            setattr(self, k, meta[k])
+        self._tables = None
+
+    def tri(self, prefix: str, col: str):
+        return getattr(self, prefix + "_" + col)
+
+    def inst_cmat(self, which: int, inst: int):
+        arr = self.inst_m0c if which == 0 else self.inst_m1c   # (12, I)
+        return tuple(arr[j, inst] for j in range(12))
+
+
+def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
+                          device="cpu") -> SceneArrays:
+    """The port's tables from the JAX package's compiled ``SceneArrays``,
+    given as numpy arrays (``arrays``, by field name) and its metadata
+    (``meta``: a mapping or an object with the same attributes). Raises
+    NotImplementedError for scenes using features the port lacks."""
+    get = (meta.get if isinstance(meta, dict)
+           else lambda k, d=None: getattr(meta, k, d))
+    for k, item in SceneArrays._UNPORTED_META.items():
+        if get(k, None):
+            raise NotImplementedError(f"scene uses '{k}' ({item})")
+    if get("bvh", None) is not None:
+        raise NotImplementedError("large-scene kernel: ROADMAP B2")
+    return SceneArrays(arrays, {k: get(k) for k in SceneArrays.META_FIELDS},
+                       device)
+
+
+def _morton_order(cen: np.ndarray) -> np.ndarray:
+    """Permutation sorting points by 30-bit 3D Morton code (the JAX
+    package's triangle order for meshes above 64 faces)."""
+    lo, hi = cen.min(axis=0), cen.max(axis=0)
+    q = ((cen - lo) / np.maximum(hi - lo, 1e-20)
+         * 1023.0).astype(np.uint32)
+
+    def spread(x):
+        x = x.astype(np.uint64)
+        x = (x | (x << np.uint64(16))) & np.uint64(0x030000FF)
+        x = (x | (x << np.uint64(8))) & np.uint64(0x0300F00F)
+        x = (x | (x << np.uint64(4))) & np.uint64(0x030C30C3)
+        x = (x | (x << np.uint64(2))) & np.uint64(0x09249249)
+        return x
+
+    code = ((spread(q[:, 0]) << np.uint64(2))
+            | (spread(q[:, 1]) << np.uint64(1)) | spread(q[:, 2]))
+    return np.argsort(code, kind="stable")
+
+
+class Scene:
+    """Host-side object graph (reference src/render/scene.cpp:22-101)."""
+
+    def __init__(self, shapes, emitters, sensors, integrator=None,
+                 device=None):
+        from .. import get_device
+        self.shapes = shapes
+        self.emitters = emitters
+        self.sensors = sensors
+        self.integrator = integrator
+        self.device = torch.device(device if device is not None
+                                   else get_device())
+        self._host: Optional[Tuple[dict, dict]] = None
+        self._compiled: Dict[str, SceneArrays] = {}
+
+    @property
+    def sensor(self):
+        return self.sensors[0]
+
+    def compile(self, device=None) -> SceneArrays:
+        """The scene's tables on ``device`` (default: the scene's own)."""
+        dev = torch.device(device if device is not None else self.device)
+        if str(dev) not in self._compiled:
+            if self._host is None:
+                self._host = self._compile_host()
+            self._compiled[str(dev)] = SceneArrays(*self._host, dev)
+        return self._compiled[str(dev)]
+
+    def _compile_host(self):
+        from ..bsdfs import Diffuse
+        from ..core.properties import Properties
+        from ..emitters import E_AREA, EMITTER_AREA_MESH, N_EMITTER_PARAMS
+        from ..shapes import RectangleShape
+
+        # --- BSDF table (deduplicated by identity) -----------------------
+        bsdf_objs: List[Any] = []
+        bsdf_index: Dict[int, int] = {}
+        for sh in self.shapes:
+            if sh.bsdf is None:
+                sh.bsdf = Diffuse(Properties("diffuse"))
+            if id(sh.bsdf) not in bsdf_index:
+                bsdf_index[id(sh.bsdf)] = len(bsdf_objs)
+                bsdf_objs.append(sh.bsdf)
+        if not bsdf_objs:
+            bsdf_objs.append(Diffuse(Properties("diffuse")))
+        bsdf_type = np.array([b.type_id for b in bsdf_objs], np.int32)
+        bsdf_flags = np.array([b.flags for b in bsdf_objs], np.int32)
+        bsdf_params = np.stack([b.params_row() for b in bsdf_objs]).T
+
+        # --- emitter table ------------------------------------------------
+        emitter_rows, emitter_types, emitter_mats = [], [], []
+        mesh_emitter_shapes = {}     # emitter idx -> shape (CDF built later)
+        for ei, em in enumerate(self.emitters):
+            if getattr(em.shape, "is_analytic_sphere", False):
+                raise NotImplementedError(
+                    "area emitters on spheres are not ported yet "
+                    "(ROADMAP Queue A item 5)")
+            row = em.params_row()
+            m0 = em.shape.to_world.matrices()[0]
+            row[E_AREA] = float(np.sum(em.shape.mesh.surface_areas(m0)))
+            etype = em.type_id
+            if (not isinstance(em.shape, RectangleShape)
+                    or em.shape.to_world.animated):
+                # animated rect emitters also take the mesh-CDF path so
+                # their sampled points follow the keyframe lerp
+                etype = EMITTER_AREA_MESH
+                mesh_emitter_shapes[ei] = em.shape
+            emitter_rows.append(row)
+            emitter_types.append(etype)
+            emitter_mats.append(m0[:3, :4].reshape(-1))
+        n_emitters = len(self.emitters)
+        emitter_params = (np.stack(emitter_rows).T if emitter_rows
+                          else np.zeros((N_EMITTER_PARAMS, 0)))
+        emitter_type = np.array(emitter_types, np.int32)
+        emitter_m = (np.stack(emitter_mats).T if emitter_mats
+                     else np.zeros((12, 0)))
+
+        # --- instances & triangles -----------------------------------------
+        inst_m0, inst_m1, inst_t0, inst_t1 = [], [], [], []
+        inst_bsdf, inst_emitter, inst_nsign = [], [], []
+        s_cols = {c: [] for c in _TRI_COLS + _TRI_INT_COLS}
+        a_cols = {c: [] for c in _TRI_COLS + _TRI_INT_COLS}
+        anim_ranges: List[Tuple[int, int, int]] = []
+        all_pts = []
+        sph_m0, sph_m1, sph_t0, sph_t1, sph_inst = [], [], [], [], []
+        sphere_animated = []
+        static_ranges = {}           # instance -> (tri start, count)
+
+        for ii, sh in enumerate(self.shapes):
+            m0, m1, t0, t1 = sh.to_world.matrices()
+            animated = sh.to_world.animated
+            if (sh.mesh is not None and sh.mesh.faces.shape[0] > 64
+                    and not getattr(sh.mesh, "_morton_ordered", False)):
+                f = sh.mesh.faces
+                sh.mesh.faces = f[_morton_order(
+                    sh.mesh.vertices[f].mean(axis=1))]
+                sh.mesh._morton_ordered = True
+            inst_m0.append(m0[:3, :4].reshape(-1))
+            inst_m1.append(m1[:3, :4].reshape(-1))
+            inst_t0.append(t0)
+            inst_t1.append(t1)
+            inst_bsdf.append(bsdf_index[id(sh.bsdf)])
+            inst_emitter.append(self.emitters.index(sh.emitter)
+                                if sh.emitter is not None else -1)
+            inst_nsign.append(-1.0 if sh.flip_normals else 1.0)
+
+            if getattr(sh, "is_analytic_sphere", False):
+                sph_m0.append(m0[:3, :4].reshape(-1))
+                sph_m1.append(m1[:3, :4].reshape(-1))
+                sph_t0.append(t0)
+                sph_t1.append(t1)
+                sph_inst.append(ii)
+                sphere_animated.append(animated)
+                for mm in ((m0, m1) if animated else (m0,)):
+                    c = mm[:3, 3]
+                    r = float(np.linalg.norm(mm[:3, :3], 2))
+                    all_pts.append(c[None, :] + np.array(
+                        [[-r, -r, -r], [r, r, r]]))
+                continue
+
+            mesh = sh.mesh
+            f = mesh.faces
+            v = mesh.vertices
+            nt = f.shape[0]
+            if animated:
+                cols = a_cols
+                vv = v
+                for mm in (m0, m1):
+                    all_pts.append(v @ mm[:3, :3].T + mm[:3, 3])
+            else:
+                cols = s_cols
+                vv = v @ m0[:3, :3].T + m0[:3, 3]
+                all_pts.append(vv)
+                static_ranges[ii] = (sum(a.shape[0] for a in s_cols["inst"]),
+                                     nt)
+            p0, p1, p2 = vv[f[:, 0]], vv[f[:, 1]], vv[f[:, 2]]
+            e1 = p1 - p0
+            e2 = p2 - p0
+            if mesh.normals is not None:
+                if animated:
+                    nrm = mesh.normals
+                else:
+                    nrm = mesh.normals @ np.linalg.inv(m0[:3, :3])
+                    nrm = nrm / np.maximum(
+                        np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+                n0, n1, n2 = nrm[f[:, 0]], nrm[f[:, 1]], nrm[f[:, 2]]
+            else:
+                gn = np.cross(e1, e2)
+                gn = gn / np.maximum(
+                    np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+                n0 = n1 = n2 = gn
+            if mesh.uvs is not None:
+                uv0, uv1, uv2 = (mesh.uvs[f[:, 0]], mesh.uvs[f[:, 1]],
+                                 mesh.uvs[f[:, 2]])
+            else:
+                uv0 = uv1 = uv2 = np.zeros((nt, 2))
+            data = {"inst": np.full(nt, ii, np.int32),
+                    "prim": np.arange(nt, dtype=np.int32)}
+            for name, arr in (("v0", p0), ("e1", e1), ("e2", e2),
+                              ("n0", n0), ("n1", n1), ("n2", n2)):
+                for j, c in enumerate("xyz"):
+                    data[name + c] = arr[:, j]
+            for name, arr in (("uv0", uv0), ("uv1", uv1), ("uv2", uv2)):
+                data[name + "u"], data[name + "v"] = arr[:, 0], arr[:, 1]
+            for c in _TRI_COLS + _TRI_INT_COLS:
+                cols[c].append(data[c])
+            if animated:
+                start = sum(r[2] for r in anim_ranges)
+                anim_ranges.append((ii, start, nt))
+
+        def pack(cols, prefix, out):
+            nt = sum(a.shape[0] for a in cols["inst"])
+            for c in _TRI_COLS + _TRI_INT_COLS:
+                is_int = c in _TRI_INT_COLS
+                if nt > 0:
+                    cat = np.concatenate(cols[c], axis=0)
+                else:
+                    cat = np.full((1,), -1) if is_int else np.zeros((1,))
+                out[prefix + c] = cat.astype(np.int32 if is_int
+                                             else np.float32)
+            return nt
+
+        arrays: Dict[str, np.ndarray] = {}
+        n_static = pack(s_cols, "s_", arrays)
+        n_anim = pack(a_cols, "a_", arrays)
+
+        # mesh-area-emitter triangle CDFs; animated shapes sample their
+        # object-space CDF (meta: emitter, tri start, count, cdf offset,
+        # animated, instance)
+        mesh_em_meta = []
+        cdf_parts = []
+        cdf_off = 0
+        for ei, shp in mesh_emitter_shapes.items():
+            ii = self.shapes.index(shp)
+            if shp.to_world.animated:
+                rng_a = next(r for r in anim_ranges if r[0] == ii)
+                start, cnt = rng_a[1], rng_a[2]
+                areas = shp.mesh.surface_areas(np.eye(4))
+                anim = 1
+            else:
+                start, cnt = static_ranges[ii]
+                areas = shp.mesh.surface_areas(shp.to_world.matrices()[0])
+                anim = 0
+            cdf_parts.append(np.cumsum(areas / max(areas.sum(), 1e-20)))
+            mesh_em_meta.append((ei, start, cnt, cdf_off, anim, ii))
+            cdf_off += cnt
+
+        pts = np.concatenate(all_pts, axis=0) if all_pts else np.zeros((1, 3))
+        center = 0.5 * (pts.min(0) + pts.max(0))
+        radius = float(np.linalg.norm(pts - center, axis=-1).max()) + 1e-3
+
+        def stack_t(rows, empty):
+            return np.stack(rows).T if rows else empty
+
+        f32, i32 = np.float32, np.int32
+        arrays.update(
+            inst_m0c=stack_t(inst_m0, np.zeros((12, 1))).astype(f32),
+            inst_m1c=stack_t(inst_m1, np.zeros((12, 1))).astype(f32),
+            inst_t0=np.asarray(inst_t0 or [0.0], f32),
+            inst_t1=np.asarray(inst_t1 or [1.0], f32),
+            inst_bsdf=np.asarray(inst_bsdf or [0], i32),
+            inst_emitter=np.asarray(inst_emitter or [-1], i32),
+            inst_nsign=np.asarray(inst_nsign or [1.0], f32),
+            bsdf_type=bsdf_type,
+            bsdf_params=bsdf_params.astype(f32),
+            emitter_type=emitter_type,
+            emitter_params=emitter_params.astype(f32),
+            emitter_m=emitter_m.astype(f32),
+            sph_m0c=stack_t(sph_m0, np.zeros((12, 1))).astype(f32),
+            sph_m1c=stack_t(sph_m1, np.zeros((12, 1))).astype(f32),
+            sph_t0=np.asarray(sph_t0 or [0.0], f32),
+            sph_t1=np.asarray(sph_t1 or [1.0], f32),
+            sph_inst=np.asarray(sph_inst or [-1], i32),
+            em_tri_cdf=(np.concatenate(cdf_parts) if cdf_parts
+                        else np.ones(1)).astype(f32),
+            bsphere_radius=np.asarray(radius, f32),
+            bsphere_center=np.asarray(center, f32),
+        )
+        meta = dict(
+            n_static_tris=n_static,
+            n_anim_tris=n_anim,
+            anim_ranges=tuple(anim_ranges),
+            bsdf_types_present=tuple(sorted(set(int(t) for t in bsdf_type))),
+            emitter_types_present=tuple(sorted(set(
+                int(t) for t in emitter_type))),
+            n_emitters=n_emitters,
+            bsdf_flags_host=tuple(int(f) for f in bsdf_flags),
+            n_spheres=len(sph_inst),
+            sphere_animated=tuple(sphere_animated),
+            mesh_em_meta=tuple(mesh_em_meta),
+            any_flip=any(s < 0.0 for s in inst_nsign),
+        )
+        return arrays, meta
+
+
+# ---------------------------------------------------------------------------
+# Ray queries
+# ---------------------------------------------------------------------------
+
+def build_si(sa: SceneArrays, ray: Ray, hit, active=None) -> SurfaceInteraction:
+    """The SurfaceInteraction from the hit payload — elementwise only
+    (reference compute_surface_interaction)."""
+    valid = hit.prim >= 0
+    if active is not None:
+        valid = valid & active
+    t = torch.where(valid, hit.t, float("inf"))
+    p = ray.o + ray.d * torch.where(valid, hit.t, 0.0)
+    ng = normalize(Vec3(hit.gnx, hit.gny, hit.gnz))
+    ns = normalize(Vec3(hit.nsx, hit.nsy, hit.nsz))
+    if sa.any_flip:
+        # per-instance flip_normals (reference shape.cpp)
+        sgn = sa.inst_nsign[torch.clamp(hit.inst, min=0).long()]
+        ng = ng * sgn
+        ns = ns * sgn
+    sh_s, sh_t = coordinate_system(ns)
+    wi_world = -ray.d
+    wi = Vec3(dot(wi_world, sh_s), dot(wi_world, sh_t), dot(wi_world, ns))
+    return SurfaceInteraction(
+        valid=valid, t=t, p=p, n=ng, sh_n=ns, sh_s=sh_s, sh_t=sh_t,
+        uv_u=hit.uv_u, uv_v=hit.uv_v, wi=wi,
+        inst=torch.where(valid, hit.inst, -1),
+        prim=torch.where(valid, hit.prim, -1), time=ray.time,
+        b_u=hit.u, b_v=hit.v)
+
+
+def ray_intersect(sa: SceneArrays, ray: Ray, active=None) -> SurfaceInteraction:
+    """Full surface-interaction query (reference scene.cpp:125-137). The
+    closest hit comes from ``ops.intersect_kernel.intersect``: the CUDA
+    kernel for tensors on the card, its plain version for CPU tensors."""
+    from ..ops.intersect_kernel import intersect
+    return build_si(sa, ray, intersect(sa, ray), active)
+
+
+def ray_test(sa: SceneArrays, ray: Ray, active=None):
+    """Shadow/any-hit query (reference scene.cpp ray_test)."""
+    from ..ops.intersect_kernel import ray_test as occluded_fn
+    occluded = occluded_fn(sa, ray)
+    if active is not None:
+        occluded = occluded & active
+    return occluded
+
+
+__all__ = ["Scene", "SceneArrays", "from_jax_scene_arrays", "build_si",
+           "ray_intersect", "ray_test"]

@@ -1,0 +1,272 @@
+"""The PyTorch port's brute-force intersection (kernel B1's plain version,
+mitsuba3dopplertof_tpu_torch/ops/intersect_kernel.py) against the JAX
+package: its oracle ``render/scene.py:_hit_reference`` and the Pallas
+kernel ``intersect_pallas`` / ``ray_test_pallas`` run in interpret mode on
+the CPU, as tests/test_pallas_parity.py runs them. Both sides get the same
+compiled tables (``from_jax_scene_arrays``) and the same rays, made with
+numpy. The CUDA kernel itself runs only on the card
+(tests/test_torch_cuda.py)."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mitsuba3dopplertof_tpu as mj
+from mitsuba3dopplertof_tpu.core import transform as tf
+from mitsuba3dopplertof_tpu.core.transform import AnimatedTransform
+from mitsuba3dopplertof_tpu.core.vec import Vec3 as JVec3
+from mitsuba3dopplertof_tpu.ops import intersect_kernel as jik
+from mitsuba3dopplertof_tpu.render.scene import _hit_reference
+from mitsuba3dopplertof_tpu.render.types import Ray as JRay
+
+import mitsuba3dopplertof_tpu_torch as mt
+from mitsuba3dopplertof_tpu_torch.core.transform import \
+    AnimatedTransform as TAnimatedTransform
+from mitsuba3dopplertof_tpu_torch.core.vec import Vec3 as TVec3
+from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as tik
+from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
+                                                       from_jax_scene_arrays)
+from mitsuba3dopplertof_tpu_torch.render.types import Ray as TRay
+
+CANONICAL = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scenes", "canonical", "scene.xml")
+
+
+def _scene_dict(animated=True, spheres=True, light=True,
+                anim_cls=AnimatedTransform):
+    """tests/test_pallas_parity.py::_scene (small regime), rebuilt here.
+    ``anim_cls``: the AnimatedTransform of the package that loads it."""
+
+    def _anim(m_from, m_to, t0=0.0, t1=1.0):
+        return anim_cls([(t0, m_from), (t1, m_to)])
+
+    d = {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 2},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": tf.look_at([0, 0, -6], [0, 0, 0], [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": 8, "height": 8},
+                   "sampler": {"type": "independent", "sample_count": 1}},
+        "floor": {"type": "rectangle",
+                  "to_world": tf.translate([0, -2, 0])
+                  @ tf.rotate([1, 0, 0], -90) @ tf.scale([4, 4, 1])},
+        "back": {"type": "rectangle", "to_world": tf.translate([0, 0, 4])
+                 @ tf.scale([4, 4, 1])},
+    }
+    if light:
+        d["light"] = {"type": "point", "position": [0, 4, -4],
+                      "intensity": {"type": "rgb", "value": 10.0}}
+    if animated:
+        d["mover"] = {"type": "cube", "to_world": _anim(
+            tf.translate([-1.5, 0, 1]) @ tf.scale([0.5] * 3)
+            @ tf.rotate([0, 1, 0], 10),
+            tf.translate([-1.5, 1.0, 1]) @ tf.scale([0.5] * 3)
+            @ tf.rotate([0, 1, 0], 55))}
+        d["mover2"] = {"type": "cube", "to_world": _anim(
+            tf.translate([1.2, -0.5, 0]) @ tf.scale([0.4] * 3),
+            tf.translate([1.2, -0.5, 2]) @ tf.scale([0.4] * 3),
+            t0=0.2, t1=0.8)}
+    if spheres:
+        d["ball"] = {"type": "sphere", "center": [0.0, 1.5, 1.0],
+                     "radius": 0.6}
+        d["movingball"] = {"type": "sphere", "to_world": _anim(
+            tf.translate([0.5, -1.0, 0.5]) @ tf.scale([0.45] * 3),
+            tf.translate([-0.5, -1.0, 0.5]) @ tf.scale([0.45] * 3))}
+    return d
+
+
+def _shell_rays(n, seed):
+    """tests/test_pallas_parity.py::_rays: rays from a shell around the
+    scene, a quarter of them with finite maxt, times in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3.0, 3.0, (n, 3))
+    o[:, 2] -= 5.0
+    dd = rng.uniform(-2.0, 2.0, (n, 3)) - o
+    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
+    maxt = np.full(n, np.inf)
+    k = n // 4
+    maxt[:k] = rng.uniform(3.0, 9.0, k)
+    return o, dd, rng.uniform(0.0, 1.0, n), maxt
+
+
+def _box_rays(n, seed):
+    """Rays inside the canonical Cornell box, times over its exposure."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9, 0.9, (n, 3))
+    o[:, 2] = rng.uniform(0.5, 3.5, n)
+    dd = rng.uniform(-1.0, 1.0, (n, 3)) - o
+    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
+    maxt = np.full(n, np.inf)
+    k = n // 4
+    maxt[:k] = rng.uniform(0.5, 4.0, k)
+    return o, dd, rng.uniform(0.0, 0.0015, n), maxt
+
+
+def _both_rays(o, d, time, maxt):
+    f32 = np.float32
+    jr = JRay(JVec3(*(jnp.asarray(o[:, i], jnp.float32) for i in range(3))),
+              JVec3(*(jnp.asarray(d[:, i], jnp.float32) for i in range(3))),
+              jnp.asarray(time, jnp.float32), jnp.asarray(maxt, jnp.float32))
+    tr = TRay(TVec3(*(torch.from_numpy(o[:, i].astype(f32))
+                      for i in range(3))),
+              TVec3(*(torch.from_numpy(d[:, i].astype(f32))
+                      for i in range(3))),
+              torch.from_numpy(time.astype(f32)),
+              torch.from_numpy(maxt.astype(f32)))
+    return jr, tr
+
+
+def _port_tables(sa_j):
+    arrays = {k: np.asarray(getattr(sa_j, k)) for k in SceneArrays.ARRAY_FIELDS}
+    return from_jax_scene_arrays(arrays, sa_j)
+
+
+def _np_hit(h):
+    return {f: np.asarray(getattr(h, f)) for f in tik.HitRecord._fields}
+
+
+def _assert_hits_match(hp, hr, label, rtol=2e-4, sphere_uv=True):
+    """tests/test_pallas_parity.py::_assert_hits_match; with
+    ``sphere_uv=False`` the uv of sphere hits is left out (the Pallas
+    kernel's polynomial atan2/acos differ from atan2f/acosf by ~1e-5 rad)."""
+    hp, hr = _np_hit(hp), _np_hit(hr)
+    both_miss = (hp["prim"] < 0) & (hr["prim"] < 0)
+    t_close = np.isclose(hp["t"], hr["t"], rtol=rtol, atol=1e-5) | both_miss
+    assert t_close.all(), (label, "t mismatch", (~t_close).sum())
+    same_prim = hp["prim"] == hr["prim"]
+    m = same_prim & ~both_miss
+    assert (hp["inst"][m] == hr["inst"][m]).all(), label
+    for f in ("u", "v", "uv_u", "uv_v"):
+        mm = m
+        if f.startswith("uv") and not sphere_uv:
+            mm = m & (hr["prim"] < tik._SPH_SLOT_BASE)
+        assert np.allclose(hp[f][mm], hr[f][mm], rtol=1e-3, atol=1e-4), \
+            (label, f)
+    for pre in ("gn", "ns"):
+        ap = np.stack([hp[pre + c][m] for c in "xyz"], -1)
+        ar = np.stack([hr[pre + c][m] for c in "xyz"], -1)
+        ap /= np.maximum(np.linalg.norm(ap, axis=-1, keepdims=True), 1e-20)
+        ar /= np.maximum(np.linalg.norm(ar, axis=-1, keepdims=True), 1e-20)
+        assert ((ap * ar).sum(-1) > 1.0 - 1e-4).all(), (label, pre)
+    bad = ~same_prim & ~both_miss
+    assert np.isclose(hp["t"][bad], hr["t"][bad], rtol=1e-3).all(), \
+        (label, "prim mismatch at non-tie", bad.sum())
+    return m.sum()
+
+
+SCENES = {
+    "static": dict(animated=False, spheres=False),
+    "animated": dict(animated=True, spheres=False),
+    "spheres": dict(animated=False, spheres=True),
+    "animated_spheres": dict(animated=True, spheres=True),
+}
+
+
+def _load(name):
+    if name == "canonical":
+        return mj.load_file(CANONICAL, spp=4, resx=8, resy=8).compile(), \
+            _box_rays(1024, seed=21)
+    return mj.load_dict(_scene_dict(**SCENES[name])).compile(), \
+        _shell_rays(1024, seed=7)
+
+
+@pytest.mark.parametrize("name", ["canonical"] + list(SCENES))
+def test_plain_matches_jax_oracle(name):
+    sa_j, rays = _load(name)
+    jr, tr = _both_rays(*rays)
+    sa_t = _port_tables(sa_j)
+    hr = _hit_reference(sa_j, jr)
+    n_hit = _assert_hits_match(tik.intersect_reference(sa_t, tr), hr,
+                               f"{name} vs _hit_reference")
+    assert n_hit > 200, "too few hits to test anything"
+    # occlusion: exact
+    occ_t = tik.ray_test_reference(sa_t, tr).numpy()
+    assert (occ_t == (np.asarray(hr.prim) >= 0)).all()
+
+
+def test_plain_matches_pallas_kernel():
+    """Against the Pallas kernel itself, closest-hit and any-hit, on the
+    main path's scene (interpret mode takes ~10-20 s a form on the CPU, so
+    the other scenes are held against the oracle only; the JAX package's
+    own tests hold the oracle against the Pallas kernel on them)."""
+    sa_j, rays = _load("canonical")
+    jr, tr = _both_rays(*rays)
+    sa_t = _port_tables(sa_j)
+    hp = jik.intersect_pallas(sa_j, jr)
+    _assert_hits_match(tik.intersect_reference(sa_t, tr), hp,
+                       "canonical vs intersect_pallas", sphere_uv=False)
+    assert (tik.ray_test_reference(sa_t, tr).numpy()
+            == np.asarray(jik.ray_test_pallas(sa_j, jr))).all()
+
+
+def test_plain_time_clamp_and_maxt():
+    """Times outside the keyframe window clamp (transform.h:461-466); rays
+    shorter than the first hit miss."""
+    sa_j = mj.load_dict(_scene_dict(animated=True, spheres=False)).compile()
+    n = 256
+    o = np.tile([[-1.5, 0.0, -6.0]], (n, 1))
+    d = np.tile([[0.0, 0.0, 1.0]], (n, 1))
+    times = np.random.default_rng(5).uniform(-1.0, 2.0, n)
+    jr, tr = _both_rays(o, d, times, np.full(n, np.inf))
+    sa_t = _port_tables(sa_j)
+    _assert_hits_match(tik.intersect_reference(sa_t, tr),
+                       _hit_reference(sa_j, jr), "time clamp")
+    short = tr._replace(maxt=torch.full((n,), 1e-3))
+    assert (tik.intersect_reference(sa_t, short).prim == -1).all()
+    assert not tik.ray_test_reference(sa_t, short).any()
+
+
+@pytest.mark.parametrize("name", ["canonical", "animated_spheres"])
+def test_kernel_tables_match_jax(name):
+    """The tables the CUDA kernel reads are the Pallas kernel's (triangle,
+    instance and sphere records), and the port compiles the same scene to
+    the JAX package's SoA tables."""
+    sa_j, _ = _load(name)
+    tri, inst, anim, sph, sph_anim = tik.scene_tables(_port_tables(sa_j))
+    tri_j, inst_j, sph_j = jik.scene_tables(sa_j)
+    assert np.array_equal(tri.numpy(), np.asarray(tri_j))
+    if sa_j.anim_ranges:
+        assert np.array_equal(inst.numpy(), np.asarray(inst_j))
+    assert anim.tolist() == [list(r) for r in sa_j.anim_ranges]
+    if sa_j.n_spheres:
+        assert np.array_equal(sph.numpy(), np.asarray(sph_j))
+    assert sph_anim.tolist() == [int(a) for a in sa_j.sphere_animated]
+    if name != "canonical":
+        # the port's own compile (its loader has no point light yet)
+        sa_p = mt.load_dict(_scene_dict(
+            light=False, anim_cls=TAnimatedTransform)).compile()
+        sa_jl = mj.load_dict(_scene_dict(light=False)).compile()
+        for k in SceneArrays.ARRAY_FIELDS:
+            assert np.array_equal(getattr(sa_p, k).numpy(),
+                                  np.asarray(getattr(sa_jl, k))), k
+
+
+def test_wrapper_routes_cpu_to_plain_and_counts_only_launches():
+    sa_j, rays = _load("canonical")
+    _, tr = _both_rays(*rays)
+    sa_t = _port_tables(sa_j)
+    tik.reset_launch_counts()
+    h = tik.intersect(sa_t, tr)
+    occ = tik.ray_test(sa_t, tr)
+    assert tik.LAUNCHES == 0
+    ref = tik.intersect_reference(sa_t, tr)
+    for a, b in zip(h, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ref.prim >= 0)
+    # the kernel path takes CUDA tensors only: no silent CPU fallback
+    with pytest.raises(ValueError, match="need CUDA"):
+        tik._launch(sa_t, tr, any_hit=False)
+    with pytest.raises(ValueError, match="float32"):
+        tik.intersect(sa_t, tr._replace(time=tr.time.double()))
+
+
+def test_large_scene_raises():
+    sa_j, rays = _load("static")
+    sa_t = _port_tables(sa_j)
+    sa_t.n_static_tris = tik.STREAM_THRESHOLD + 1
+    _, tr = _both_rays(*rays)
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        tik.intersect(sa_t, tr)
