@@ -6,13 +6,14 @@ tested against), module for module. It imports torch and never jax.
 
     import mitsuba3dopplertof_tpu_torch as mi
     mi.set_variant("cuda_rgb")
-    mi.set_device("cuda")
     scene = mi.load_file("scenes/canonical/scene.xml")
     img = mi.render(scene, spp=1024, seed=0)      # (H, W, 3) tensor
 
-The device is explicit: ``set_device`` or the ``device=`` argument of
-``load_file``/``load_dict``/``render`` picks it, and the default is the CPU,
-as in torch. Nothing moves work from the card to the CPU on its own.
+Scenes load and render on the CUDA card unless the caller asks for the
+CPU, with ``set_device("cpu")`` or the ``device="cpu"`` argument of
+``load_file``/``load_dict``/``render``. Without a card, loading a scene on
+the default device raises: nothing falls back to the CPU on its own.
+Importing the package needs no card.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .io.dict_loader import load_dict as _load_dict
 from .io.xml import xml_to_dict
 from .render.scene import Scene
 
-_DEVICE = _torch.device("cpu")
+_DEVICE = _torch.device("cuda")
 
 # variant -> the ROADMAP item that ports it
 _VARIANTS = {
@@ -52,7 +53,8 @@ _VARIANT = "cuda_rgb"
 
 
 def set_device(device) -> _torch.device:
-    """Select the device scenes compile to and render on by default."""
+    """Select the device scenes compile to and render on by default
+    ("cuda" unless set)."""
     global _DEVICE
     _DEVICE = _torch.device(device)
     return _DEVICE

@@ -1,5 +1,6 @@
 """Emitter plugins and emitter sampling (port of the JAX package's
-``emitters/__init__.py``: the area emitter on rectangles and meshes).
+``emitters/__init__.py``: the point emitter and the area emitter on
+rectangles and meshes).
 
 Sampling follows the masked type dispatch over the compiled emitter table;
 the uniform emitter choice replicates reference src/render/scene.cpp:170-188
@@ -18,11 +19,13 @@ from ..core.vec import (Vec3, dot, cross, normalize, where3, cmat_lerp,
 from ..render.types import DirectionSample
 
 # type ids (the JAX package's numbering)
+EMITTER_POINT = 0         # point light (delta position)
 EMITTER_AREA_RECT = 1     # area emitter on a static rectangle
 EMITTER_AREA_MESH = 3     # area emitter on any other mesh (CDF-sampled)
 
 N_EMITTER_PARAMS = 16
-E_INTENSITY = 3    # rgb radiance
+E_POS = 0          # point: position
+E_INTENSITY = 3    # point: rgb intensity / area: rgb radiance
 E_AREA = 6         # total world-space surface area
 E_RAD_TEX = 8      # radiance texture id (-1 = constant)
 
@@ -31,6 +34,28 @@ class Emitter:
     def __init__(self, props: Properties):
         self.id = props.id
         self.shape = None       # set for area emitters during assembly
+
+
+@register_plugin("emitter", "point")
+class PointEmitter(Emitter):
+    """reference src/emitters/point.cpp — intensity / dist^2, a delta
+    light: NEE always samples it and no ray hits it."""
+    type_id = EMITTER_POINT
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        if props.has_property("position"):
+            self.position = props.get_vector("position")
+        else:
+            self.position = props.get_transform("to_world", np.eye(4))[:3, 3]
+        self.intensity = _get_rgb(props, "intensity", [1.0, 1.0, 1.0])
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_POS:E_POS + 3] = self.position
+        p[E_INTENSITY:E_INTENSITY + 3] = self.intensity
+        return p
 
 
 @register_plugin("emitter", "area")
@@ -93,7 +118,18 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
 
     best = None
     for tid in sa.emitter_types_present:
-        if tid == EMITTER_AREA_RECT:
+        if tid == EMITTER_POINT:
+            p = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
+            d = p - ref_p
+            dist2 = torch.clamp(dot(d, d), min=1e-20)
+            inv_dist = torch.rsqrt(dist2)
+            dist = dist2 * inv_dist
+            dirn = d * inv_dist
+            w = inv_dist * inv_dist
+            ds = DirectionSample(p, Vec3(z, z, z), dirn, dist,
+                                 torch.ones((n,), device=dev), ~false_,
+                                 index)
+        elif tid == EMITTER_AREA_RECT:
             lx = 2.0 * s_x - 1.0
             ly = 2.0 * s_y - 1.0
             p = Vec3(mrow(0) * lx + mrow(1) * ly + mrow(3),
@@ -201,6 +237,10 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
     lane_type = sa.emitter_type[idx]
     pdf = torch.zeros_like(ds.dist)
     for tid in sa.emitter_types_present:
+        if tid == EMITTER_POINT:
+            # a delta light: a BSDF-sampled direction never reaches it
+            pdf = torch.where(lane_type == tid, 0.0, pdf)
+            continue
         if tid not in (EMITTER_AREA_RECT, EMITTER_AREA_MESH):
             raise NotImplementedError(
                 f"emitter type {tid} is not ported yet "
@@ -252,7 +292,8 @@ def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter):
 
 
 __all__ = [
-    "Emitter", "AreaEmitter", "sample_direction", "pdf_direction",
-    "eval_emitter_hit", "N_EMITTER_PARAMS", "EMITTER_AREA_RECT",
-    "EMITTER_AREA_MESH", "E_INTENSITY", "E_AREA",
+    "Emitter", "PointEmitter", "AreaEmitter", "sample_direction",
+    "pdf_direction", "eval_emitter_hit", "N_EMITTER_PARAMS",
+    "EMITTER_POINT", "EMITTER_AREA_RECT", "EMITTER_AREA_MESH", "E_POS",
+    "E_INTENSITY", "E_AREA",
 ]

@@ -23,10 +23,9 @@ _CATEGORIES = ["integrator", "sensor", "sampler", "film", "rfilter", "shape",
 # plugins of the JAX package that the port does not have yet, by the
 # ROADMAP.md Queue A item that ports them
 _DEFERRED = {
-    "ROADMAP Queue A item 3": ("obj", "ply", "serialized", "shapegroup",
+    "ROADMAP Queue A item 3": ("ply", "serialized", "shapegroup",
                                "instance"),
     "ROADMAP Queue A item 4": ("timestratified",),
-    "ROADMAP Queue A item 5": ("point",),
     "ROADMAP Queue A item 6": ("velocity", "depth"),
     "ROADMAP Queue A item 9": ("checkerboard", "bitmap", "roughplastic",
                                "conductor", "null", "envmap",

@@ -1,35 +1,36 @@
-"""Brute-force ray intersection for scenes of at most 192 triangles: the
-CUDA kernel ``csrc/intersect_bruteforce.cu`` and its plain PyTorch version.
+"""Ray queries of the port: the B1 brute-force CUDA kernel
+``csrc/intersect_bruteforce.cu`` with its plain PyTorch version, and the
+routing of scenes above ``STREAM_THRESHOLD`` triangles to kernel B2.
 
 Port of the JAX package's ``ops/intersect_kernel.py`` (the Pallas kernel
-``_build_kernel``) and of its oracle ``render/scene.py:_hit_reference`` /
-``_spheres_reference``. Both forms compute, per ray, the closest hit (or
-any hit) over all static triangles in world space, every animated
-instance's triangles in its object space at the ray's own time, and the
-analytic unit spheres, with the full payload: t, slot, instance,
-barycentrics, world-space geometric and shading normals and uv.
+``_build_kernel``, ``intersect_pallas`` and ``ray_test_pallas``) and of its
+oracle ``render/scene.py:_hit_reference`` / ``_spheres_reference``. B1
+computes, per ray, the closest hit (or any hit) over all static triangles
+in world space, every animated instance's triangles in its object space at
+the ray's own time, and the analytic unit spheres, with the full payload:
+t, slot, instance, barycentrics, world-space geometric and shading normals
+and uv.
 
 Entry points (reference scene.cpp:125-167):
-  * ``intersect(sa, ray)`` — closest hit, full ``HitRecord``
-  * ``ray_test(sa, ray)``  — boolean any-hit
+  * ``intersect(sa, ray, active)`` — closest hit, full ``HitRecord``
+  * ``ray_test(sa, ray, active)``  — boolean any-hit
 
 A tensor on the CPU takes the plain version (``intersect_reference`` /
-``ray_test_reference``); a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches (all forms), ``LAUNCHES_BY_FORM`` per
-form.
+``ray_test_reference``) at every scene size, as the JAX package on the CPU
+takes ``_hit_reference``. On the card, scenes of at most
+``STREAM_THRESHOLD`` triangles launch B1; larger ones (the JAX package's
+``MI_STREAM_KERNEL=v4`` route) launch B2 (``ops/intersect_v4.py``) over
+binned rays (``ops/ray_binning.py``), rebuild the payload with
+``ops/intersect_mxu.payload_from_prim`` and merge the spheres-only pass of
+B1. A CUDA tensor launches the kernels or raises. ``LAUNCHES`` counts B1
+launches (all forms), ``LAUNCHES_BY_FORM`` per form.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import tempfile
-import time as _time
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -38,13 +39,23 @@ from ..core.vec import (Vec3, cross, dot, where3, cmat_lerp, cmat_inverse,
                         cmat_apply_point, cmat_apply_vector,
                         cmat_apply_transpose_vector)
 from ..render.types import Ray
+from .cuda_build import CudaLibrary
 
 INST_REC = 26                 # m0 (3x4), m1 (3x4), t0, t1
 _SPH_SLOT_BASE = 1 << 28      # prim slots >= this are analytic spheres
 
-# above this total triangle count the JAX package streams triangles
-# through its large-scene kernels, which the port does not have yet
+# above this total triangle count (static + animated) the card routes
+# triangles to the large-scene kernel B2 (JAX ops/intersect_kernel.py:427)
 STREAM_THRESHOLD = 192
+
+# MI_STREAM_KERNEL values of the JAX package and the ROADMAP Queue B row
+# that ports each; "v4" (B2, the default) is the one ported
+_STREAM_KERNELS = {"v4": None, "v1": "B3", "v2": "B4", "v3": "B5",
+                   "mxu": "B6"}
+
+# lanes x triangles per chunk of the plain scan (elements of one (N, C)
+# temporary)
+_SCAN_ELEMS = 1 << 24
 
 LAUNCHES = 0
 LAUNCHES_BY_FORM = {"closest_hit": 0, "any_hit": 0}
@@ -73,9 +84,21 @@ def reset_launch_counts():
         LAUNCHES_BY_FORM[k] = 0
 
 
-def _check_scene(sa):
-    if sa.n_static_tris + sa.n_anim_tris > STREAM_THRESHOLD:
-        raise NotImplementedError("large-scene kernel: ROADMAP B2")
+def is_large(sa) -> bool:
+    return sa.n_static_tris + sa.n_anim_tris > STREAM_THRESHOLD
+
+
+def stream_kernel() -> str:
+    """The large-scene kernel (MI_STREAM_KERNEL, default "v4" = B2). The
+    JAX package's alternates are not ported: they raise and never fall
+    back to B2."""
+    choice = os.environ.get("MI_STREAM_KERNEL", "v4")
+    row = _STREAM_KERNELS.get(choice, "B3")
+    if row is not None:
+        raise NotImplementedError(
+            f"MI_STREAM_KERNEL={choice}: that large-scene kernel is not "
+            f"ported yet (ROADMAP {row}); unset it to use B2 (v4)")
+    return choice
 
 
 # ---------------------------------------------------------------------------
@@ -91,31 +114,43 @@ _TRI_NAMES = _GEOM + ("n0x", "n0y", "n0z", "n1x", "n1y", "n1z",
 
 def _scan(o: Vec3, d: Vec3, maxt, cols, start: int, count: int, best_t,
           best_idx):
-    """Möller-Trumbore over triangles [start, start + count), one triangle
-    at a time against all lanes; strict ``t < best`` keeps the first slot
-    on ties. ``cols``: per-column Python lists of the float32 values."""
-    for i in range(start, start + count):
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (cols[c][i]
-                                                        for c in _GEOM)
-        px = d.y * e2z - d.z * e2y
-        py = d.z * e2x - d.x * e2z
-        pz = d.x * e2y - d.y * e2x
+    """Möller-Trumbore over triangles [start, start + count) against all
+    lanes, a chunk of triangles at a time ((N, C) tensors). Within a chunk
+    the first index of the smallest t wins, across chunks strict
+    ``t < best``: the first slot on ties, as the JAX package's sequential
+    ``_intersect_scan``. ``cols``: per-column (T,) tensors."""
+    n = o.x.shape[0]
+    step = max(1, min(count, _SCAN_ELEMS // max(n, 1)))
+    ox, oy, oz = o.x[:, None], o.y[:, None], o.z[:, None]
+    dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
+    mt = maxt[:, None]
+    for c0 in range(start, start + count, step):
+        c1 = min(c0 + step, start + count)
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+            cols[c][None, c0:c1] for c in _GEOM)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
         det = e1x * px + e1y * py + e1z * pz
         ok = torch.abs(det) > 1e-12
         inv_det = 1.0 / torch.where(ok, det, 1.0)
-        tx = o.x - v0x
-        ty = o.y - v0y
-        tz = o.z - v0z
+        tx = ox - v0x
+        ty = oy - v0y
+        tz = oz - v0z
         u = (tx * px + ty * py + tz * pz) * inv_det
         qx = ty * e1z - tz * e1y
         qy = tz * e1x - tx * e1z
         qz = tx * e1y - ty * e1x
-        v = (d.x * qx + d.y * qy + d.z * qz) * inv_det
+        v = (dx * qx + dy * qy + dz * qz) * inv_det
         t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
         hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-               & (t > 0.0) & (t < maxt) & (t < best_t))
-        best_t = torch.where(hit, t, best_t)
-        best_idx = torch.where(hit, i, best_idx)
+               & (t > 0.0) & (t < mt))
+        tm = torch.where(hit, t, float("inf"))
+        k = torch.argmin(tm, dim=1)
+        tk = torch.gather(tm, 1, k[:, None])[:, 0]
+        take = tk < best_t
+        best_t = torch.where(take, tk, best_t)
+        best_idx = torch.where(take, (k + c0).to(torch.int32), best_idx)
     return best_t, best_idx
 
 
@@ -127,6 +162,42 @@ def _lerped_matrix(m0c, m1c, t0, t1, time, k: int):
     u = torch.clamp((time - t0[k]) / denom, 0.0, 1.0)
     return cmat_lerp(tuple(m0c[j, k] for j in range(12)),
                      tuple(m1c[j, k] for j in range(12)), u)
+
+
+def _inv_lerped(mc0, mc1, tw0, tw1, time):
+    """Per-lane inverse of the clamped keyframe lerp of two 3x4 matrices
+    (JAX ops/intersect_kernel.py:68, reference transform.h:458-466), in
+    the kernels' order of operations. Returns (inv3x3 9-tuple, inv_t
+    3-tuple)."""
+    span = tw1 - tw0
+    denom = torch.where(span != 0.0, span, 1.0)
+    uu = torch.clamp((time - tw0) / denom, 0.0, 1.0)
+    c = [m0 * (1.0 - uu) + m1 * uu for m0, m1 in zip(mc0, mc1)]
+    a00, a01, a02, t0, a10, a11, a12, t1, a20, a21, a22, t2 = c
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    inv = 1.0 / det
+    i = (c00 * inv, c01 * inv, c02 * inv, c10 * inv, c11 * inv, c12 * inv,
+         c20 * inv, c21 * inv, c22 * inv)
+    nt0 = -(i[0] * t0 + i[1] * t1 + i[2] * t2)
+    nt1 = -(i[3] * t0 + i[4] * t1 + i[5] * t2)
+    nt2 = -(i[6] * t0 + i[7] * t1 + i[8] * t2)
+    return i, (nt0, nt1, nt2)
+
+
+def _miss_record(n: int, dev) -> HitRecord:
+    z = torch.zeros((n,), device=dev)
+    m1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    return HitRecord(torch.full((n,), float("inf"), device=dev), m1, m1,
+                     *([z] * 10))
 
 
 def _spheres_reference(sa, ray: Ray, hit: HitRecord) -> HitRecord:
@@ -172,13 +243,12 @@ def intersect_reference(sa, ray: Ray) -> HitRecord:
     """Plain closest hit with the full payload (the port of the JAX
     package's ``_hit_reference``): scanned brute force, then the winner's
     payload gathered and recomputed in its hit space."""
-    _check_scene(sa)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
     best_t = torch.full((n,), float("inf"), device=dev)
     best_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    s_cols = {c: sa.tri("s", c).tolist() for c in _GEOM}
-    a_cols = {c: sa.tri("a", c).tolist() for c in _GEOM}
+    s_cols = {c: sa.tri("s", c) for c in _GEOM}
+    a_cols = {c: sa.tri("a", c) for c in _GEOM}
 
     if sa.n_static_tris > 0:
         best_t, best_idx = _scan(ray.o, ray.d, ray.maxt, s_cols, 0,
@@ -266,62 +336,15 @@ def ray_test_reference(sa, ray: Ray):
 # The CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "intersect_bruteforce.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-BUILD_LOG = ""                # nvcc's output of the last build (ptxas -v)
-
-_lib = None
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build csrc/intersect_bruteforce.cu")
-
-
-def library_path() -> Path:
-    """The built library, keyed by a hash of the source and the flags."""
-    h = hashlib.sha256(SOURCE.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"intersect_bruteforce_{h}.so"
-
-
-def build() -> float:
-    """Compile the kernel if its library is missing and load it. Returns
-    the seconds spent compiling (0 when the library existed)."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return 0.0
-    so = library_path()
-    seconds = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = _time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        seconds = _time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib):
     fn = lib.mi_intersect_bruteforce
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 3)
-    _lib = lib
-    return seconds
+
+
+LIBRARY = CudaLibrary("intersect_bruteforce", _bind)
 
 
 def scene_tables(sa):
@@ -372,7 +395,9 @@ def _check_rays(ray: Ray):
     return comps, n
 
 
-def _launch(sa, ray: Ray, any_hit: bool):
+def _launch(sa, ray: Ray, any_hit: bool, spheres_only: bool = False):
+    """One launch of B1. ``spheres_only``: the analytic spheres alone (the
+    pass merged into large-scene hits, JAX ops/intersect_kernel.py:403)."""
     global LAUNCHES
     comps, n = _check_rays(ray)
     dev = comps[0].device
@@ -381,8 +406,11 @@ def _launch(sa, ray: Ray, any_hit: bool):
     if sa.device != dev:
         raise ValueError(f"intersect kernel: scene tables on {sa.device}, "
                          f"rays on {dev}")
-    build()
+    lib = LIBRARY.load()
     tri, inst, anim, sph, sph_anim = scene_tables(sa)
+    n_tri, n_static, n_anim = ((0, 0, 0) if spheres_only else
+                               (tri.shape[0], sa.n_static_tris,
+                                inst.shape[0]))
     if any_hit:
         outf = torch.empty((0,), device=dev)
         outi = torch.empty((1, n), dtype=torch.int32, device=dev)
@@ -392,10 +420,10 @@ def _launch(sa, ray: Ray, any_hit: bool):
     if n > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib.mi_intersect_bruteforce(
+            err = lib.mi_intersect_bruteforce(
                 tri.data_ptr(), inst.data_ptr(), anim.data_ptr(),
                 sph.data_ptr(), sph_anim.data_ptr(),
-                tri.shape[0], sa.n_static_tris, inst.shape[0], sph.shape[0],
+                n_tri, n_static, n_anim, sph.shape[0],
                 *(c.data_ptr() for c in comps), n, int(any_hit),
                 outf.data_ptr(), outi.data_ptr(), stream)
         if err != 0:
@@ -410,26 +438,85 @@ def _launch(sa, ray: Ray, any_hit: bool):
                      uu, vv)
 
 
-def intersect(sa, ray: Ray) -> HitRecord:
+# ---------------------------------------------------------------------------
+# Large scenes: B2 + binning + payload, merged with the spheres-only pass
+# ---------------------------------------------------------------------------
+
+def _spheres_pass(sa, ray: Ray, any_hit: bool):
+    """The analytic spheres alone: B1 with zero triangles on the card, its
+    plain version on the CPU."""
+    if ray.o.x.device.type == "cuda":
+        return _launch(sa, ray, any_hit, spheres_only=True)
+    hit = _spheres_reference(sa, ray, _miss_record(ray.o.x.shape[0],
+                                                   ray.o.x.device))
+    return hit.prim >= 0 if any_hit else hit
+
+
+def _large_prim(sa, ray: Ray, active, any_hit: bool):
+    """B2's (t, prim), over binned rays where binning pays (JAX
+    intersect_pallas:454-481)."""
+    from .intersect_v4 import BLOCK, intersect_v4
+    from .ray_binning import binned, should_bin
+    if should_bin(sa, ray.o.x.shape[0], BLOCK):
+        return binned(sa, ray, active,
+                      lambda r: list(intersect_v4(sa, r, any_hit=any_hit)))
+    return intersect_v4(sa, ray, any_hit=any_hit)
+
+
+def intersect_large(sa, ray: Ray, active=None) -> HitRecord:
+    """Closest hit of a scene above ``STREAM_THRESHOLD`` triangles, as the
+    card computes it (plain versions on the CPU)."""
+    from .intersect_mxu import payload_from_prim
+    t, prim = _large_prim(sa, ray, active, any_hit=False)
+    hit_s = payload_from_prim(sa, ray, t, prim)
+    if sa.n_spheres == 0:
+        return hit_s
+    hit_d = _spheres_pass(sa, ray, any_hit=False)
+    take_d = hit_d.t < hit_s.t
+    return HitRecord(*(torch.where(take_d, d, s_)
+                       for d, s_ in zip(hit_d, hit_s)))
+
+
+def ray_test_large(sa, ray: Ray, active=None):
+    """Occlusion in a scene above ``STREAM_THRESHOLD`` triangles, as the
+    card computes it (plain versions on the CPU)."""
+    occ = _large_prim(sa, ray, active, any_hit=True)[1] >= 0
+    if sa.n_spheres > 0:
+        occ = occ | _spheres_pass(sa, ray, any_hit=True)
+    return occ
+
+
+def intersect(sa, ray: Ray, active=None) -> HitRecord:
     """Closest hit with the full payload: the plain version for CPU
-    tensors, the CUDA kernel for tensors on the card."""
-    _check_scene(sa)
+    tensors; on the card B1, or B2 above ``STREAM_THRESHOLD`` triangles.
+    ``active`` (optional) only deadens lanes for binning; callers mask
+    the result themselves."""
     _check_rays(ray)
+    large = is_large(sa)
+    if large:
+        stream_kernel()
     if ray.o.x.device.type == "cpu":
         return intersect_reference(sa, ray)
+    if large:
+        return intersect_large(sa, ray, active)
     return _launch(sa, ray, any_hit=False)
 
 
-def ray_test(sa, ray: Ray):
-    """Occlusion flag: the plain version for CPU tensors, the CUDA kernel
-    (any-hit form) for tensors on the card."""
-    _check_scene(sa)
+def ray_test(sa, ray: Ray, active=None):
+    """Occlusion flag: the plain version for CPU tensors; on the card B1's
+    or B2's any-hit form."""
     _check_rays(ray)
+    large = is_large(sa)
+    if large:
+        stream_kernel()
     if ray.o.x.device.type == "cpu":
         return ray_test_reference(sa, ray)
+    if large:
+        return ray_test_large(sa, ray, active)
     return _launch(sa, ray, any_hit=True)
 
 
 __all__ = ["HitRecord", "intersect", "ray_test", "intersect_reference",
-           "ray_test_reference", "scene_tables", "build", "LAUNCHES",
+           "ray_test_reference", "intersect_large", "ray_test_large",
+           "scene_tables", "LIBRARY", "LAUNCHES",
            "LAUNCHES_BY_FORM", "STREAM_THRESHOLD"]

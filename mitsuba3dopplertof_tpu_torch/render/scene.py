@@ -63,11 +63,18 @@ class SceneArrays:
             a = np.asarray(arrays[k])
             dt = torch.int32 if a.dtype.kind in "iu" else torch.float32
             setattr(self, k, torch.tensor(a, dtype=dt, device=device))
+        # (n_chunks, 6) world AABBs of the 32-triangle chunks
+        # (ops/intersect_stream.chunk_aabbs), which B2 and ray binning cull
+        # with; None when the scene carries none
+        box = arrays.get("chunk_aabb")
+        self.chunk_aabb = (None if box is None else torch.tensor(
+            np.asarray(box), dtype=torch.float32, device=device))
         # the tensors' own device: "cuda" resolves to "cuda:<current>"
         self.device = self.inst_t0.device
         for k in self.META_FIELDS:
             setattr(self, k, meta[k])
-        self._tables = None
+        self._tables = None     # B1's tables (ops/intersect_kernel)
+        self._cache = {}        # the large-scene tables (ops/intersect_v4)
 
     def tri(self, prefix: str, col: str):
         return getattr(self, prefix + "_" + col)
@@ -81,15 +88,18 @@ def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
                           device="cpu") -> SceneArrays:
     """The port's tables from the JAX package's compiled ``SceneArrays``,
     given as numpy arrays (``arrays``, by field name) and its metadata
-    (``meta``: a mapping or an object with the same attributes). Raises
-    NotImplementedError for scenes using features the port lacks."""
+    (``meta``: a mapping or an object with the same attributes), and its
+    ``chunk_aabb`` (from ``arrays`` or ``meta``). The JAX package's BVHs
+    (``bvh``, ``anim_blas``) are left behind: the card does not use them.
+    Raises NotImplementedError for scenes using features the port lacks."""
     get = (meta.get if isinstance(meta, dict)
            else lambda k, d=None: getattr(meta, k, d))
     for k, item in SceneArrays._UNPORTED_META.items():
         if get(k, None):
             raise NotImplementedError(f"scene uses '{k}' ({item})")
-    if get("bvh", None) is not None:
-        raise NotImplementedError("large-scene kernel: ROADMAP B2")
+    arrays = dict(arrays)
+    if arrays.get("chunk_aabb") is None and get("chunk_aabb") is not None:
+        arrays["chunk_aabb"] = np.asarray(get("chunk_aabb"))
     return SceneArrays(arrays, {k: get(k) for k in SceneArrays.META_FIELDS},
                        device)
 
@@ -126,6 +136,11 @@ class Scene:
         self.integrator = integrator
         self.device = torch.device(device if device is not None
                                    else get_device())
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "the scene's device is CUDA (the default), but no CUDA "
+                "device is available: pass device='cpu' or call "
+                "set_device('cpu') to render on the CPU")
         self._host: Optional[Tuple[dict, dict]] = None
         self._compiled: Dict[str, SceneArrays] = {}
 
@@ -146,6 +161,7 @@ class Scene:
         from ..bsdfs import Diffuse
         from ..core.properties import Properties
         from ..emitters import E_AREA, EMITTER_AREA_MESH, N_EMITTER_PARAMS
+        from ..ops.intersect_stream import chunk_aabbs
         from ..shapes import RectangleShape
 
         # --- BSDF table (deduplicated by identity) -----------------------
@@ -172,15 +188,17 @@ class Scene:
                     "area emitters on spheres are not ported yet "
                     "(ROADMAP Queue A item 5)")
             row = em.params_row()
-            m0 = em.shape.to_world.matrices()[0]
-            row[E_AREA] = float(np.sum(em.shape.mesh.surface_areas(m0)))
             etype = em.type_id
-            if (not isinstance(em.shape, RectangleShape)
-                    or em.shape.to_world.animated):
-                # animated rect emitters also take the mesh-CDF path so
-                # their sampled points follow the keyframe lerp
-                etype = EMITTER_AREA_MESH
-                mesh_emitter_shapes[ei] = em.shape
+            m0 = np.eye(4)           # emitters without a shape (point)
+            if em.shape is not None:
+                m0 = em.shape.to_world.matrices()[0]
+                row[E_AREA] = float(np.sum(em.shape.mesh.surface_areas(m0)))
+                if (not isinstance(em.shape, RectangleShape)
+                        or em.shape.to_world.animated):
+                    # animated rect emitters also take the mesh-CDF path
+                    # so their sampled points follow the keyframe lerp
+                    etype = EMITTER_AREA_MESH
+                    mesh_emitter_shapes[ei] = em.shape
             emitter_rows.append(row)
             emitter_types.append(etype)
             emitter_mats.append(m0[:3, :4].reshape(-1))
@@ -328,6 +346,24 @@ class Scene:
         def stack_t(rows, empty):
             return np.stack(rows).T if rows else empty
 
+        # per-chunk world AABBs for B2's culling and ray binning
+        def cat3(cols, a, b, c):
+            if not cols[a]:
+                return np.zeros((0, 3), np.float32)
+            return np.stack([np.concatenate(cols[a]), np.concatenate(cols[b]),
+                             np.concatenate(cols[c])], axis=1)
+
+        arrays["chunk_aabb"] = chunk_aabbs(
+            n_static, tuple(anim_ranges),
+            cat3(s_cols, "v0x", "v0y", "v0z"),
+            cat3(s_cols, "e1x", "e1y", "e1z"),
+            cat3(s_cols, "e2x", "e2y", "e2z"),
+            cat3(a_cols, "v0x", "v0y", "v0z"),
+            cat3(a_cols, "e1x", "e1y", "e1z"),
+            cat3(a_cols, "e2x", "e2y", "e2z"),
+            [np.asarray(inst_m0[i]).reshape(3, 4) for i, _, _ in anim_ranges],
+            [np.asarray(inst_m1[i]).reshape(3, 4) for i, _, _ in anim_ranges])
+
         f32, i32 = np.float32, np.int32
         arrays.update(
             inst_m0c=stack_t(inst_m0, np.zeros((12, 1))).astype(f32),
@@ -402,15 +438,15 @@ def build_si(sa: SceneArrays, ray: Ray, hit, active=None) -> SurfaceInteraction:
 def ray_intersect(sa: SceneArrays, ray: Ray, active=None) -> SurfaceInteraction:
     """Full surface-interaction query (reference scene.cpp:125-137). The
     closest hit comes from ``ops.intersect_kernel.intersect``: the CUDA
-    kernel for tensors on the card, its plain version for CPU tensors."""
+    kernels for tensors on the card, the plain version for CPU tensors."""
     from ..ops.intersect_kernel import intersect
-    return build_si(sa, ray, intersect(sa, ray), active)
+    return build_si(sa, ray, intersect(sa, ray, active), active)
 
 
 def ray_test(sa: SceneArrays, ray: Ray, active=None):
     """Shadow/any-hit query (reference scene.cpp ray_test)."""
     from ..ops.intersect_kernel import ray_test as occluded_fn
-    occluded = occluded_fn(sa, ray)
+    occluded = occluded_fn(sa, ray, active)
     if active is not None:
         occluded = occluded & active
     return occluded

@@ -1,10 +1,10 @@
 """Shape plugins (port of the JAX package's ``shapes/__init__.py``: the
-triangle-mesh base, rectangle, cube and the analytic sphere).
+triangle-mesh base, rectangle, cube, OBJ meshes and the analytic sphere).
 
 Every shape is an indexed triangle mesh in object space (or an analytic
 unit sphere) plus a possibly animated to_world transform, so static and
 animated shapes compile into the same tables. Reference plugins:
-src/shapes/{rectangle,cube,sphere}.cpp.
+src/shapes/{rectangle,cube,obj,sphere}.cpp.
 """
 
 from __future__ import annotations
@@ -119,6 +119,21 @@ class CubeShape(Shape):
         self.mesh = make_cube()
 
 
+@register_plugin("shape", "obj")
+class ObjShape(Shape):
+    """Triangle mesh from a Wavefront OBJ file (reference
+    src/shapes/obj.cpp). Above 64 faces the compiler Morton-orders them,
+    as the JAX package does (render/scene.py)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..core.fresolver import resolve_filename
+        from ..io.mesh_loaders import load_obj
+        filename = resolve_filename(props.get_string("filename"))
+        props.mark_queried("face_normals")
+        self.mesh = load_obj(filename)
+
+
 @register_plugin("shape", "sphere")
 class SphereShape(Shape):
     """Analytic unit sphere under its to_world transform (reference
@@ -142,4 +157,4 @@ class SphereShape(Shape):
 
 
 __all__ = ["Shape", "Mesh", "make_rectangle", "make_cube", "RectangleShape",
-           "CubeShape", "SphereShape"]
+           "CubeShape", "ObjShape", "SphereShape"]

@@ -1,8 +1,8 @@
-"""Tests of the PyTorch port that need an NVIDIA GPU: the B1 CUDA kernel
-(csrc/intersect_bruteforce.cu) against its plain PyTorch version, and a
-small render on the card against the same render on the CPU. They skip
-without a card. This file imports only the port (no jax), so it also runs
-on a machine without the JAX package:
+"""Tests of the PyTorch port that need an NVIDIA GPU: the B1 and B2 CUDA
+kernels (csrc/intersect_bruteforce.cu, csrc/intersect_v4.cu) against their
+plain PyTorch versions, and small renders on the card against the same
+renders on the CPU. They skip without a card. This file imports only the
+port (no jax), so it also runs on a machine without the JAX package:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -18,7 +18,12 @@ from mitsuba3dopplertof_tpu_torch.core import transform as tf
 from mitsuba3dopplertof_tpu_torch.core.transform import AnimatedTransform
 from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
 from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as ik
+from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
+from mitsuba3dopplertof_tpu_torch.ops.intersect_mxu import payload_from_prim
+from mitsuba3dopplertof_tpu_torch.ops.ray_binning import binned
 from mitsuba3dopplertof_tpu_torch.render.types import Ray
+from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
+    animated_mesh_scene, static_mesh_scene, write_uv_sphere_obj)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
@@ -101,6 +106,108 @@ def test_render_on_card_matches_cpu(cuda):
     bits between the devices)."""
     imgs = [mt.render(mt.load_file(CANONICAL, device=dev, spp=16, resx=16,
                                    resy=16), spp=16, seed=0).cpu().numpy()
+            for dev in (cuda, "cpu")]
+    g, c = imgs
+    scale = np.abs(c).max()
+    close = np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale)
+    assert close.mean() >= 0.99
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())
+
+
+def _mesh_scene(device, tmp_path, animated, nu=48, nv=32, spp=4, res=16):
+    """bench_suite's animated (dopplertofpath) or static (path) UV-sphere
+    scene, 2 nu nv triangles."""
+    obj = tmp_path / f"sph_{nu}x{nv}.obj"
+    write_uv_sphere_obj(str(obj), nu, nv)
+    d = (animated_mesh_scene(str(obj), spp=spp, res=res) if animated
+         else static_mesh_scene(str(obj), spp=spp, res=res))
+    return mt.load_dict(d, device=device)
+
+
+@pytest.mark.parametrize("animated", [True, False])
+def test_v4_kernel_matches_plain(cuda, tmp_path, animated):
+    """B2 against its plain version on 3,072 triangles: the same lanes hit
+    (closest-hit and any-hit), t bit for bit on hit lanes (--fmad=false,
+    the same order of operations), prim different only where t ties; the
+    kernel over binned rays gives the same result."""
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    assert sa.n_static_tris + sa.n_anim_tris > ik.STREAM_THRESHOLD
+    ray = _rays(1 << 16, 3, cuda, -4.0, 0.0015 if animated else 0.0)
+    v4.reset_launch_counts()
+    t_k, p_k = v4.intersect_v4(sa, ray)
+    _, p_any = v4.intersect_v4(sa, ray, any_hit=True)
+    torch.cuda.synchronize()
+    assert v4.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    t_r, p_r = v4.intersect_v4_reference(sa, ray)
+    hit = p_r >= 0
+    assert int(hit.sum()) > 5000
+    assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
+    assert torch.equal(t_k[hit], t_r[hit])
+    assert int((p_k != p_r).sum()) <= 20
+    t_b, p_b = binned(sa, ray, None, lambda r: list(v4.intersect_v4(sa, r)))
+    assert torch.equal(t_b, t_k)
+    assert int((p_b != p_k).sum()) <= 20
+
+
+def test_large_scene_route_matches_plain(cuda, tmp_path):
+    """The card's large-scene route (binned B2, payload, B1's spheres-only
+    pass) against the same route built from plain versions (B2's plain
+    version, the payload rebuild, the plain spheres): equal on triangle
+    hits, spheres within atan2f/acosf rounding. Against the plain Möller
+    intersector: the same lanes hit, t to 2e-4, the same prim on > 99% of
+    hits, and barycentrics of equal prims within 1e-3 on >= 99.9% of them
+    (the rebuild solves a 2x2 Gram system at the hit point, which loses
+    digits on sliver triangles near the poles)."""
+    obj = tmp_path / "sph_48x32.obj"
+    write_uv_sphere_obj(str(obj), 48, 32)
+    d = animated_mesh_scene(str(obj), spp=4, res=16)
+    d["ball"] = {"type": "sphere", "center": [1.2, 0.2, 0.5], "radius": 0.4}
+    sa = mt.load_dict(d, device=cuda).compile()
+    ray = _rays(1 << 16, 4, cuda, -4.0, 0.0015)
+    ik.reset_launch_counts()
+    v4.reset_launch_counts()
+    hk = ik.intersect(sa, ray)
+    occ = ik.ray_test(sa, ray)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    assert v4.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+
+    t_p, p_p = v4.intersect_v4_reference(sa, ray)
+    hp = payload_from_prim(sa, ray, t_p, p_p)
+    hp = ik._spheres_reference(sa, ray, hp)
+    tri = (hp.prim >= 0) & (hp.prim < ik._SPH_SLOT_BASE) \
+        & (hk.prim == hp.prim)
+    assert int(tri.sum()) > 0.99 * int(((hp.prim >= 0)
+                                        & (hp.prim < ik._SPH_SLOT_BASE)).sum())
+    for a, b in zip(hk, hp):
+        assert torch.equal(a[tri], b[tri])
+    sph = hp.prim >= ik._SPH_SLOT_BASE
+    assert torch.equal(hk.prim[sph], hp.prim[sph])
+    for a, b in zip(hk, hp):
+        assert torch.allclose(a[sph].float(), b[sph].float(), rtol=1e-5,
+                              atol=1e-6)
+
+    hr = ik.intersect_reference(sa, ray)
+    hit = hr.prim >= 0
+    assert torch.equal(hk.prim >= 0, hit) and torch.equal(occ, hit)
+    assert torch.allclose(hk.t[hit], hr.t[hit], rtol=2e-4, atol=1e-5)
+    same = hit & (hk.prim == hr.prim)
+    assert int(same.sum()) > 0.99 * int(hit.sum())
+    assert torch.equal(hk.inst[same], hr.inst[same])
+    m = same & (hr.prim < ik._SPH_SLOT_BASE)
+    for f in ("u", "v", "uv_u", "uv_v"):
+        close = torch.isclose(getattr(hk, f)[m], getattr(hr, f)[m],
+                              rtol=1e-3, atol=1e-4)
+        assert close.float().mean() >= 0.999, f
+    assert int((hr.prim >= ik._SPH_SLOT_BASE).sum()) > 100
+
+
+def test_large_scene_render_on_card_matches_cpu(cuda, tmp_path):
+    """The 2k animated-mesh scene (32x32 sphere) at 16x16 x 16 spp: the
+    card against the CPU within test_render_on_card_matches_cpu's
+    tolerance (Woop + Gram barycentrics on the card, Möller on the CPU)."""
+    imgs = [mt.render(_mesh_scene(dev, tmp_path, True, 32, 32, 16, 16),
+                      spp=16, seed=0).cpu().numpy()
             for dev in (cuda, "cpu")]
     g, c = imgs
     scale = np.abs(c).max()

@@ -35,6 +35,15 @@ CANONICAL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scenes", "canonical", "scene.xml")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cpu():
+    """The port defaults to the card; these tests run on the CPU."""
+    prev = mt.get_device()
+    mt.set_device("cpu")
+    yield
+    mt.set_device(prev)
+
+
 def _scene_dict(animated=True, spheres=True, light=True,
                 anim_cls=AnimatedTransform):
     """tests/test_pallas_parity.py::_scene (small regime), rebuilt here.
@@ -235,13 +244,12 @@ def test_kernel_tables_match_jax(name):
         assert np.array_equal(sph.numpy(), np.asarray(sph_j))
     assert sph_anim.tolist() == [int(a) for a in sa_j.sphere_animated]
     if name != "canonical":
-        # the port's own compile (its loader has no point light yet)
+        # the port's own compile, point light and chunk boxes included
         sa_p = mt.load_dict(_scene_dict(
-            light=False, anim_cls=TAnimatedTransform)).compile()
-        sa_jl = mj.load_dict(_scene_dict(light=False)).compile()
-        for k in SceneArrays.ARRAY_FIELDS:
+            anim_cls=TAnimatedTransform)).compile()
+        for k in SceneArrays.ARRAY_FIELDS + ["chunk_aabb"]:
             assert np.array_equal(getattr(sa_p, k).numpy(),
-                                  np.asarray(getattr(sa_jl, k))), k
+                                  np.asarray(getattr(sa_j, k))), k
 
 
 def test_wrapper_routes_cpu_to_plain_and_counts_only_launches():
@@ -263,10 +271,20 @@ def test_wrapper_routes_cpu_to_plain_and_counts_only_launches():
         tik.intersect(sa_t, tr._replace(time=tr.time.double()))
 
 
-def test_large_scene_raises():
+def test_large_scene_raises(monkeypatch):
+    """Above STREAM_THRESHOLD the large-scene kernels of the JAX package
+    other than B2 (MI_STREAM_KERNEL=v1/v2/v3/mxu) raise, naming their
+    ROADMAP row; they never fall back to B2."""
     sa_j, rays = _load("static")
     sa_t = _port_tables(sa_j)
-    sa_t.n_static_tris = tik.STREAM_THRESHOLD + 1
     _, tr = _both_rays(*rays)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        tik.intersect(sa_t, tr)
+    for choice, row in (("v1", "B3"), ("v2", "B4"), ("v3", "B5"),
+                        ("mxu", "B6")):
+        monkeypatch.setenv("MI_STREAM_KERNEL", choice)
+        tik.intersect(sa_t, tr)           # at most 192 triangles: B1
+        sa_t.n_static_tris = tik.STREAM_THRESHOLD + 1
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {row}"):
+            tik.intersect(sa_t, tr)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {row}"):
+            tik.ray_test(sa_t, tr)
+        sa_t.n_static_tris = sa_j.n_static_tris

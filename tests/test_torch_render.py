@@ -30,6 +30,15 @@ PATH = {"type": "path", "max_depth": 4}
 BRANCH_FLIPS = {"dopplertofpath": [], "path": []}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cpu():
+    """The port defaults to the card; these tests run on the CPU."""
+    prev = mt.get_device()
+    mt.set_device("cpu")
+    yield
+    mt.set_device(prev)
+
+
 def _render_jax(integrator):
     scene = mj.load_file(CANONICAL, **SIZE)
     kw = {} if integrator == "dopplertofpath" else {
@@ -114,7 +123,7 @@ def test_unported_features_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 11"):
         mt.set_variant("cuda_spectral")
     assert mt.set_variant("cuda_rgb") == "cuda_rgb"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mt.load_dict({"type": "point"})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mt.load_dict({"type": "spot"})
     with pytest.raises(NotImplementedError, match="item 3"):
-        mt.load_dict({"type": "obj", "filename": "x.obj"})
+        mt.load_dict({"type": "ply", "filename": "x.ply"})
