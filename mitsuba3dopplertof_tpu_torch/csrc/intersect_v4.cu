@@ -65,7 +65,6 @@ struct Params {
   const float* time; const float* maxt;
   float* t_out;        // (n,)
   int* prim_out;       // (n,)
-  int* groups_out;     // (n_blocks,) groups walked, or null
 };
 
 // The ray in the hit space of a unit of transform group `ci` (-1 static):
@@ -210,7 +209,6 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(Params p) {
   }
   p.t_out[lane] = best_t;
   p.prim_out[lane] = best_p;
-  if (p.groups_out != nullptr && tid == 0) p.groups_out[blockIdx.x] = g;
 }
 
 }  // namespace
@@ -224,8 +222,7 @@ extern "C" int mi_intersect_v4(
     const void* tlo, int n_units, int has_anim, const void* ox,
     const void* oy, const void* oz, const void* dx, const void* dy,
     const void* dz, const void* time, const void* maxt, long long n,
-    int any_hit, void* t_out, void* prim_out, void* groups_out,
-    void* stream) {
+    int any_hit, void* t_out, void* prim_out, void* stream) {
   if (n <= 0 || n % kBlock != 0 || n_units <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -246,7 +243,6 @@ extern "C" int mi_intersect_v4(
   p.maxt = static_cast<const float*>(maxt);
   p.t_out = static_cast<float*>(t_out);
   p.prim_out = static_cast<int*>(prim_out);
-  p.groups_out = static_cast<int*>(groups_out);
   unsigned int blocks = (unsigned int)(n / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)

@@ -2,11 +2,12 @@
 libraries with a plain C interface, and load them with ctypes.
 
 Each source builds at first use into ``_build/`` (ignored by git), keyed by
-a hash of the source and the flags, so a changed source rebuilds and an
-unchanged one loads at once. ``build_all`` starts one nvcc per source at
-the same time and waits for all of them. Every file is built with
-``--fmad=false`` and without fast math: no product and sum fuse into an FMA,
-so a kernel rounds each operation as its plain PyTorch version does.
+a hash of the source, the headers it includes from ``csrc/`` and the flags,
+so a changed source or header rebuilds and an unchanged one loads at once.
+``build_all`` starts one nvcc per source at the same time and waits for all
+of them. Every file is built with ``--fmad=false`` and without fast math: no
+product and sum fuse into an FMA, so a kernel rounds each operation as its
+plain PyTorch version does.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import tempfile
 import time as _time
 from pathlib import Path
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Sequence
 
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
@@ -39,11 +40,14 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One ``csrc/<name>.cu`` built into ``_build/<name>_<hash>.so``.
-    ``bind(lib)`` sets the argument and result types of its C functions."""
+    ``bind(lib)`` sets the argument and result types of its C functions;
+    ``headers`` names the ``csrc/`` files the source includes."""
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 headers: Sequence[str] = ()):
         self.name = name
         self.source = PKG / "csrc" / f"{name}.cu"
+        self.headers = tuple(PKG / "csrc" / h for h in headers)
         self._bind = bind
         self.lib: Optional[ctypes.CDLL] = None
         self.log = ""            # nvcc's output of the last build (ptxas -v)
@@ -53,8 +57,9 @@ class CudaLibrary:
         self._t0 = 0.0
 
     def path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        h = hashlib.sha256(
+            b"".join(f.read_bytes() for f in (self.source, *self.headers))
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.name}_{h}.so"
 
     def start(self) -> None:

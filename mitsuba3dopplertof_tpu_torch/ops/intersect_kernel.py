@@ -1,6 +1,7 @@
 """Ray queries of the port: the B1 brute-force CUDA kernel
 ``csrc/intersect_bruteforce.cu`` with its plain PyTorch version, and the
-routing of scenes above ``STREAM_THRESHOLD`` triangles to kernel B2.
+routing of scenes above ``STREAM_THRESHOLD`` triangles to the large-scene
+kernels B2-B6.
 
 Port of the JAX package's ``ops/intersect_kernel.py`` (the Pallas kernel
 ``_build_kernel``, ``intersect_pallas`` and ``ray_test_pallas``) and of its
@@ -15,15 +16,27 @@ Entry points (reference scene.cpp:125-167):
   * ``intersect(sa, ray, active)`` — closest hit, full ``HitRecord``
   * ``ray_test(sa, ray, active)``  — boolean any-hit
 
-A tensor on the CPU takes the plain version (``intersect_reference`` /
+On the card, scenes of at most ``STREAM_THRESHOLD`` triangles launch B1.
+Larger ones take the route that ``MI_STREAM_KERNEL`` names, as in the JAX
+package (``intersect_pallas`` / ``ray_test_pallas``), over binned rays
+(``ops/ray_binning.py``) where binning pays:
+
+  * ``v4`` (the default): B2, ``ops/intersect_v4.py``;
+  * ``v3``: B5, ``ops/intersect_v3.py``;
+  * ``v2``: B4, ``ops/intersect_v2.py``;
+  * ``mxu``: B6, ``ops/intersect_mxu.py``;
+  * ``v1`` and any other value: B3, ``ops/intersect_stream.py``.
+
+B2, B4, B5 and B6 return (t, prim) and
+``ops/intersect_mxu.payload_from_prim`` rebuilds the hit record; B3
+returns the record itself. Every route merges the spheres-only pass of B1
+by closest t. A CUDA tensor launches the kernels or raises. A tensor on
+the CPU takes the plain Möller intersector (``intersect_reference`` /
 ``ray_test_reference``) at every scene size, as the JAX package on the CPU
-takes ``_hit_reference``. On the card, scenes of at most
-``STREAM_THRESHOLD`` triangles launch B1; larger ones (the JAX package's
-``MI_STREAM_KERNEL=v4`` route) launch B2 (``ops/intersect_v4.py``) over
-binned rays (``ops/ray_binning.py``), rebuild the payload with
-``ops/intersect_mxu.payload_from_prim`` and merge the spheres-only pass of
-B1. A CUDA tensor launches the kernels or raises. ``LAUNCHES`` counts B1
-launches (all forms), ``LAUNCHES_BY_FORM`` per form.
+takes ``_hit_reference``; with ``MI_STREAM_KERNEL`` set to one of the
+alternates, a large scene on the CPU goes through the same routing with
+that kernel's plain version. ``LAUNCHES`` counts B1 launches (all forms),
+``LAUNCHES_BY_FORM`` per form.
 """
 
 from __future__ import annotations
@@ -47,11 +60,6 @@ _SPH_SLOT_BASE = 1 << 28      # prim slots >= this are analytic spheres
 # above this total triangle count (static + animated) the card routes
 # triangles to the large-scene kernel B2 (JAX ops/intersect_kernel.py:427)
 STREAM_THRESHOLD = 192
-
-# MI_STREAM_KERNEL values of the JAX package and the ROADMAP Queue B row
-# that ports each; "v4" (B2, the default) is the one ported
-_STREAM_KERNELS = {"v4": None, "v1": "B3", "v2": "B4", "v3": "B5",
-                   "mxu": "B6"}
 
 # lanes x triangles per chunk of the plain scan (elements of one (N, C)
 # temporary)
@@ -89,16 +97,15 @@ def is_large(sa) -> bool:
 
 
 def stream_kernel() -> str:
-    """The large-scene kernel (MI_STREAM_KERNEL, default "v4" = B2). The
-    JAX package's alternates are not ported: they raise and never fall
-    back to B2."""
+    """The large-scene route (MI_STREAM_KERNEL, JAX ``_kernel_choice``):
+    "v4" (B2, the default), "v3" (B5), "v2" (B4), "mxu" (B6); "v1" and any
+    other value select the streamed kernel B3."""
     choice = os.environ.get("MI_STREAM_KERNEL", "v4")
-    row = _STREAM_KERNELS.get(choice, "B3")
-    if row is not None:
+    if choice == "v4" and os.environ.get("MI_V4_ROUNDS", "1") != "1":
         raise NotImplementedError(
-            f"MI_STREAM_KERNEL={choice}: that large-scene kernel is not "
-            f"ported yet (ROADMAP {row}); unset it to use B2 (v4)")
-    return choice
+            "MI_V4_ROUNDS=lite|2: the two-round forms of B2 are not ported "
+            "(ROADMAP Queue A item 8); unset it for the single walk")
+    return choice if choice in ("v4", "v3", "v2", "mxu") else "v1"
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +446,7 @@ def _launch(sa, ray: Ray, any_hit: bool, spheres_only: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Large scenes: B2 + binning + payload, merged with the spheres-only pass
+# Large scenes: B2-B6 + binning + payload, merged with the spheres-only pass
 # ---------------------------------------------------------------------------
 
 def _spheres_pass(sa, ray: Ray, any_hit: bool):
@@ -452,23 +459,41 @@ def _spheres_pass(sa, ray: Ray, any_hit: bool):
     return hit.prim >= 0 if any_hit else hit
 
 
-def _large_prim(sa, ray: Ray, active, any_hit: bool):
-    """B2's (t, prim), over binned rays where binning pays (JAX
-    intersect_pallas:454-481)."""
-    from .intersect_v4 import BLOCK, intersect_v4
+def _route_kernel(choice: str):
+    """(query function, lanes per block) of a large-scene route."""
+    if choice == "v4":
+        from .intersect_v4 import BLOCK, intersect_v4 as isect
+    elif choice == "v3":
+        from .intersect_v3 import BLOCK, intersect_v3 as isect
+    elif choice == "v2":
+        from .intersect_v2 import BLOCK, intersect_v2 as isect
+    elif choice == "mxu":
+        from .intersect_mxu import BLOCK, intersect_mxu as isect
+    else:
+        from .intersect_stream import BLOCK, intersect_stream as isect
+    return isect, BLOCK
+
+
+def _large_query(sa, ray: Ray, active, any_hit: bool, choice: str):
+    """The route's kernel over binned rays where binning pays (JAX
+    intersect_pallas:454-498): (t, prim), or B3's closest-hit record."""
     from .ray_binning import binned, should_bin
-    if should_bin(sa, ray.o.x.shape[0], BLOCK):
+    isect, block = _route_kernel(choice)
+    if should_bin(sa, ray.o.x.shape[0], block):
         return binned(sa, ray, active,
-                      lambda r: list(intersect_v4(sa, r, any_hit=any_hit)))
-    return intersect_v4(sa, ray, any_hit=any_hit)
+                      lambda r: list(isect(sa, r, any_hit=any_hit)))
+    return isect(sa, ray, any_hit=any_hit)
 
 
 def intersect_large(sa, ray: Ray, active=None) -> HitRecord:
-    """Closest hit of a scene above ``STREAM_THRESHOLD`` triangles, as the
-    card computes it (plain versions on the CPU)."""
+    """Closest hit of a scene above ``STREAM_THRESHOLD`` triangles through
+    the route ``MI_STREAM_KERNEL`` names, as the card computes it (plain
+    versions on the CPU)."""
     from .intersect_mxu import payload_from_prim
-    t, prim = _large_prim(sa, ray, active, any_hit=False)
-    hit_s = payload_from_prim(sa, ray, t, prim)
+    choice = stream_kernel()
+    out = _large_query(sa, ray, active, False, choice)
+    hit_s = (HitRecord(*out) if choice == "v1"
+             else payload_from_prim(sa, ray, *out))
     if sa.n_spheres == 0:
         return hit_s
     hit_d = _spheres_pass(sa, ray, any_hit=False)
@@ -478,24 +503,31 @@ def intersect_large(sa, ray: Ray, active=None) -> HitRecord:
 
 
 def ray_test_large(sa, ray: Ray, active=None):
-    """Occlusion in a scene above ``STREAM_THRESHOLD`` triangles, as the
-    card computes it (plain versions on the CPU)."""
-    occ = _large_prim(sa, ray, active, any_hit=True)[1] >= 0
+    """Occlusion in a scene above ``STREAM_THRESHOLD`` triangles through
+    the route ``MI_STREAM_KERNEL`` names, as the card computes it (plain
+    versions on the CPU)."""
+    occ = _large_query(sa, ray, active, True, stream_kernel())[1] >= 0
     if sa.n_spheres > 0:
         occ = occ | _spheres_pass(sa, ray, any_hit=True)
     return occ
 
 
+def _cpu_takes_moller(large: bool) -> bool:
+    """On the CPU the default route is the plain Möller intersector; an
+    alternate value of MI_STREAM_KERNEL sends a large scene through the
+    routing with that kernel's plain version."""
+    return not large or stream_kernel() == "v4"
+
+
 def intersect(sa, ray: Ray, active=None) -> HitRecord:
     """Closest hit with the full payload: the plain version for CPU
-    tensors; on the card B1, or B2 above ``STREAM_THRESHOLD`` triangles.
+    tensors; on the card B1, or above ``STREAM_THRESHOLD`` triangles the
+    large-scene route that MI_STREAM_KERNEL names.
     ``active`` (optional) only deadens lanes for binning; callers mask
     the result themselves."""
     _check_rays(ray)
     large = is_large(sa)
-    if large:
-        stream_kernel()
-    if ray.o.x.device.type == "cpu":
+    if ray.o.x.device.type == "cpu" and _cpu_takes_moller(large):
         return intersect_reference(sa, ray)
     if large:
         return intersect_large(sa, ray, active)
@@ -503,13 +535,11 @@ def intersect(sa, ray: Ray, active=None) -> HitRecord:
 
 
 def ray_test(sa, ray: Ray, active=None):
-    """Occlusion flag: the plain version for CPU tensors; on the card B1's
-    or B2's any-hit form."""
+    """Occlusion flag: the plain version for CPU tensors; on the card the
+    any-hit form of B1 or of the large-scene route."""
     _check_rays(ray)
     large = is_large(sa)
-    if large:
-        stream_kernel()
-    if ray.o.x.device.type == "cpu":
+    if ray.o.x.device.type == "cpu" and _cpu_takes_moller(large):
         return ray_test_reference(sa, ray)
     if large:
         return ray_test_large(sa, ray, active)

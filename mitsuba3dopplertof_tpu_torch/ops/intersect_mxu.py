@@ -1,20 +1,268 @@
-"""The payload of the large-scene kernels (the helpers ``_payload_table``
-and ``payload_from_prim`` of the JAX package's ``ops/intersect_mxu.py``,
-plain XLA code there and plain PyTorch here). Kernel B6 of that file is
-not ported yet (ROADMAP Queue B).
+"""Kernel B6, the chunk visit lists and the payload of the large-scene
+kernels (port of the JAX package's ``ops/intersect_mxu.py``: the Pallas
+kernel ``_build_mxu_kernel`` with its wrapper ``intersect_mxu``,
+``_visit_order``, ``_woop_table``, ``_payload_table`` and
+``payload_from_prim``).
 
-B2 returns only (t, prim). The full hit record of the winner is then one
-row gather from a per-triangle table plus a dense recompute: barycentrics
-at the known hit point, normals and uv (reference
-compute_surface_interaction, instance.cpp:155-250).
+B6 (``MI_STREAM_KERNEL=mxu``) writes the ray-triangle test as an affine
+map of the ray (Woop's unit-triangle transform): with the ray features
+X = [ox oy oz 1 dx dy dz maxt], a 128-triangle chunk is one
+(768 x 8) . (8 x lanes) product giving o' and d' of every triangle, then
+t = -o'z / d'z, u = o'x + t d'x, v = o'y + t d'y and a min over the chunk.
+The TPU kernel runs that product on its matrix unit at the highest
+precision; the CUDA kernel ``csrc/intersect_mxu.cu`` computes it in its
+own body with float32 multiplies and adds, summing the eight features in
+order, and the plain version writes the same ordered sums (no
+``torch.matmul`` on this route). Chunks are walked front to back per block
+of ``BLOCK`` lanes (``_visit_order``), without a scene-box clamp.
+
+  * ``intersect_mxu(sa, ray, any_hit)`` — the kernel for CUDA tensors, the
+    plain version for CPU tensors;
+  * ``intersect_mxu_reference(sa, ray, any_hit)`` — the plain version:
+    every lane against every chunk, dense.
+
+Both return (t, prim) in the global slot convention. The large-scene
+kernels B2, B4, B5 and B6 return only (t, prim); ``payload_from_prim``
+then rebuilds the full hit record of the winner: one row gather from a
+per-triangle table plus a dense recompute of barycentrics at the known hit
+point, normals and uv (reference compute_surface_interaction,
+instance.cpp:155-250). ``LAUNCHES`` / ``LAUNCHES_BY_FORM`` count B6's
+launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple, Tuple
+
 import numpy as np
 import torch
 
-from .intersect_stream import _inst_table
+from ..render.types import Ray
+from .cuda_build import CudaLibrary
+from .intersect_kernel import (HitRecord, _check_rays, _inv_lerped,
+                               scene_tables)
+from .intersect_stream import (BLOCK, CHUNK, PAD_TO, _check_launch,
+                               _chunk_boxes, _chunked_layout, _inst_table,
+                               _padded_cols, _runs, _unit_ray)
+from .intersect_v3 import _slab_visit_order, _woop_coefficients
+
+T = PAD_TO              # triangles per chunk = one product
+SUBS = T // CHUNK       # 32-triangle culling boxes per chunk
+_BIG = 3.0e38
+# lanes x triangles per chunk of the plain version (elements of one
+# (lanes, triangles) temporary) and chunks per step
+_REF_ELEMS = 1 << 24
+_REF_CHUNKS = 8
+
+LAUNCHES = 0
+LAUNCHES_BY_FORM = {"closest_hit": 0, "any_hit": 0}
+
+
+def reset_launch_counts():
+    global LAUNCHES
+    LAUNCHES = 0
+    for k in LAUNCHES_BY_FORM:
+        LAUNCHES_BY_FORM[k] = 0
+
+
+def _visit_order(sub, n_chunks: int, x, blk: int):
+    """Per-block front-to-back visit lists over the 128-triangle chunks
+    (JAX intersect_mxu.py:300): ``intersect_v3._slab_visit_order`` over
+    each chunk's box, the union of its ``SUBS`` 32-triangle boxes ``sub``
+    ((SUBS * n_chunks, 6); inverted pad boxes union away)."""
+    sb = sub[:SUBS * n_chunks].reshape(n_chunks, SUBS, 6)
+    return _slab_visit_order(sb[:, :, :3].amin(dim=1),
+                             sb[:, :, 3:].amax(dim=1), x, blk)
+
+
+def _woop_table(sa, segments, n_chunks: int) -> torch.Tensor:
+    """Woop coefficient table, (n_chunks * 8, 768) f32 (JAX
+    intersect_mxu.py:379). Row k of a chunk's (8, 768) block holds the
+    coefficient of ray feature k for 6 components x 128 triangles,
+    component-major: o' = B o + c takes features 0-3, d' = B d features
+    4-6, feature 7 (maxt) meets zeros. The coefficients are B5's
+    (``intersect_v3._woop_coefficients``); degenerate and pad triangles
+    have zero rows (d'z = 0: no hit)."""
+    rows = _woop_coefficients(sa, segments).reshape(-1, 3, 4)
+    z = torch.zeros_like(rows)
+    w = torch.cat([torch.cat([rows, z], dim=2),          # o': B | c | 0 0 0 0
+                   torch.cat([z, rows[:, :, :3], z[:, :, :1]], dim=2)],
+                  dim=1)                                 # (P, 6, 8)
+    # -> (n_chunks, 8, 6, T) -> (n_chunks * 8, 6 T)
+    return w.reshape(n_chunks, T, 6, 8).permute(0, 3, 2, 1).reshape(
+        n_chunks * 8, 6 * T).contiguous()
+
+
+class MxuTables(NamedTuple):
+    meta: torch.Tensor      # (n_chunks, 2) int32: anim range | -1, slot0
+    w: torch.Tensor         # (n_chunks * 8, 768) f32 Woop table
+    inst: torch.Tensor      # (n_ranges or 1, 26) f32 instance records
+    has_anim: bool
+    sub: torch.Tensor       # (4 n_chunks, 6) f32 32-triangle world AABBs
+    n_chunks: int
+    runs: Tuple[Tuple[int, int, int], ...]   # (anim range | -1, c0, c1)
+
+
+def mxu_tables(sa) -> MxuTables:
+    """B6's per-scene tables, cached on the SceneArrays."""
+    if "mxu" in sa._cache:
+        return sa._cache["mxu"]
+    segments, meta32 = _chunked_layout(sa.n_static_tris, sa.anim_ranges)
+    n_chunks = meta32.shape[0] // SUBS
+    meta = meta32[::SUBS]
+    tables = MxuTables(
+        torch.as_tensor(meta, device=sa.device).contiguous(),
+        _woop_table(sa, segments, n_chunks), _inst_table(sa),
+        bool(sa.anim_ranges),
+        _chunk_boxes(sa, SUBS * n_chunks).contiguous(), n_chunks,
+        _runs(meta, 1))
+    sa._cache["mxu"] = tables
+    return tables
+
+
+def prepare(tables: MxuTables, ray: Ray):
+    """The kernel's per-query inputs (JAX ``intersect_mxu`` :571-579): X,
+    (8, N) rows ox oy oz 1 dx dy dz maxt padded to whole blocks, with maxt
+    clamped to 3e38 (row 7 meets zero coefficients and 0 * inf is NaN) and
+    dead (-1) in the padding; the padded times; the blocks' visit lists.
+    Returns (x, time, order, tlo)."""
+    o, d, time, maxt = _padded_cols(ray, torch.clamp(ray.maxt, max=_BIG),
+                                    BLOCK)
+    x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [maxt])
+    order, tlo = _visit_order(tables.sub, tables.n_chunks, x, BLOCK)
+    return x.contiguous(), time, order, tlo
+
+
+def _affine_hit(w, xp, best):
+    """The product and its epilogue for lanes (rows) against triangles
+    (columns), in the kernel's order of operations (JAX
+    intersect_mxu.py:199-217). ``w``: (8, 6, 1, C) coefficients; ``xp``:
+    8 (L, 1) ray features; ``best``: (L, 1) the lanes' best t. Each of the
+    six components is the ordered sum over the features k = 0..7. Returns
+    t with misses at +inf."""
+    res = []
+    for c in range(6):
+        acc = w[0, c] * xp[0]
+        for k in range(1, 8):
+            acc = acc + w[k, c] * xp[k]
+        res.append(acc)
+    oxp, oyp, ozp, dxp, dyp, dzp = res
+    dz_ok = torch.abs(dzp) > 1e-30
+    t = -ozp / torch.where(dz_ok, dzp, 1.0)
+    u = oxp + t * dxp
+    v = oyp + t * dyp
+    hit = (dz_ok & (torch.minimum(u, v) >= 0.0) & (u + v <= 1.0)
+           & (t > 0.0) & (t < xp[7]) & (t < best))
+    return torch.where(hit, t, float("inf"))
+
+
+def intersect_mxu_reference(sa, ray: Ray, any_hit: bool = False):
+    """B6's plain version: every lane against every chunk, dense, in
+    chunks of lanes and triangles; within a chunk the lowest triangle wins
+    among equal t, across chunks strict ``t < best`` in slot order.
+    Returns (t, prim); with ``any_hit`` the closest hit too (any-hit
+    promises only occlusion)."""
+    _check_rays(ray)
+    tb = mxu_tables(sa)
+    n = ray.o.x.shape[0]
+    dev = ray.o.x.device
+    maxt = torch.clamp(ray.maxt, max=_BIG)
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    lanes = max(1, _REF_ELEMS // (_REF_CHUNKS * T))
+    j = torch.arange(T, dtype=torch.int32, device=dev)
+    one = torch.ones((), device=dev)
+    for l0 in range(0, n, lanes):
+        sl = slice(l0, min(l0 + lanes, n))
+        o = (ray.o.x[sl], ray.o.y[sl], ray.o.z[sl])
+        d = (ray.d.x[sl], ray.d.y[sl], ray.d.z[sl])
+        mt = maxt[sl, None]
+        bt = best_t[sl]
+        bp = best_p[sl]
+        for ci, c0, c1 in tb.runs:
+            r = _unit_ray(tb, ci, o, d, ray.time[sl])
+            xp = [c[:, None] for c in r[:3]] + [one.expand_as(mt)] \
+                + [c[:, None] for c in r[3:]] + [mt]
+            for a in range(c0, c1, _REF_CHUNKS):
+                b = min(a + _REF_CHUNKS, c1)
+                # (chunks, 8, 6, T) -> (8, 6, 1, chunks * T)
+                w = tb.w[a * 8:b * 8].reshape(b - a, 8, 6, T).permute(
+                    1, 2, 0, 3).reshape(8, 6, 1, (b - a) * T)
+                slots = (tb.meta[a:b, 1:2] + j).reshape(-1)
+                tm = _affine_hit(w, xp, bt[:, None])
+                k = torch.argmin(tm, dim=1)
+                tk = torch.gather(tm, 1, k[:, None])[:, 0]
+                take = tk < bt
+                bt = torch.where(take, tk, bt)
+                bp = torch.where(take, slots[k], bp)
+        best_t[sl] = bt
+        best_p[sl] = bp
+    return best_t, best_p
+
+
+def _bind(lib):
+    fn = lib.mi_intersect_mxu
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
+    lib.mi_intersect_mxu_block.restype = ctypes.c_int
+    lib.mi_intersect_mxu_block.argtypes = []
+    if lib.mi_intersect_mxu_block() != BLOCK:
+        raise RuntimeError("csrc/intersect_mxu.cu was built for another "
+                           "block size than ops/intersect_stream.py BLOCK")
+
+
+LIBRARY = CudaLibrary("intersect_mxu", _bind,
+                      headers=("intersect_common.cuh",))
+
+
+def launch(tables: MxuTables, prep, any_hit: bool):
+    """One launch over prepared inputs (``prepare``). Returns (t, prim) at
+    the padded length."""
+    global LAUNCHES
+    x, time, order, tlo = prep
+    n_pad, dev = _check_launch("intersect_mxu", tables.w, (time,), BLOCK)
+    if (x.shape != (8, n_pad) or x.dtype != torch.float32
+            or not x.is_contiguous() or x.device != dev):
+        raise ValueError("intersect_mxu kernel: X must be contiguous "
+                         f"(8, {n_pad}) float32 on {dev}")
+    nb = n_pad // BLOCK
+    if order.shape != (nb, tables.n_chunks) or tlo.shape != order.shape:
+        raise ValueError("intersect_mxu kernel: one visit list per block of "
+                         f"{BLOCK} lanes")
+    lib = LIBRARY.load()
+    t = torch.empty((n_pad,), device=dev)
+    prim = torch.empty((n_pad,), dtype=torch.int32, device=dev)
+    if n_pad > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.mi_intersect_mxu(
+                tables.w.data_ptr(), tables.meta.data_ptr(),
+                tables.inst.data_ptr(), tables.sub.data_ptr(),
+                order.data_ptr(), tlo.data_ptr(), tables.n_chunks,
+                int(tables.has_anim), x.data_ptr(), time.data_ptr(), n_pad,
+                int(any_hit), t.data_ptr(), prim.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"intersect_mxu kernel launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES += 1
+        LAUNCHES_BY_FORM["any_hit" if any_hit else "closest_hit"] += 1
+    return t, prim
+
+
+def intersect_mxu(sa, ray: Ray, any_hit: bool = False):
+    """Closest-hit (or any-hit) (t, prim) over all triangles as affine
+    maps of the ray: the CUDA kernel for tensors on the card, the plain
+    version for CPU tensors."""
+    _check_rays(ray)
+    if ray.o.x.device.type == "cpu":
+        return intersect_mxu_reference(sa, ray, any_hit)
+    n = ray.o.x.shape[0]
+    tables = mxu_tables(sa)
+    t, prim = launch(tables, prepare(tables, ray), any_hit)
+    return t[:n], prim[:n]
 
 
 def _payload_table(sa) -> torch.Tensor:
@@ -23,7 +271,6 @@ def _payload_table(sa) -> torch.Tensor:
     ``intersect_kernel.scene_tables``) and the animated-range index (-1
     static). Cached on the SceneArrays."""
     if "payload" not in sa._cache:
-        from .intersect_kernel import scene_tables
         aidx = np.repeat(
             np.arange(-1, len(sa.anim_ranges), dtype=np.float32),
             [sa.n_static_tris] + [c for _, _, c in sa.anim_ranges])
@@ -37,8 +284,6 @@ def payload_from_prim(sa, ray, t, prim):
     """The full ``HitRecord`` of the winning triangle per lane from B2's
     (t, prim): one row gather plus a dense Möller/interpolation recompute
     (JAX intersect_mxu.py:455)."""
-    from .intersect_kernel import HitRecord, _inv_lerped
-
     tbl = _payload_table(sa)
     n_tot = tbl.shape[0]
     idx = torch.clamp(prim, 0, n_tot - 1).long()
@@ -112,4 +357,6 @@ def payload_from_prim(sa, ray, t, prim):
         uv_v=torch.where(valid, uv_v, 0.0))
 
 
-__all__ = ["payload_from_prim"]
+__all__ = ["payload_from_prim", "intersect_mxu", "intersect_mxu_reference",
+           "mxu_tables", "prepare", "launch", "LIBRARY", "T", "SUBS", "BLOCK",
+           "LAUNCHES", "LAUNCHES_BY_FORM"]

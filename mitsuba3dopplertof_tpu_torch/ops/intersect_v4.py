@@ -37,9 +37,10 @@ import torch
 
 from ..render.types import Ray
 from .cuda_build import CudaLibrary
-from .intersect_kernel import _check_rays, _inv_lerped
-from .intersect_stream import CHUNK, _chunked_layout, _inst_table
-from .intersect_v2 import scene_box_exit
+from .intersect_kernel import _check_rays
+from .intersect_stream import (CHUNK, _chunk_boxes, _chunked_layout,
+                               _inst_table, _padded_cols, _runs, _unit_ray)
+from .intersect_v2 import _clamped_maxt
 from .intersect_v3 import _unit_visit_order, _woop_records
 
 GROUP = 8               # units per step of the walk
@@ -78,43 +79,13 @@ def v4_tables(sa) -> V4Tables:
         return sa._cache["v4"]
     segments, meta = _chunked_layout(sa.n_static_tris, sa.anim_ranges)
     n_units = meta.shape[0]
-    box = sa.chunk_aabb
-    if box is None:
-        box = torch.cat([torch.full((n_units, 3), -_BIG, device=sa.device),
-                         torch.full((n_units, 3), _BIG, device=sa.device)],
-                        dim=1)
-    runs = []
-    for u, ci in enumerate(meta[:, 0].tolist()):
-        if runs and runs[-1][0] == ci:
-            runs[-1][2] = u + 1
-        else:
-            runs.append([ci, u, u + 1])
     tables = V4Tables(
         torch.as_tensor(meta, device=sa.device).contiguous(),
         _woop_records(sa, segments, n_units), _inst_table(sa),
-        bool(sa.anim_ranges), box.contiguous(), n_units,
-        tuple(tuple(r) for r in runs))
+        bool(sa.anim_ranges), _chunk_boxes(sa, n_units).contiguous(),
+        n_units, _runs(meta, 1))
     sa._cache["v4"] = tables
     return tables
-
-
-def _pad_to(x, n_pad: int, fill=None):
-    """Pad (N,) ``x`` to ``n_pad`` lanes: with ``fill``, or by repeating
-    the last lane (keeps the last block's ray bounds tight)."""
-    n = x.shape[0]
-    if n_pad == n:
-        return x
-    if fill is None:
-        tail = x[-1:].expand(n_pad - n)
-    else:
-        tail = torch.full((n_pad - n,), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([x, tail])
-
-
-def _clamped_maxt(tables: V4Tables, o, d, maxt):
-    """maxt clamped to 3e38 and to the scene-box exit (-1 off the box)."""
-    return torch.minimum(torch.clamp(maxt, max=_BIG),
-                         scene_box_exit(tables.box, o, d))
 
 
 def prepare(tables: V4Tables, ray: Ray):
@@ -122,42 +93,16 @@ def prepare(tables: V4Tables, ray: Ray):
     ray columns padded to whole blocks, maxt clamped by the scene box
     (padding lanes dead), and the blocks' visit lists. Returns (o, d,
     time, maxt, order, tlo)."""
-    n = ray.o.x.shape[0]
-    n_pad = -(-n // BLOCK) * BLOCK
-    o = tuple(_pad_to(c, n_pad) for c in (ray.o.x, ray.o.y, ray.o.z))
-    d = tuple(_pad_to(c, n_pad) for c in (ray.d.x, ray.d.y, ray.d.z))
-    maxt = _clamped_maxt(tables, o, d, _pad_to(ray.maxt, n_pad, fill=-1.0))
+    o, d, time, maxt = _padded_cols(ray, ray.maxt, BLOCK)
+    maxt = _clamped_maxt(tables.box, o, d, maxt)
     x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [maxt])
     order, tlo = _unit_visit_order(tables.box, tables.n_units, x, BLOCK)
-    return o, d, _pad_to(ray.time, n_pad), maxt, order, tlo
+    return o, d, time, maxt, order, tlo
 
 
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
-
-def _unit_ray(tables: V4Tables, ci: int, o, d, time):
-    """The ray in the hit space of units of transform group ``ci`` (-1
-    static), as the kernel computes it (JAX intersect_v4.py:158-173):
-    ``fa * (M^-1 x) + om * x`` with fa = 1 for animated units, 0 for
-    static ones."""
-    if not tables.has_anim:
-        return (*o, *d)
-    rec = tables.inst[max(ci, 0)]
-    i3, it3 = _inv_lerped(tuple(rec[j] for j in range(12)),
-                          tuple(rec[12 + j] for j in range(12)),
-                          rec[24], rec[25], time)
-    fa = 1.0 if ci >= 0 else 0.0
-    om = 1.0 - fa
-    ox, oy, oz = o
-    dx, dy, dz = d
-    return (fa * (i3[0] * ox + i3[1] * oy + i3[2] * oz + it3[0]) + om * ox,
-            fa * (i3[3] * ox + i3[4] * oy + i3[5] * oz + it3[1]) + om * oy,
-            fa * (i3[6] * ox + i3[7] * oy + i3[8] * oz + it3[2]) + om * oz,
-            fa * (i3[0] * dx + i3[1] * dy + i3[2] * dz) + om * dx,
-            fa * (i3[3] * dx + i3[4] * dy + i3[5] * dz) + om * dy,
-            fa * (i3[6] * dx + i3[7] * dy + i3[8] * dz) + om * dz)
-
 
 def _woop_hit(w, r, maxt):
     """The Woop test of lanes (rows) against triangles (columns), in the
@@ -179,18 +124,22 @@ def _woop_hit(w, r, maxt):
     return torch.where(hit, t, float("inf"))
 
 
-def intersect_v4_reference(sa, ray: Ray, any_hit: bool = False):
+def intersect_v4_reference(sa, ray: Ray, any_hit: bool = False,
+                           unit_hits: Optional[torch.Tensor] = None):
     """B2's plain version: every lane against every unit, dense, in
     chunks of lanes and units; the first slot wins among equal t (strict
     ``t < best`` in slot order). Returns (t, prim); with ``any_hit`` the
-    closest hit too (any-hit promises only occlusion)."""
+    closest hit too (any-hit promises only occlusion). ``unit_hits``
+    ((N, n_units) bool, optional) receives which units each lane hits
+    within its maxt (chip_smoke.py counts an any-hit walk's work from
+    it)."""
     _check_rays(ray)
     tb = v4_tables(sa)
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
     o = (ray.o.x, ray.o.y, ray.o.z)
     d = (ray.d.x, ray.d.y, ray.d.z)
-    maxt = _clamped_maxt(tb, o, d, ray.maxt)
+    maxt = _clamped_maxt(tb.box, o, d, ray.maxt)
     best_t = torch.full((n,), float("inf"), device=dev)
     best_p = torch.full((n,), -1, dtype=torch.int32, device=dev)
     lanes = max(1, _REF_ELEMS // (_REF_UNITS * CHUNK))
@@ -211,6 +160,9 @@ def intersect_v4_reference(sa, ray: Ray, any_hit: bool = False):
                 w = w.reshape(12, 1, (b - a) * CHUNK)
                 slots = (tb.meta[a:b, 1:2] + j).reshape(-1)
                 tm = _woop_hit(w, r, mt)
+                if unit_hits is not None:
+                    unit_hits[sl, a:b] = torch.isfinite(tm).reshape(
+                        -1, b - a, CHUNK).any(dim=2)
                 k = torch.argmin(tm, dim=1)
                 tk = torch.gather(tm, 1, k[:, None])[:, 0]
                 take = tk < bt
@@ -230,7 +182,7 @@ def _bind(lib):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_void_p] * 3)
     lib.mi_intersect_v4_block.restype = ctypes.c_int
     lib.mi_intersect_v4_block.argtypes = []
     if lib.mi_intersect_v4_block() != BLOCK:
@@ -241,11 +193,9 @@ def _bind(lib):
 LIBRARY = CudaLibrary("intersect_v4", _bind)
 
 
-def launch(tables: V4Tables, prep, any_hit: bool,
-           groups_out: Optional[torch.Tensor] = None):
+def launch(tables: V4Tables, prep, any_hit: bool):
     """One launch over prepared inputs (``prepare``). Returns (t, prim) at
-    the padded length. ``groups_out`` ((n_blocks,) int32, optional)
-    receives the number of groups each block walked."""
+    the padded length."""
     global LAUNCHES
     o, d, time, maxt, order, tlo = prep
     cols = (*o, *d, time, maxt)
@@ -266,10 +216,6 @@ def launch(tables: V4Tables, prep, any_hit: bool,
             or tlo.shape != order.shape:
         raise ValueError("intersect_v4 kernel: lanes must fill whole "
                          "blocks with one visit list each")
-    if groups_out is not None and (groups_out.shape != (nb,)
-                                   or groups_out.dtype != torch.int32):
-        raise ValueError("intersect_v4 kernel: groups_out must be "
-                         f"({nb},) int32")
     lib = LIBRARY.load()
     t = torch.empty((n_pad,), device=dev)
     prim = torch.empty((n_pad,), dtype=torch.int32, device=dev)
@@ -281,9 +227,7 @@ def launch(tables: V4Tables, prep, any_hit: bool,
                 tables.inst.data_ptr(), order.data_ptr(), tlo.data_ptr(),
                 tables.n_units, int(tables.has_anim),
                 *(c.data_ptr() for c in cols), n_pad, int(any_hit),
-                t.data_ptr(), prim.data_ptr(),
-                groups_out.data_ptr() if groups_out is not None else None,
-                stream)
+                t.data_ptr(), prim.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"intersect_v4 kernel launch failed: CUDA "
                                f"error {err}")

@@ -1,12 +1,15 @@
 """Where a render's time goes on the card.
 
     python -m mitsuba3dopplertof_tpu_torch.utils.profile_render 40k canonical
+    python -m mitsuba3dopplertof_tpu_torch.utils.profile_render 40k@v3 40k@v1
 
-For each named scene: one first render and three warm renders timed on
+``name@route`` renders the scene with ``MI_STREAM_KERNEL=route`` (v4, v3,
+v2, v1, mxu: the large-scene kernels B2, B5, B4, B3, B6). For each named
+scene: one first render and three warm renders timed on
 the host clock (each ends in ``torch.cuda.synchronize()``), then one warm
 render under ``torch.profiler`` (CPU and CUDA activities) with its device
-kernel time summed by group: B1 (``intersect_kernel``), B2
-(``walk_kernel``), sorts, gathers and scatters, and the rest. The device
+kernel time summed by group: the six ray-query kernels B1-B6 by their
+kernel names, sorts, gathers and scatters, and the rest. The device
 busy share is the kernel time over the median unprofiled wall time; the
 rest of the wall the card idles. The phases of ``core/logger.profile_phase``
 (ray queries, film splat) are listed with their spans on the device
@@ -32,6 +35,10 @@ import torch
 
 # kernel-name fragments of each group, first match wins
 _GROUPS = (("B1 intersect_bruteforce", ("intersect_kernel",)),
+           ("B5 intersect_v3", ("v3_walk_kernel",)),
+           ("B4 intersect_v2", ("v2_walk_kernel",)),
+           ("B3 intersect_stream", ("stream_kernel",)),
+           ("B6 intersect_mxu", ("mxu_kernel",)),
            ("B2 intersect_v4", ("walk_kernel",)),
            ("sort", ("sort", "Sort", "radix")),
            ("gather/scatter", ("index", "gather", "scatter")))
@@ -64,17 +71,39 @@ def _render_s(mi, scene, spp: int) -> float:
     return time.perf_counter() - t0
 
 
+def _kernel_modules():
+    from ..ops import (intersect_kernel, intersect_mxu, intersect_stream,
+                       intersect_v2, intersect_v3, intersect_v4)
+    return {"B1": intersect_kernel, "B2": intersect_v4,
+            "B3": intersect_stream, "B4": intersect_v2, "B5": intersect_v3,
+            "B6": intersect_mxu}
+
+
 def profile_scene(mi, name: str, top: int = 8) -> None:
-    from ..ops import intersect_kernel as ik
-    from ..ops import intersect_v4 as v4
-    scene, spp = _load(mi, name)
+    """``name`` or ``name@route``; the route is set for this scene only."""
+    scene_name, _, route = name.partition("@")
+    prev = os.environ.get("MI_STREAM_KERNEL")
+    if route:
+        os.environ["MI_STREAM_KERNEL"] = route
+    try:
+        _profile(mi, name, scene_name, top)
+    finally:
+        if prev is None:
+            os.environ.pop("MI_STREAM_KERNEL", None)
+        else:
+            os.environ["MI_STREAM_KERNEL"] = prev
+
+
+def _profile(mi, name: str, scene_name: str, top: int) -> None:
+    mods = _kernel_modules()
+    scene, spp = _load(mi, scene_name)
     W, H = scene.sensor.film.crop_size
     first = _render_s(mi, scene, spp)
-    ik.reset_launch_counts()
-    v4.reset_launch_counts()
+    for m in mods.values():
+        m.reset_launch_counts()
     warm = [_render_s(mi, scene, spp) for _ in range(3)]
-    launches = {"B1": {k: v // 3 for k, v in ik.LAUNCHES_BY_FORM.items()},
-                "B2": {k: v // 3 for k, v in v4.LAUNCHES_BY_FORM.items()}}
+    launches = {b: {k: v // 3 for k, v in m.LAUNCHES_BY_FORM.items()}
+                for b, m in mods.items() if m.LAUNCHES}
     med = statistics.median(warm)
     print(f"{name} {W}x{H}x{spp}: first {first:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s (median {med:.3f} s = "
@@ -129,10 +158,8 @@ def main(argv) -> int:
                          text=True, timeout=60, check=True).stdout.strip(),
           flush=True)
     import mitsuba3dopplertof_tpu_torch as mi
-    from ..ops import intersect_kernel as ik
-    from ..ops import intersect_v4 as v4
     from ..ops.cuda_build import build_all
-    build_all([ik.LIBRARY, v4.LIBRARY])
+    build_all([m.LIBRARY for m in _kernel_modules().values()])
     for name in argv or ["canonical", "40k"]:
         profile_scene(mi, name)
     return 0

@@ -1,8 +1,10 @@
-"""Tests of the PyTorch port that need an NVIDIA GPU: the B1 and B2 CUDA
-kernels (csrc/intersect_bruteforce.cu, csrc/intersect_v4.cu) against their
-plain PyTorch versions, and small renders on the card against the same
-renders on the CPU. They skip without a card. This file imports only the
-port (no jax), so it also runs on a machine without the JAX package:
+"""Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels B1-B6
+(csrc/intersect_bruteforce.cu, intersect_v4.cu, intersect_stream.cu,
+intersect_v2.cu, intersect_v3.cu, intersect_mxu.cu) against their plain
+PyTorch versions, and small renders on the card, through every
+large-scene route, against the same renders on the CPU. They skip without
+a card. This file imports only the port (no jax), so it also runs on a
+machine without the JAX package:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -18,6 +20,10 @@ from mitsuba3dopplertof_tpu_torch.core import transform as tf
 from mitsuba3dopplertof_tpu_torch.core.transform import AnimatedTransform
 from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
 from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as ik
+from mitsuba3dopplertof_tpu_torch.ops import intersect_mxu as mxu
+from mitsuba3dopplertof_tpu_torch.ops import intersect_stream as stream
+from mitsuba3dopplertof_tpu_torch.ops import intersect_v2 as v2
+from mitsuba3dopplertof_tpu_torch.ops import intersect_v3 as v3
 from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
 from mitsuba3dopplertof_tpu_torch.ops.intersect_mxu import payload_from_prim
 from mitsuba3dopplertof_tpu_torch.ops.ray_binning import binned
@@ -209,6 +215,73 @@ def test_large_scene_render_on_card_matches_cpu(cuda, tmp_path):
     imgs = [mt.render(_mesh_scene(dev, tmp_path, True, 32, 32, 16, 16),
                       spp=16, seed=0).cpu().numpy()
             for dev in (cuda, "cpu")]
+    g, c = imgs
+    scale = np.abs(c).max()
+    close = np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale)
+    assert close.mean() >= 0.99
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())
+
+
+# the alternate large-scene routes: MI_STREAM_KERNEL value -> (module,
+# wrapper, plain version)
+ALTERNATES = {
+    "v3": (v3, v3.intersect_v3, v3.intersect_v3_reference),
+    "v2": (v2, v2.intersect_v2, v2.intersect_v2_reference),
+    "v1": (stream, stream.intersect_stream,
+           stream.intersect_stream_reference),
+    "mxu": (mxu, mxu.intersect_mxu, mxu.intersect_mxu_reference),
+}
+
+
+@pytest.mark.parametrize("animated", [True, False])
+@pytest.mark.parametrize("route", list(ALTERNATES))
+def test_alternate_kernel_matches_plain(cuda, tmp_path, route, animated):
+    """B5, B4, B3 and B6 against their plain versions on 3,072 triangles:
+    the same lanes hit (closest-hit and any-hit), t bit for bit on hit
+    lanes (--fmad=false, the same order of operations), prim different
+    only where t ties (B3 takes chunks in table order: no lane differs);
+    B3's whole hit record bit for bit; the kernel over binned rays gives
+    the same result."""
+    mod, isect, plain = ALTERNATES[route]
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    ray = _rays(1 << 16, 3, cuda, -4.0, 0.0015 if animated else 0.0)
+    mod.reset_launch_counts()
+    v4.reset_launch_counts()
+    out_k = isect(sa, ray)
+    _, p_any = isect(sa, ray, any_hit=True)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    assert v4.LAUNCHES == 0
+    out_r = plain(sa, ray)
+    t_k, p_k, t_r, p_r = out_k[0], out_k[1], out_r[0], out_r[1]
+    hit = p_r >= 0
+    assert int(hit.sum()) > 5000
+    assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
+    assert torch.equal(t_k[hit], t_r[hit])
+    assert int((p_k != p_r).sum()) <= (0 if route == "v1" else 20)
+    if route == "v1":
+        for a, b in zip(out_k, out_r):
+            assert torch.equal(a, b)
+    out_b = binned(sa, ray, None, lambda r: list(isect(sa, r)))
+    assert torch.equal(out_b[0], t_k)
+    assert int((out_b[1] != p_k).sum()) <= 20
+
+
+@pytest.mark.parametrize("route", list(ALTERNATES))
+def test_alternate_route_render_on_card_matches_cpu(cuda, tmp_path,
+                                                    monkeypatch, route):
+    """The 2k animated-mesh scene at 16x16 x 16 spp with MI_STREAM_KERNEL
+    set: the card (the route's kernel, never B2) against the CPU (the
+    route's plain version) within test_render_on_card_matches_cpu's
+    tolerance."""
+    monkeypatch.setenv("MI_STREAM_KERNEL", route)
+    mod = ALTERNATES[route][0]
+    mod.reset_launch_counts()
+    v4.reset_launch_counts()
+    imgs = [mt.render(_mesh_scene(dev, tmp_path, True, 32, 32, 16, 16),
+                      spp=16, seed=0).cpu().numpy()
+            for dev in (cuda, "cpu")]
+    assert min(mod.LAUNCHES_BY_FORM.values()) > 0 and v4.LAUNCHES == 0
     g, c = imgs
     scale = np.abs(c).max()
     close = np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale)

@@ -11,18 +11,14 @@ CUDA kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
 import ast
 import os
-import subprocess
-import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import mitsuba3dopplertof_tpu as mj
 from mitsuba3dopplertof_tpu import emitters as jem
-from mitsuba3dopplertof_tpu.core import transform as jtf
-from mitsuba3dopplertof_tpu.core.transform import AnimatedTransform
 from mitsuba3dopplertof_tpu.core.vec import Vec3 as JVec3
 from mitsuba3dopplertof_tpu.io.mesh_loaders import load_obj as jax_load_obj
 from mitsuba3dopplertof_tpu.ops import intersect_mxu as jmxu
@@ -32,7 +28,6 @@ from mitsuba3dopplertof_tpu.ops import intersect_v3 as jv3
 from mitsuba3dopplertof_tpu.ops import intersect_v4 as jv4
 from mitsuba3dopplertof_tpu.ops import ray_binning as jbin
 from mitsuba3dopplertof_tpu.render.scene import _hit_reference
-from mitsuba3dopplertof_tpu.render.types import Ray as JRay
 
 import mitsuba3dopplertof_tpu_torch as mt
 from mitsuba3dopplertof_tpu_torch import emitters as tem
@@ -47,14 +42,20 @@ from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as tv4
 from mitsuba3dopplertof_tpu_torch.ops import ray_binning as tbin
 from mitsuba3dopplertof_tpu_torch.ops.intersect_mxu import payload_from_prim
 from mitsuba3dopplertof_tpu_torch.ops.intersect_v2 import scene_box_exit
-from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
-                                                       from_jax_scene_arrays)
-from mitsuba3dopplertof_tpu_torch.render.types import Ray as TRay
+from mitsuba3dopplertof_tpu_torch.render.scene import SceneArrays
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
     animated_mesh_scene, write_uv_sphere_obj)
 
+from torch_port_helpers import (F32_ULP, assert_t_prim as _assert_t_prim,
+                                both_rays as _both, build_mixed_scene,
+                                fresh_import_report, jax_mesh_render,
+                                mixed_dict as _mixed_dict,
+                                shell_rays as _rays)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-F32_ULP = 2.0 ** -23
+# the JAX package's oracle under one jit: compiled once for the mixed scene
+# and 2,048 rays, not op by op
+_oracle = jax.jit(_hit_reference)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,114 +66,11 @@ def _cpu():
     mt.set_device(prev)
 
 
-def _sphere_obj(path, nu, nv):
-    """A unit UV sphere with per-vertex normals and uvs ("f a/a/a")."""
-    lines = []
-    for j in range(nv + 1):
-        for i in range(nu):
-            th, ph = np.pi * j / nv, 2 * np.pi * i / nu
-            x, y, z = np.sin(th) * np.cos(ph), np.cos(th), \
-                np.sin(th) * np.sin(ph)
-            lines += [f"v {x:.6f} {y:.6f} {z:.6f}",
-                      f"vn {x:.6f} {y:.6f} {z:.6f}",
-                      f"vt {i / nu:.6f} {j / nv:.6f}"]
-
-    def vid(i, j):
-        return j * nu + (i % nu) + 1
-    for j in range(nv):
-        for i in range(nu):
-            a, b, c, d = vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), \
-                vid(i, j + 1)
-            lines.append(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}")
-            lines.append(f"f {a}/{a}/{a} {c}/{c}/{c} {d}/{d}/{d}")
-    path.write_text("\n".join(lines))
-
-
-def _mixed_dict(obj, anim_cls, spheres=False):
-    """tests/test_mxu_kernel.py's mixed scene with a 1,536-triangle sphere
-    (above the binning threshold of 1,024): the static OBJ sphere, an
-    animated cube, a floor and a point light."""
-    d = {
-        "type": "scene",
-        "integrator": {"type": "path", "max_depth": 2},
-        "sensor": {"type": "perspective", "fov": 45,
-                   "to_world": jtf.look_at([0, 0, -6], [0, 0, 0], [0, 1, 0]),
-                   "film": {"type": "hdrfilm", "width": 8, "height": 8},
-                   "sampler": {"type": "independent", "sample_count": 1}},
-        "light": {"type": "point", "position": [0, 4, -4],
-                  "intensity": {"type": "rgb", "value": 10.0}},
-        "floor": {"type": "rectangle",
-                  "to_world": jtf.translate([0, -2, 0])
-                  @ jtf.rotate([1, 0, 0], -90) @ jtf.scale([4, 4, 1])},
-        "bigmesh": {"type": "obj", "filename": str(obj),
-                    "to_world": jtf.translate([1.5, 0.5, 1.0])
-                    @ jtf.scale([0.9] * 3)},
-        "mover": {"type": "cube", "to_world": anim_cls([
-            (0.0, jtf.translate([-1.5, 0, 1]) @ jtf.scale([0.5] * 3)
-             @ jtf.rotate([0, 1, 0], 10)),
-            (1.0, jtf.translate([-1.5, 1.0, 1]) @ jtf.scale([0.5] * 3)
-             @ jtf.rotate([0, 1, 0], 55))])},
-    }
-    if spheres:
-        d["ball"] = {"type": "sphere", "center": [0.0, 1.0, 0.0],
-                     "radius": 0.5}
-    return d
-
-
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
     """(JAX SceneArrays, port SceneArrays carried over from it, port
     SceneArrays of the port's own compile, OBJ path)."""
-    obj = tmp_path_factory.mktemp("large") / "sph.obj"
-    _sphere_obj(obj, 32, 24)
-    sa_j = mj.load_dict(_mixed_dict(obj, AnimatedTransform)).compile()
-    arrays = {k: np.asarray(getattr(sa_j, k))
-              for k in SceneArrays.ARRAY_FIELDS + ["chunk_aabb"]}
-    sa_t = from_jax_scene_arrays(arrays, sa_j)
-    sa_p = mt.load_dict(_mixed_dict(obj, TAnimatedTransform)).compile()
-    return sa_j, sa_t, sa_p, obj
-
-
-def _rays(n, seed):
-    """tests/test_mxu_kernel.py::_rays: rays from a shell in front of the
-    scene, a quarter of them with finite maxt, times in [0, 1]."""
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-3.0, 3.0, (n, 3))
-    o[:, 2] -= 5.0
-    dd = rng.uniform(-2.0, 2.0, (n, 3)) - o
-    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
-    maxt = np.full(n, np.inf)
-    maxt[:n // 4] = rng.uniform(3.0, 9.0, n // 4)
-    return o, dd, rng.uniform(0.0, 1.0, n), maxt
-
-
-def _both(o, d, time, maxt):
-    f32 = np.float32
-    jr = JRay(JVec3(*(jnp.asarray(o[:, i], f32) for i in range(3))),
-              JVec3(*(jnp.asarray(d[:, i], f32) for i in range(3))),
-              jnp.asarray(time, f32), jnp.asarray(maxt, f32))
-    tr = TRay(TVec3(*(torch.from_numpy(o[:, i].astype(f32))
-                      for i in range(3))),
-              TVec3(*(torch.from_numpy(d[:, i].astype(f32))
-                      for i in range(3))),
-              torch.from_numpy(time.astype(f32)),
-              torch.from_numpy(maxt.astype(f32)))
-    return jr, tr
-
-
-def _assert_t_prim(t_p, p_p, t_r, p_r, rtol, label):
-    """tests/test_pallas_parity.py's criterion on (t, prim): the same lanes
-    hit, t within ``rtol``, and a different prim only where t ties
-    (within 1e-3 relative: a shared edge)."""
-    t_p, p_p, t_r, p_r = (np.asarray(x) for x in (t_p, p_p, t_r, p_r))
-    hit = p_r >= 0
-    assert ((p_p >= 0) == hit).all(), (label, "occlusion")
-    assert np.allclose(t_p[hit], t_r[hit], rtol=rtol, atol=0.0), \
-        (label, "t", np.abs(t_p[hit] - t_r[hit]).max())
-    bad = hit & (p_p != p_r)
-    assert np.allclose(t_p[bad], t_r[bad], rtol=1e-3), (label, "prim")
-    assert bad.mean() < 2e-3, (label, "too many ties", bad.sum())
-    return int(hit.sum())
+    return build_mixed_scene(tmp_path_factory.mktemp("large"))
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +259,7 @@ def test_payload_from_prim_matches_jax(scene):
     scale (the JAX package evaluates the same expressions in XLA)."""
     sa_j, sa_t = scene[0], scene[1]
     jr, tr = _both(*_rays(2048, seed=17))
-    hr = _hit_reference(sa_j, jr)
+    hr = _oracle(sa_j, jr)
     hj = jmxu.payload_from_prim(sa_j, jr, hr.t, hr.prim)
     ht = payload_from_prim(sa_t, tr, torch.from_numpy(np.asarray(hr.t)),
                            torch.from_numpy(np.asarray(hr.prim)))
@@ -397,11 +295,12 @@ def pallas_v4_group1(monkeypatch):
 
 def test_v4_reference_matches_pallas_interpret(scene, pallas_v4_group1):
     """``intersect_v4_reference`` against JAX ``intersect_v4`` in
-    interpret mode on 2,048 rays. Closest-hit, with a quarter of the lanes
-    at finite maxt, then every lane at maxt 2 (no hit beyond it): the same
-    lanes hit, t within 2 float32 ulps (the same Woop arithmetic; XLA may
-    fuse products into FMAs), prim equal but at shared-edge ties. Any-hit:
-    occlusion exact."""
+    interpret mode on 2,048 rays. Closest-hit (one interpret-mode compile),
+    with a quarter of the lanes at finite maxt, then every lane at maxt 2
+    (no hit beyond it): the same lanes hit, t within 2 float32 ulps (the
+    same Woop arithmetic; XLA may fuse products into FMAs), prim equal but
+    at shared-edge ties. Any-hit: the plain version's occlusion equals the
+    kernel's closest-hit occlusion and the oracle's, exactly."""
     sa_j, sa_t = scene[0], scene[1]
     rays = _rays(2048, seed=7)
     jr, tr = _both(*rays)
@@ -416,9 +315,11 @@ def test_v4_reference_matches_pallas_interpret(scene, pallas_v4_group1):
     _assert_t_prim(t_t, p_t, t_j, p_j, 2 * F32_ULP, "maxt 2")
     assert (t_t[p_t >= 0] < 2.0).all() and int((p_t >= 0).sum()) > 50
 
-    _, p_j = pallas_v4_group1(sa_j, jr, any_hit=True)
+    _, p_j = pallas_v4_group1(sa_j, jr)             # cached
     _, p_t = tv4.intersect_v4_reference(sa_t, tr, any_hit=True)
     assert np.array_equal(p_t.numpy() >= 0, np.asarray(p_j) >= 0)
+    assert np.array_equal(p_t.numpy() >= 0,
+                          np.asarray(_oracle(sa_j, jr).prim) >= 0)
 
 
 def test_plain_intersector_matches_hit_reference(scene):
@@ -432,7 +333,7 @@ def test_plain_intersector_matches_hit_reference(scene):
     from test_torch_intersect import _assert_hits_match
     sa_j, sa_t = scene[0], scene[1]
     jr, tr = _both(*_rays(2048, seed=23))
-    hr = _hit_reference(sa_j, jr)
+    hr = _oracle(sa_j, jr)
     hp = tik.intersect_reference(sa_t, tr)
     assert _assert_hits_match(hp, hr, "vectorized scan") > 400
     assert np.array_equal(hp.prim.numpy() >= 0, np.asarray(hr.prim) >= 0)
@@ -461,18 +362,13 @@ def test_large_route_merges_spheres(scene):
 # The slice as a whole
 # ---------------------------------------------------------------------------
 
-def test_animated_mesh_scene_matches_jax(tmp_path):
+def test_animated_mesh_scene_matches_jax():
     """scripts/bench_suite.py's 2k animated-mesh scene (32x32 UV sphere,
     2,048 triangles, point light, dopplertofpath, correlated sampler) at
     16x16 x 4 spp, seed 0: every pixel within rtol 1e-4 / atol 1e-4 * max
     of the JAX package's render."""
-    obj = tmp_path / "sph32.obj"
-    assert write_uv_sphere_obj(str(obj), 32, 32) == 2048
-    ref = np.asarray(mj.render(mj.load_dict(animated_mesh_scene(
-        str(obj), spp=4, res=16, tf=jtf, anim_cls=AnimatedTransform)),
-        spp=4, seed=0))
-    img = mt.render(mt.load_dict(animated_mesh_scene(str(obj), spp=4,
-                                                     res=16)),
+    obj, ref = jax_mesh_render()
+    img = mt.render(mt.load_dict(animated_mesh_scene(obj, spp=4, res=16)),
                     spp=4, seed=0).numpy()
     assert img.shape == ref.shape == (16, 16, 3)
     scale = np.abs(ref).max()
@@ -485,27 +381,8 @@ def test_default_device_is_cuda_and_nothing_imports_jax():
     """A fresh import defaults to CUDA and, with no card, loading a scene
     on the default raises; importing every module of the port pulls in
     neither jax nor the JAX package, and chip_smoke.py imports neither."""
-    code = (
-        "import sys, pkgutil, importlib, torch\n"
-        "import mitsuba3dopplertof_tpu_torch as mi\n"
-        "for m in pkgutil.walk_packages(mi.__path__, mi.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "print(mi.get_device().type)\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'mitsuba3dopplertof_tpu.')) "
-        "or m == 'mitsuba3dopplertof_tpu'))\n"
-        "if not torch.cuda.is_available():\n"
-        "    try:\n"
-        "        mi.load_file('scenes/canonical/scene.xml')\n"
-        "        print('loaded')\n"
-        "    except RuntimeError as e:\n"
-        "        print('raised' if 'CUDA' in str(e) else e)\n"
-        "else:\n"
-        "    print('raised')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split("\n")
-    assert out[:3] == ["cuda", "[]", "raised"], out
+    out = fresh_import_report()
+    assert out == ("cuda", "[]", "raised"), out
     tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]

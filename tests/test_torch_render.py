@@ -7,8 +7,6 @@ renders bit for bit, the port compiles the JAX package's tables, and the
 port never imports jax."""
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -18,6 +16,8 @@ import mitsuba3dopplertof_tpu as mj
 import mitsuba3dopplertof_tpu_torch as mt
 from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
                                                        from_jax_scene_arrays)
+
+from torch_port_helpers import fresh_import_report
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
@@ -108,15 +108,10 @@ def test_scene_parameters():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, mitsuba3dopplertof_tpu_torch as mi; "
-            "import mitsuba3dopplertof_tpu_torch.ops.intersect_kernel; "
-            "print(sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'mitsuba3dopplertof_tpu.')) "
-            "or m == 'mitsuba3dopplertof_tpu'))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120,
-                         check=True).stdout.strip()
-    assert out == "[]"
+    """Importing the port, every module of it, pulls in neither jax nor the
+    JAX package (one fresh interpreter per test process, shared with
+    tests/test_torch_large_scene.py)."""
+    assert fresh_import_report()[1] == "[]"
 
 
 def test_unported_features_name_their_roadmap_item():
