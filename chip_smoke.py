@@ -1,9 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --b2-walk CHECKOUT
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
+``--b2-walk CHECKOUT`` runs only B2's walk report (phase 4's B2 lines) on
+the package of another checkout, such as the parent commit unpacked with
+``git archive``, so that two commits compare on one card in one call.
 Every phase raises on failure:
 
   1. the card: name and power limit (nvidia-smi);
@@ -25,8 +29,17 @@ Every phase raises on failure:
      camera hits; closest-hit and any-hit, over binned rays (B2 unbinned
      too). t bitwise equal on hit lanes, prim different only at ties in t,
      occlusion exact, and for B3 the whole hit record equal where prim is;
-     then kernel times, and bounds from the work a plain walk of the same
-     lists needs on the timed wavefronts;
+     then times on the binned camera (closest-hit) and shadow (any-hit)
+     wavefronts, and B2's on the binned bounce wavefront too: kernel,
+     visit lists in PyTorch (prepare) and query; for B2 the units a walk
+     needs per 256-lane block and per 32-lane warp (mean, p99, max, share
+     of the tests in the slowest 1%); bounds from the work a plain walk
+     needs (WalkWork); B2's in-kernel visit lists against
+     _unit_visit_order, bit for bit, also with a capacity that forces
+     rounds (and B2's walk with it against the plain version);
+  4b. B2 on a 65,536-lane slice of the 100k animated scene's camera
+     wavefront and its bounce and shadow rays: the in-kernel lists (one
+     round and rounds of 1,024) and the walk against the plain version;
   5. the main path of the small scenes: scenes/canonical/scene.xml rendered
      at 256x256 x 1024 spp by dopplertofpath through B1 (launch counts read
      around the render), twice, the second render timed;
@@ -51,8 +64,10 @@ float32 rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s outside
 the tensor cores). For B2-B6 the operations count the units, quarters or
 chunks that a walk of the timed wavefront's visit lists must test, computed
 in PyTorch from the lists and the plain versions' results (``WalkWork``),
-not from counters in the kernels. No single PyTorch call computes a
-ray-triangle query, so ``library_ms`` is null.
+not from counters in the kernels: per 256-lane block for B3-B6, per 32-lane
+warp for B2 (whose warps stop on their own bounds), plus B2's lists (a slab
+test per block and unit, n log2 n compares to sort). No single PyTorch call
+computes a ray-triangle query, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -91,6 +106,12 @@ WOOP_OPS = 48
 # per lane and animated range: lerp of 12 entries, adjugate inverse and
 # the ray's transform
 INV_LERP_OPS = 130
+# one slab test of a block's ray bounds against a unit box in the kernel's
+# list (per axis four differences, eight products, eight minima, eight
+# maxima and the two clamps; then the final compare), and the scene-box
+# exit of one lane
+SLAB_OPS = 92
+EXIT_OPS = 40
 WAVEFRONT = 1 << 20             # lanes of one strip pass
 
 
@@ -223,6 +244,116 @@ def sort_wavefront(sa, ray):
     return seen["ray"], pos
 
 
+def b2_times(v4, sa, ray_s, any_hit):
+    """(kernel, query, prepare, lists) ms of B2 on one wavefront: the
+    query is ``intersect_v4`` as the route calls it, the kernel one launch
+    over its inputs, ``prepare`` the visit lists in PyTorch. A B2 that
+    builds its lists itself (``v4.lists`` exists) launches on the rays,
+    and ``lists`` times the same list code alone (with the lists' write to
+    device memory); an earlier one launches on ``prepare``'s lists and
+    ``lists`` is None."""
+    tables = v4.v4_tables(sa)
+    q_ms = cuda_time_ms(lambda: v4.intersect_v4(sa, ray_s, any_hit=any_hit))
+    p_ms = cuda_time_ms(lambda: v4.prepare(tables, ray_s), reps=5)
+    l_ms = None
+    if hasattr(v4, "lists"):
+        k_ms = cuda_time_ms(lambda: v4.launch(tables, ray_s, any_hit))
+        l_ms = cuda_time_ms(lambda: v4.lists(tables, ray_s), reps=5)
+    else:
+        prep = v4.prepare(tables, ray_s)
+        k_ms = cuda_time_ms(lambda: v4.launch(tables, prep, any_hit))
+    return k_ms, q_ms, p_ms, l_ms
+
+
+def walk_line(tag, wname, any_hit, times, dist, card):
+    """One line of the B2 walk report: times and the walk's distribution
+    (``WalkWork.b2_distribution``)."""
+    k_ms, q_ms, p_ms, l_ms = times
+    (bm, bp, bx, bs), (wm, wp, wx, ws) = dist
+    alt = "" if l_ms is None else f" (its lists alone {l_ms:.4f} ms)"
+    return (f"{tag} {wname} wavefront "
+            f"({'any-hit' if any_hit else 'closest-hit'}, binned, 40k "
+            f"animated): kernel {k_ms:.4f} ms{alt}, query {q_ms:.4f} ms, "
+            f"prepare {p_ms:.3f} ms; units a walk needs per 256-lane block: mean "
+            f"{bm:.1f}, p99 {bp:.1f}, max {bx:.0f}, slowest 1% of blocks "
+            f"{100 * bs:.1f}% of the tests; per 32-lane warp: mean {wm:.1f}, "
+            f"p99 {wp:.1f}, max {wx:.0f}, slowest 1% of warps "
+            f"{100 * ws:.1f}% ({card})")
+
+
+def b2_walk_main(root: str) -> int:
+    """``--b2-walk DIR``: B2's walk report alone, on the package of the
+    checkout at DIR (another commit, to compare with this one on one card
+    in one call): the 40k animated scene's binned camera, bounce and
+    shadow wavefronts, as the full run builds them."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "mitsuba3dopplertof_tpu_torch")):
+        fail(f"{root} holds no mitsuba3dopplertof_tpu_torch/")
+    sys.path.insert(0, root)
+    card = card_line()
+    print(card, flush=True)
+    import mitsuba3dopplertof_tpu_torch as mi
+    from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
+    from mitsuba3dopplertof_tpu_torch.ops.cuda_build import BUILD_DIR
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
+        ANIMATED_SIZES, animated_mesh_scene, write_uv_sphere_obj)
+    if not v4.__file__.startswith(root):
+        fail(f"imported {v4.__file__}, not the package under {root}")
+    v4.LIBRARY.load()
+    mi.set_variant("cuda_rgb")
+    (BUILD_DIR / "scenes").mkdir(parents=True, exist_ok=True)
+    nu, nv = ANIMATED_SIZES["40k"]
+    obj = str(BUILD_DIR / "scenes" / f"sphere_{nu}x{nv}.obj")
+    write_uv_sphere_obj(obj, nu, nv)
+    sc = mi.load_dict(animated_mesh_scene(obj, spp=256))
+    sa = sc.compile()
+    W, H = sc.sensor.film.crop_size
+    cam = camera_wavefront(sc, WAVEFRONT, (H // 2 - WAVEFRONT // (W * 256)
+                                           // 2) * W * 256, 256, 0.0015,
+                           seed=1)
+    shadow, bounce, _ = secondary_wavefronts(sa, cam, seed=2)
+    tag = f"B2 at {os.path.basename(root.rstrip(os.sep)) or root}"
+    for wname, any_hit, ray in (("camera", False, cam),
+                                ("bounce", False, bounce),
+                                ("shadow", True, shadow)):
+        ray_s, _ = sort_wavefront(sa, ray)
+        t_ref = v4.intersect_v4_reference(sa, ray_s)[0]
+        walk = WalkWork(sa, ray_s, t_ref, any_hit)
+        print(walk_line(tag, wname, any_hit, b2_times(v4, sa, ray_s, any_hit),
+                        walk.b2_distribution(), card), flush=True)
+        del walk, ray_s, t_ref
+    return 0
+
+
+def check_lists(v4, tag, sa, ray, cap=None):
+    """The kernel's visit lists (``v4.lists``) against
+    ``_unit_visit_order`` on ``prepare``'s inputs: order and t_lo bit for
+    bit, and the count of reachable units per block. Returns the largest
+    count and the most rounds a block took."""
+    import torch
+    tables = v4.v4_tables(sa)
+    order_k, tlo_k, len_k = v4.lists(tables, ray, cap)
+    order_r, tlo_r = v4.prepare(tables, ray)[4:]
+    len_r = (tlo_r < 3.0e38).sum(dim=1, dtype=torch.int32)
+    n_ord = int((order_k != order_r).sum())
+    n_tlo = int((tlo_k.view(torch.int32) != tlo_r.view(torch.int32)).sum())
+    n_len = int((len_k != len_r).sum())
+    top = int(len_r.max())
+    c = cap or min(tables.n_units, 4096)
+    print(f"lists {tag}: {order_r.shape[0]} blocks x {tables.n_units} units, "
+          f"capacity {c}: reachable per block mean "
+          f"{float(len_r.float().mean()):.1f}, max {top} "
+          f"({-(-top // c)} rounds); order differs on {n_ord}, t_lo bits "
+          f"on {n_tlo}, length on {n_len} blocks", flush=True)
+    if n_ord or n_tlo or n_len:
+        fail(f"lists {tag}: the kernel's visit lists differ from "
+             f"_unit_visit_order")
+    return top, -(-top // c)
+
+
 class WalkWork:
     """What walks of one binned wavefront's visit lists must test: per
     kernel the units, quarters or chunks whose gate passes, computed in
@@ -252,6 +383,7 @@ class WalkWork:
             _slab_visit_order
         self.torch = torch
         self.any_hit = any_hit
+        self._b2 = None
         n = ray_s.o.x.shape[0]
         if n % self.BLOCK:
             raise ValueError("WalkWork: whole blocks only")
@@ -264,6 +396,7 @@ class WalkWork:
         self.order128, self.tlo128 = v2.prepare(tb2, ray_s)[4:]
         x, _, self.order128r, self.tlo128r = mxu.prepare(mxu.mxu_tables(sa),
                                                          ray_s)
+        self.x, self.box, self.maxtp, self.t_ref = x, tb4.box, maxtp, t_ref
         # unit keys without the scene-box clamp (B6's and B3's gates)
         o32r, t32r = _slab_visit_order(tb4.box[:, :3], tb4.box[:, 3:], x,
                                        self.BLOCK)
@@ -274,7 +407,6 @@ class WalkWork:
                                device=maxtp.device)
             v4.intersect_v4_reference(sa, ray_s, unit_hits=hits)
             self.hits = hits
-            self.maxtp = maxtp
         else:
             # the ordered walks' final bound, and B6's and B3's final t_hi
             self.bound = torch.clamp(self._blockmax(
@@ -347,14 +479,108 @@ class WalkWork:
             1, order.long()[:, :, None].expand(-1, -1, 4))
         return (k <= g[:, :, None]) & (k < self.BIG)
 
+    def _slab_lohi(self, blk):
+        """(t_lo, t_hi), (groups, n_units): the slab test of each group of
+        ``blk`` lanes' ray bounds against each unit box with no far end
+        (``_slab_visit_order``'s algebra; csrc/intersect_v4.cu's warp gate
+        with blk = 32)."""
+        torch = self.torch
+        x, blo, bhi = self.x, self.box[:, :3], self.box[:, 3:]
+        ng = x.shape[1] // blk
+        xb = x.reshape(8, ng, blk)
+        ol, oh = xb[0:3].amin(dim=2).T, xb[0:3].amax(dim=2).T
+        dl, dh = xb[4:7].amin(dim=2).T, xb[4:7].amax(dim=2).T
+        t_lo = torch.zeros((ng, self.n_units), device=x.device)
+        t_hi = torch.full((ng, self.n_units), self.BIG, device=x.device)
+        for ax in range(3):
+            dla, dha = dl[:, ax:ax + 1], dh[:, ax:ax + 1]
+            same = (dla > 1e-12) | (dha < -1e-12)
+            ivs = (1.0 / torch.where(same, dla, 1.0),
+                   1.0 / torch.where(same, dha, 1.0))
+            lo = torch.full_like(t_lo, self.BIG)
+            hi = torch.full_like(t_lo, -self.BIG)
+            for p in (blo[None, :, ax], bhi[None, :, ax]):
+                for oo in (ol[:, ax:ax + 1], oh[:, ax:ax + 1]):
+                    for iv in ivs:
+                        val = (p - oo) * iv
+                        lo = torch.minimum(lo, val)
+                        hi = torch.maximum(hi, val)
+            t_lo = torch.maximum(t_lo, torch.where(same, lo, -self.BIG))
+            t_hi = torch.minimum(t_hi, torch.where(same, hi, self.BIG))
+        return t_lo, t_hi
+
+    def b2_warps(self):
+        if self._b2 is None:
+            self._b2 = self._b2_warps()
+        return self._b2
+
+    def _b2_warps(self):
+        """The units csrc/intersect_v4.cu's walk must test per 32-lane warp:
+        entries of its CTA's sorted list up to the first whose t_lo exceeds
+        the warp's far end, less those whose box the warp's own rays cannot
+        enter within it (the warp gate). Far ends as ``far_ends``, over the
+        warp's lanes. Returns (units per warp, (warps, n_units) tested)."""
+        torch = self.torch
+        wl = 32
+        k = self.BLOCK // wl
+        nw = self.n // wl
+        t_lo_w, t_hi_w = self._slab_lohi(wl)
+        ow = self.order32.long().repeat_interleave(k, dim=0)
+        glo, ghi = t_lo_w.gather(1, ow), t_hi_w.gather(1, ow)
+        del t_lo_w, t_hi_w
+        tw = self.tlo32.repeat_interleave(k, dim=0)
+        if self.any_hit:
+            first = self._first_rank(self.order32, False)
+            a = torch.full((nw, self.n_units + 1), -self.BIG,
+                           device=tw.device)
+            a.scatter_reduce_(1, first.reshape(nw, wl),
+                              self.maxtp.reshape(nw, wl), reduce="amax")
+            g = torch.clamp(a.flip(1).cummax(dim=1).values.flip(1)
+                            [:, :self.n_units], max=self.CAP)
+        else:
+            g = torch.clamp(torch.minimum(self.t_ref, self.maxtp).reshape(
+                nw, wl).amax(dim=1), max=self.CAP)[:, None]
+        tested = self._prefix(tw, g) & (glo <= torch.minimum(ghi, g))
+        return tested.sum(dim=1), tested, ow
+
+    def b2_work(self):
+        """(units tested over all warps, distinct units, operations of the
+        lists: a slab test per block and unit, and n log2 n compares to
+        sort each block's reachable units)."""
+        torch = self.torch
+        per_warp, tested, ow = self.b2_warps()
+        seen = torch.zeros((self.n_units,), dtype=torch.bool,
+                           device=tested.device)
+        seen[ow[tested]] = True
+        m = (self.tlo32 < self.BIG).sum(dim=1).double()
+        sort_ops = float((m * torch.log2(torch.clamp(m, min=2.0))).sum())
+        return (int(per_warp.sum()), int(seen.sum()),
+                self.nb * self.n_units * SLAB_OPS + sort_ops)
+
+    def b2_distribution(self):
+        """Units a walk needs per 256-lane block (the parent kernel's
+        granularity) and per 32-lane warp (the kernel's): for each, mean,
+        p99, max and the share of all tested units that fall in the
+        slowest 1% of blocks or warps."""
+        torch = self.torch
+        g = self.far_ends(self.order32, False, False)
+        per_block = self._prefix(self.tlo32, g).sum(dim=1).double()
+        per_warp = self.b2_warps()[0].double()
+        out = []
+        for v in (per_block, per_warp):
+            top = v.sort(descending=True).values[:max(1, -(-v.numel()
+                                                          // 100))]
+            out.append((float(v.mean()), float(torch.quantile(v, 0.99)),
+                        float(v.max()), float(top.sum() / max(float(
+                            v.sum()), 1.0))))
+        return out
+
     def work(self, row):
         """(entries tested over all blocks, distinct records read, label of
-        an entry) for kernel ``row``."""
+        an entry) for kernel ``row`` (B2's: ``b2_work``)."""
         torch = self.torch
-        if row in ("B2", "B5"):
+        if row == "B5":
             g = self.far_ends(self.order32, False, False)
-            # one count for both: B2 walks the same list in groups of 8,
-            # which is its own rounding, not work the function needs
             vis = self._prefix(self.tlo32, g)
             return (int(vis.sum()),
                     self._distinct(self.order32, vis, self.n_units),
@@ -696,7 +922,7 @@ def main() -> int:
             if timed:
                 plain_ms["B2"][form] = plain_ms["B5"][form] = ms
             if label == "40k animated":
-                refs40[wname] = t_r
+                refs40[wname] = (t_r, p_r)
             for bin_it in (False, True):
                 for any_hit in (False, True):
                     run = (lambda r, a=any_hit:
@@ -741,33 +967,66 @@ def main() -> int:
                 del out, ref
 
     # times at the main path's shapes: the binned camera wavefront of the
-    # 40k animated scene (closest-hit) and its binned shadow wavefront
-    # (any-hit); kernel launch alone, over prepared inputs. Bounds from
-    # the work a plain walk of the same lists needs (WalkWork).
+    # 40k animated scene (closest-hit), its binned bounce wavefront
+    # (closest-hit; B2 only) and its binned shadow wavefront (any-hit). B2
+    # builds its visit lists in the kernel: its kernel time is its query.
+    # The others: kernel launch alone over prepared inputs, their inputs
+    # (prepare: the visit lists in PyTorch, B3's only padding) and the
+    # query. Bounds from the work a plain walk needs (WalkWork). Then the
+    # kernel's visit lists against _unit_visit_order on the same wavefronts,
+    # and with a capacity that forces rounds, in the lists and in the walk.
     sa40 = big["40k animated"][2]
     cam40, shadow40, bounce40 = b2_rays["40k animated"]
     n_anim = len(sa40.anim_ranges)
+    n_units40 = v4.v4_tables(sa40).n_units
     times_l = {row: {} for row in rows}
-    for form, any_hit, wname, ray in (
-            ("closest_hit", False, "camera", cam40),
-            ("any_hit", True, "shadow", shadow40)):
+    for wname, any_hit, ray in (("camera", False, cam40),
+                                ("bounce", False, bounce40),
+                                ("shadow", True, shadow40)):
+        form = "any_hit" if any_hit else "closest_hit"
         ray_s, pos = sort_wavefront(sa40, ray)
-        t_ref = torch.empty_like(refs40[wname])
-        t_ref[pos] = refs40[wname]
+        t_ref, p_ref = (torch.empty_like(r) for r in refs40[wname])
+        t_ref[pos], p_ref[pos] = refs40[wname]
         walk = WalkWork(sa40, ray_s, t_ref, any_hit)
         n_lanes = ray_s.o.x.shape[0]
-        for row in rows:
-            if row == "B2":
-                tables, prepare, mod = v4.v4_tables(sa40), v4.prepare, v4
-            else:
-                tables, prepare, mod = (alt_fn[row][0](sa40),
-                                        alt_fn[row][1], alt_mod[row])
+        ray_ops = n_lanes * n_anim * INV_LERP_OPS
+        b2_t = b2_times(v4, sa40, ray_s, any_hit)
+        print(walk_line("B2", wname, any_hit, b2_t, walk.b2_distribution(),
+                        card), flush=True)
+        need, distinct, list_ops = walk.b2_work()
+        n_ops = (need * 32 * 32 * WOOP_OPS + ray_ops + n_lanes * EXIT_OPS
+                 + list_ops)
+        n_bytes = (n_lanes * (32 + 8) + distinct * UNIT_REC * 4
+                   + n_units40 * (24 + 8))
+        b2_bound = bound(n_bytes, n_ops)
+        print(f"B2 bound {wname}: a walk needs {need} units over "
+              f"{n_lanes // 32} warps ({need / (n_lanes // 32):.2f} per "
+              f"warp, {distinct} distinct), its lists {list_ops:.4g} "
+              f"operations; bound {b2_bound[0]:.4f} ms ({b2_bound[1]}) "
+              f"({card})", flush=True)
+        check_lists(v4, f"40k {wname}", sa40, ray_s)
+        if wname == "bounce":
+            # rounds: lists and walk with a capacity of 100 entries
+            check_lists(v4, f"40k {wname}", sa40, ray_s, cap=100)
+            t_k, p_k = v4.launch(v4.v4_tables(sa40), ray_s, False, cap=100)
+            torch.cuda.synchronize()
+            check_t_prim("B2 40k bounce binned closest-hit, capacity 100",
+                         t_k, p_k, t_ref, p_ref, False, errs_l["B2"])
+            del walk, ray_s, t_ref, p_ref, t_k, p_k
+            continue
+        times_l["B2"][form] = (b2_t[0], plain_ms["B2"][form], b2_bound)
+        for row in rows[1:]:
+            tables, prepare, isect, _ = alt_fn[row]
+            tables = tables(sa40)
+            mod = alt_mod[row]
             prep = prepare(tables, ray_s)
             k_ms = cuda_time_ms(lambda: mod.launch(tables, prep, any_hit))
             prep_ms = cuda_time_ms(lambda: prepare(tables, ray_s), reps=5)
+            q_ms = cuda_time_ms(lambda: isect(sa40, ray_s, any_hit=any_hit),
+                                reps=5)
+            del prep
             need, distinct, what = walk.work(row)
-            ray_ops = n_lanes * n_anim * INV_LERP_OPS
-            if row in ("B2", "B5"):
+            if row == "B5":
                 n_ops = need * walk.BLOCK * 32 * WOOP_OPS + ray_ops
                 n_bytes = (n_lanes * (32 + 8) + distinct * UNIT_REC * 4
                            + need * (8 + 8))
@@ -789,26 +1048,60 @@ def main() -> int:
             print(f"{row} time {form} at {n_lanes} lanes (binned), 40k "
                   f"animated: kernel {k_ms:.4f} ms, its inputs "
                   f"({prepare.__module__.split('.')[-1]}.prepare) "
-                  f"{prep_ms:.3f} ms, plain {plain_ms[row][form]:.3f} ms; a "
-                  f"plain walk needs {need} {what} over "
-                  f"{n_lanes // walk.BLOCK} blocks "
+                  f"{prep_ms:.3f} ms, query {q_ms:.4f} ms, plain "
+                  f"{plain_ms[row][form]:.3f} ms; a plain walk needs {need} "
+                  f"{what} over {n_lanes // walk.BLOCK} blocks "
                   f"({need / (n_lanes // walk.BLOCK):.1f} per block, "
                   f"{distinct} distinct records); "
                   f"bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
-        del walk
+        del walk, ray_s, t_ref, p_ref
     # what binning saves: the units a closest-hit walk of the bounce
-    # wavefront needs per block, in the wavefront's own order and binned
+    # wavefront needs per 256-lane block, in the wavefront's own order and
+    # binned
     bounce_s, pos = sort_wavefront(sa40, bounce40)
-    t_ref = torch.empty_like(refs40["bounce"])
-    t_ref[pos] = refs40["bounce"]
-    per_block = [WalkWork(sa40, r, t, False).work("B2")[0]
+    t_ref = torch.empty_like(refs40["bounce"][0])
+    t_ref[pos] = refs40["bounce"][0]
+    per_block = [WalkWork(sa40, r, t, False).work("B5")[0]
                  / (WAVEFRONT // WalkWork.BLOCK)
-                 for r, t in ((bounce40, refs40["bounce"]),
+                 for r, t in ((bounce40, refs40["bounce"][0]),
                               (bounce_s, t_ref))]
     print(f"bounce wavefront, units a walk needs per block: unbinned "
           f"{per_block[0]:.1f}, binned {per_block[1]:.1f}", flush=True)
     del bounce_s, t_ref
     del b2_rays, cam40, shadow40, bounce40, refs40
+
+    # ---- 4b. B2 on the 100k animated scene: a 65,536-lane slice -------------
+    # of its camera wavefront and that slice's bounce and shadow rays,
+    # binned: the kernel's lists against _unit_visit_order (all units in
+    # one round, and in rounds of 1,024), and B2 against its plain version
+    nu, nv = ANIMATED_SIZES["100k"]
+    obj100 = str(scene_dir / f"sphere_{nu}x{nv}.obj")
+    write_uv_sphere_obj(obj100, nu, nv)
+    sc100 = mi.load_dict(animated_mesh_scene(obj100, spp=256))
+    sa100 = sc100.compile()
+    W, H = sc100.sensor.film.crop_size
+    n_sl = 1 << 16
+    cam100 = camera_wavefront(sc100, n_sl, (H // 2) * W * 256, 256, 0.0015,
+                              seed=3)
+    shadow100, bounce100, n_valid = secondary_wavefronts(sa100, cam100,
+                                                         seed=4)
+    print(f"scene 100k animated: {sa100.n_static_tris + sa100.n_anim_tris} "
+          f"triangles, {v4.v4_tables(sa100).n_units} units; slice of "
+          f"{n_sl} camera lanes, {n_valid} hit", flush=True)
+    for wname, ray in (("camera", cam100), ("bounce", bounce100),
+                       ("shadow", shadow100)):
+        ray_s, _ = sort_wavefront(sa100, ray)
+        check_lists(v4, f"100k {wname}", sa100, ray_s)
+        check_lists(v4, f"100k {wname}", sa100, ray_s, cap=1024)
+        t_r, p_r = v4.intersect_v4_reference(sa100, ray_s)
+        for any_hit in (False, True):
+            t_k, p_k = v4.intersect_v4(sa100, ray_s, any_hit=any_hit)
+            torch.cuda.synchronize()
+            check_t_prim(f"B2 100k {wname} binned "
+                         f"{'any-hit' if any_hit else 'closest-hit'}",
+                         t_k, p_k, t_r, p_r, any_hit, errs_l["B2"])
+        del ray_s, t_r, p_r, t_k, p_k
+    del sc100, sa100, cam100, shadow100, bounce100
 
     # ---- 5. the main path, small scene (B1) -------------------------------
     scene = mi.load_file(CANONICAL)
@@ -999,4 +1292,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--b2-walk":
+        sys.exit(b2_walk_main(sys.argv[2]))
+    if len(sys.argv) != 1:
+        fail("usage: chip_smoke.py [--b2-walk CHECKOUT]")
     sys.exit(main())

@@ -2,40 +2,54 @@
 // walked front to back per block of rays, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel mitsuba3dopplertof_tpu/ops/intersect_v4.py
-// `_build_v4_kernel` (Pallas, reached through `_v4_call` / `intersect_v4`).
-// It computes the same function as that kernel and as the plain PyTorch
-// version `intersect_v4_reference` in
+// `_build_v4_kernel` (Pallas, reached through `_v4_call` / `intersect_v4`)
+// together with the visit lists that the JAX package builds outside it
+// (`intersect_v3._unit_visit_order`). It computes the same function as that
+// kernel and as the plain PyTorch version `intersect_v4_reference` in
 // mitsuba3dopplertof_tpu_torch/ops/intersect_v4.py. Each unit holds 32
 // triangles as 12 Woop coefficients each (the rows of [e1 | e2 | n]^-1 and
 // their offsets). A unit of an animated range is tested with the lane's ray
 // moved into object space by the inverse of the keyframe-lerped 3x4 matrix
-// at the lane's own time. PyTorch has already sorted, for every block of
-// kBlock lanes, the units by a conservative entry distance t_lo (3e38 for a
-// unit the block cannot reach) and clamped each lane's maxt to the scene box
-// (dead lanes: maxt < 0).
+// at the lane's own time.
 //
-// What bounds it on this card: arithmetic. Each visited unit costs every
-// lane 32 ray-triangle tests of about 40 float operations; the rays (32
-// bytes in, 8 out per lane) and the visit lists (8 bytes per block and
-// unit) are read once, and the Woop records (1.5 KB per unit) are read
-// once per block that visits the unit, mostly from L2.
+// What bounds it on this card: arithmetic. Each unit a warp tests costs
+// each of its lanes 32 ray-triangle tests of about 48 float operations; the
+// rays (32 bytes in, 8 out per lane) and the unit boxes are read once, the
+// Woop records (1.5 KB per unit) once per warp that tests the unit, from L1
+// and L2.
 //
-// What the design does about it: one CTA per visit block, one thread per
-// ray, so the block's bound is a CTA-wide max. The CTA walks its list in
-// groups of kGroup units: it stages the group's records into shared memory
-// (triangle-major, so a thread reads a triangle's 12 coefficients as three
-// 16-byte broadcasts), every thread tests its ray against the group, and a
-// block-wide max of min(t, maxt) (-3e38 for an any-hit lane with a hit,
-// capped at 1e37) decides whether the next group's first t_lo can still
-// matter. Because the list is sorted, the units a block still needs are
-// always a prefix, so that one compare is the whole gate. An index past the
-// list end repeats the last unit, which is idempotent under strict
-// t < best. The lane's object-space ray stays in registers while
-// consecutive units share an animated range. The file is built with
-// --fmad=false: every product and sum rounds on its own, in the plain
-// version's order, so t on hit lanes matches it bit for bit; degenerate and
-// pad triangles have zero rows, t = -0/0 is NaN, and every comparison
-// rejects it.
+// What the design does about it:
+//  * The lists are built in the kernel. One CTA of 256 threads owns one
+//    block of 256 lanes. It clamps each lane's maxt by the scene-box exit
+//    (`scene_box_exit`'s order of operations), reduces the block's ray
+//    bounds, slab-tests every unit box against them (`_slab_visit_order`'s
+//    algebra) and sorts the reachable units by (t_lo, unit) in shared
+//    memory with a bitonic network: the order of a stable argsort.
+//  * Capacity: the sorted list holds at most `cap` entries (a launch
+//    argument up to kMaxCap). Where more units are reachable the kernel
+//    works in rounds: each round takes the next <= cap keys after the last
+//    (t_lo, unit) it took, so the walk is exact at any scene size.
+//  * Warp-granular bounds: the walk of warp a's 32 lanes goes down the
+//    list on their own bound (the largest min(t, maxt) of the 32; -3e38 for
+//    an any-hit lane with a hit), with no CTA barrier per unit, and skips a
+//    unit whose box those 32 rays cannot enter within it (the block's slab
+//    test on the warp's ray bounds).
+//  * The tail is split: every warp's walk is shared by all 8 warps of the
+//    CTA. Entry p of warp a's walk goes to warp p mod 8, which loads a's
+//    rays, so a long walk (a lane that escapes the scene, a lit shadow
+//    lane) runs on the whole CTA instead of one warp. The lanes' results
+//    meet in shared memory by a 64-bit atomicMin of (float bits of t) << 32
+//    | prim, read back before each entry as the walk's bound: t > 0 on
+//    every hit, so its bits order as an unsigned integer, and the smaller
+//    prim wins at equal t, which is the plain version's rule (strict
+//    t < best in slot order); prim equals the plain version's on every
+//    closest-hit lane. A warp stages each unit's record in its own slot of
+//    shared memory (three coalesced 16-byte loads a lane) and reads the
+//    triangles back as broadcasts.
+// The file is built with --fmad=false: every product and sum rounds on its
+// own, in the plain version's order, so t on hit lanes matches it bit for
+// bit; degenerate and pad triangles have zero rows, t = -0/0 is NaN, and
+// every comparison rejects it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,38 +57,97 @@
 
 namespace {
 
-constexpr int kBlock = 256;            // lanes per CTA = lanes per visit list
-constexpr int kGroup = 8;              // units per step of the walk
+typedef unsigned long long u64;
+
+constexpr int kBlock = 256;            // lanes per CTA = lanes per list
+constexpr int kWarps = kBlock / 32;
 constexpr int kChunk = 32;             // triangles per unit
-constexpr int kCoef = 12;              // Woop coefficients per triangle
-constexpr int kUnitRec = kCoef * kChunk;
 constexpr int kInstRec = 26;           // m0 (3x4) | m1 (3x4) | t0 | t1
+constexpr int kMaxCap = 4096;          // largest list a round may hold
+constexpr int kGate = 15;              // per warp and axis: ol oh ia ib same
+constexpr int kBounds = 22;            // block bounds, maxt, 3 per axis
 constexpr float kBig = 3.0e38f;
 constexpr float kBoundCap = 1.0e37f;   // below the 3e38 key of unreachable
+constexpr u64 kNoHit = (0x7F800000ull << 32) | 0xFFFFFFFFull;  // (inf, -1)
 
-struct Params {
-  const float* woop;   // (n_units, 384): coefficient c of triangle j at c*32+j
-  const int* meta;     // (n_units, 2): animated range | -1, slot of tri 0
-  const float* inst;   // (n_ranges, 26)
-  const int* order;    // (n_blocks, n_units): units by entry distance
-  const float* tlo;    // (n_blocks, n_units): the sorted entry distances
+struct Scene {
+  const float* woop;       // (n_units, 32, 12): triangle j's coefficients
+  const int* meta;         // (n_units, 2): animated range | -1, slot of tri 0
+  const float* inst;       // (n_ranges, 26)
+  const float* box;        // (n_units, 6): lo xyz, hi xyz
+  const float* scene_box;  // (6,): the union of the unit boxes
   int n_units;
   int has_anim;
+  int cap;
+};
+
+struct Rays {
   const float* ox; const float* oy; const float* oz;
   const float* dx; const float* dy; const float* dz;
   const float* time; const float* maxt;
-  float* t_out;        // (n,)
-  int* prim_out;       // (n,)
+  long long n;
 };
+
+// torch.minimum / torch.maximum: NaN if either is NaN, else the same
+// instruction PyTorch's CUDA kernels issue
+__device__ __forceinline__ float tmin(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+// torch.clamp(x, max=3e38): NaN stays NaN
+__device__ __forceinline__ float clamp_big(float x) {
+  return x > kBig ? kBig : x;
+}
+
+// Exit distance of the scene box, as intersect_v2.scene_box_exit: a ray
+// hits nothing past the point where it leaves the box; -1 if it misses it.
+__device__ __forceinline__ float scene_exit(const float* sb, const float* w) {
+  float t_en = -kBig, t_ex = kBig;
+  for (int ax = 0; ax < 3; ++ax) {
+    float oa = w[ax], da = w[3 + ax];
+    float lo = __ldg(sb + ax), hi = __ldg(sb + 3 + ax);
+    bool ok = fabsf(da) > 1e-20f;
+    float inv = 1.0f / (ok ? da : 1.0f);
+    float ta = (lo - oa) * inv;
+    float tb = (hi - oa) * inv;
+    float alo = tmin(ta, tb), ahi = tmax(ta, tb);
+    bool inside = (oa >= lo) && (oa <= hi);
+    alo = ok ? alo : (inside ? -kBig : kBig);
+    ahi = ok ? ahi : (inside ? kBig : -kBig);
+    t_en = tmax(t_en, alo);
+    t_ex = tmin(t_ex, ahi);
+  }
+  bool hit_box = (t_en <= t_ex) && (t_ex > 0.0f);
+  float ex = clamp_big(t_ex) * 1.001f;
+  ex = ex + 1e-4f;
+  return hit_box ? ex : -1.0f;
+}
+
+// Lane `lane` of the rays: the world ray w (o, d), its time and its maxt
+// clamped to 3e38 and to the scene-box exit. Lanes past n repeat the last
+// ray with maxt -1 (dead), as the wrapper's padding did.
+__device__ __forceinline__ void load_lane(const Rays& ry, const float* sb,
+                                          long long lane, float* w,
+                                          float* time, float* maxt) {
+  long long src = lane < ry.n ? lane : ry.n - 1;
+  w[0] = ry.ox[src]; w[1] = ry.oy[src]; w[2] = ry.oz[src];
+  w[3] = ry.dx[src]; w[4] = ry.dy[src]; w[5] = ry.dz[src];
+  *time = ry.time[src];
+  if (maxt != nullptr) {
+    float m = lane < ry.n ? ry.maxt[src] : -1.0f;
+    *maxt = tmin(clamp_big(m), scene_exit(sb, w));
+  }
+}
 
 // The ray in the hit space of a unit of transform group `ci` (-1 static):
 // fa * (M(t)^-1 x) + om * x with fa = 1 for animated units, as the plain
 // version (and the TPU kernel) compute it; M(t) is the clamped keyframe lerp
 // of the record's two matrices (reference transform.h:458-466).
 __device__ __forceinline__ void unit_ray(const float* rec, int ci,
-                                         float time, float ox, float oy,
-                                         float oz, float dx, float dy,
-                                         float dz, float* r) {
+                                         float time, const float* w,
+                                         float* r) {
   float tw0 = rec[24], tw1 = rec[25];
   float span = tw1 - tw0;
   float denom = span != 0.0f ? span : 1.0f;
@@ -103,6 +176,7 @@ __device__ __forceinline__ void unit_ray(const float* rec, int ci,
   float n2 = -(i6 * t0 + i7 * t1 + i8 * t2);
   float fa = ci >= 0 ? 1.0f : 0.0f;
   float om = 1.0f - fa;
+  float ox = w[0], oy = w[1], oz = w[2], dx = w[3], dy = w[4], dz = w[5];
   r[0] = fa * (i0 * ox + i1 * oy + i2 * oz + n0) + om * ox;
   r[1] = fa * (i3 * ox + i4 * oy + i5 * oz + n1) + om * oy;
   r[2] = fa * (i6 * ox + i7 * oy + i8 * oz + n2) + om * oz;
@@ -111,143 +185,521 @@ __device__ __forceinline__ void unit_ray(const float* rec, int ci,
   r[5] = fa * (i6 * dx + i7 * dy + i8 * dz) + om * dz;
 }
 
-// CTA-wide max, capped at kBoundCap; the same value on every thread. Its
-// first barrier also ends every thread's reads of the staged units.
-__device__ __forceinline__ float block_bound(float v, float* s_red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = s_red[0];
-  for (int w = 1; w < kBlock / 32; ++w) r = fmaxf(r, s_red[w]);
-  return fminf(r, kBoundCap);
-}
-
-template <bool kAnyHit>
-__device__ __forceinline__ float lane_term(float best_t, int best_p,
-                                           float maxt) {
-  if (kAnyHit) return best_p >= 0 ? -kBig : maxt;
-  return fminf(best_t, maxt);
-}
-
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBlock) walk_kernel(Params p) {
-  // staged group, triangle-major: unit q, triangle j, coefficient c at
-  // (q * kChunk + j) * kCoef + c
-  __shared__ __align__(16) float s_woop[kGroup * kUnitRec];
-  __shared__ int s_meta[kGroup * 2];
-  __shared__ float s_red[kBlock / 32];
-
-  const int tid = threadIdx.x;
-  const long long lane = (long long)blockIdx.x * kBlock + tid;
-  const float ox = p.ox[lane], oy = p.oy[lane], oz = p.oz[lane];
-  const float dx = p.dx[lane], dy = p.dy[lane], dz = p.dz[lane];
-  const float time = p.time[lane], maxt = p.maxt[lane];
-  const int n_units = p.n_units;
-  const int* order = p.order + (long long)blockIdx.x * n_units;
-  const float* tlo = p.tlo + (long long)blockIdx.x * n_units;
-  const int n_groups = (n_units + kGroup - 1) / kGroup;
-
-  float best_t = INFINITY;
-  int best_p = -1;
-  int cur_ci = -2;                       // transform group of r[] (-2: none)
-  float r[6] = {ox, oy, oz, dx, dy, dz};
-
-  float bound = block_bound(lane_term<kAnyHit>(best_t, best_p, maxt), s_red);
-  int g = 0;
-  while (g < n_groups && tlo[g * kGroup] <= bound) {
-    for (int k = tid; k < kGroup * kUnitRec; k += kBlock) {
-      int q = k / kUnitRec, rem = k - q * kUnitRec;
-      int c = rem / kChunk, j = rem - c * kChunk;
-      int unit = order[min(g * kGroup + q, n_units - 1)];
-      s_woop[(q * kChunk + j) * kCoef + c] =
-          p.woop[(long long)unit * kUnitRec + rem];
+// The block's ray bounds into s_bb[kBounds]: min of o (0-2), max of o
+// (3-5), min of d (6-8), max of d (9-11) and the largest clamped maxt capped
+// at 3e38 (12), over all kBlock lanes (fminf/fmaxf: a NaN lane would be
+// skipped where PyTorch's amin propagates it); then per axis the
+// reciprocals of the d bounds and whether they share a sign (13 + 3 * axis
+// + 0, 1, 2). The warp's own bounds, with the same per axis, go to s_gate
+// (kGate floats).
+__device__ __forceinline__ void ray_bounds(const float* w, float maxt,
+                                           float* s_part, float* s_bb,
+                                           float* s_gate) {
+  float v[13];
+  for (int a = 0; a < 3; ++a) {
+    v[a] = w[a];
+    v[3 + a] = w[a];
+    v[6 + a] = w[3 + a];
+    v[9 + a] = w[3 + a];
+  }
+  v[12] = maxt;
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int a = 0; a < 13; ++a) {
+      float o = __shfl_xor_sync(0xffffffffu, v[a], off);
+      bool is_min = a < 3 || (a >= 6 && a < 9);
+      v[a] = is_min ? fminf(v[a], o) : fmaxf(v[a], o);
     }
-    if (tid < kGroup) {
-      int unit = order[min(g * kGroup + tid, n_units - 1)];
-      s_meta[2 * tid] = p.meta[2 * unit];
-      s_meta[2 * tid + 1] = p.meta[2 * unit + 1];
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    for (int a = 0; a < 13; ++a) s_part[warp * 13 + a] = v[a];
+    for (int ax = 0; ax < 3; ++ax) {
+      float dl = v[6 + ax], dh = v[9 + ax];
+      bool same = (dl > 1e-12f) || (dh < -1e-12f);
+      s_gate[5 * ax] = v[ax];
+      s_gate[5 * ax + 1] = v[3 + ax];
+      s_gate[5 * ax + 2] = 1.0f / (same ? dl : 1.0f);
+      s_gate[5 * ax + 3] = 1.0f / (same ? dh : 1.0f);
+      s_gate[5 * ax + 4] = same ? 1.0f : 0.0f;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 13) {
+    int a = threadIdx.x;
+    bool is_min = a < 3 || (a >= 6 && a < 9);
+    float r = s_part[a];
+    for (int q = 1; q < kWarps; ++q) {
+      float o = s_part[q * 13 + a];
+      r = is_min ? fminf(r, o) : fmaxf(r, o);
+    }
+    s_bb[a] = a == 12 ? clamp_big(r) : r;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    int ax = threadIdx.x;
+    float dl = s_bb[6 + ax], dh = s_bb[9 + ax];
+    bool same = (dl > 1e-12f) || (dh < -1e-12f);
+    s_bb[13 + 3 * ax] = 1.0f / (same ? dl : 1.0f);
+    s_bb[14 + 3 * ax] = 1.0f / (same ? dh : 1.0f);
+    s_bb[15 + 3 * ax] = same ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+}
+
+// The conservative entry distance of the block's rays into a unit box, as
+// `_slab_visit_order` computes it: per axis the plane parameters (p - o) / d
+// over both planes and both ends of the o and d intervals span an interval;
+// a d interval that straddles zero leaves its axis unbounded. 3e38 where
+// no ray of the block can enter the box within the block's maxt. The
+// reciprocals are the block's (``ray_bounds``), the same quotients as
+// PyTorch's per unit. fminf/fmaxf stand for torch.minimum/maximum: the
+// products are never NaN for bounds that are not (a NaN bound makes every
+// key 3e38 either way), except maxt, whose minimum keeps PyTorch's rule.
+__device__ __forceinline__ float unit_key(const float* s_bb,
+                                          const float* box) {
+  float t_lo = 0.0f, t_hi = s_bb[12];
+  for (int ax = 0; ax < 3; ++ax) {
+    const float ol = s_bb[ax], oh = s_bb[3 + ax];
+    const float inv_a = s_bb[13 + 3 * ax], inv_b = s_bb[14 + 3 * ax];
+    const bool same = s_bb[15 + 3 * ax] != 0.0f;
+    float lo = kBig, hi = -kBig;
+    for (int pi = 0; pi < 2; ++pi) {
+      float p = __ldg(box + 3 * pi + ax);
+      for (int oi = 0; oi < 2; ++oi) {
+        float num = p - (oi == 0 ? ol : oh);
+        float va = num * inv_a;
+        lo = fminf(lo, va);
+        hi = fmaxf(hi, va);
+        float vb = num * inv_b;
+        lo = fminf(lo, vb);
+        hi = fmaxf(hi, vb);
+      }
+    }
+    lo = same ? lo : -kBig;
+    hi = same ? hi : kBig;
+    t_lo = fmaxf(t_lo, lo);
+    t_hi = tmin(t_hi, hi);
+  }
+  bool live = __ldg(box) <= __ldg(box + 3);
+  return (t_lo <= t_hi && live) ? t_lo : kBig;
+}
+
+// A list entry: the key's bits (sign cleared: t_lo >= 0, and -0 sorts as
+// +0, as in PyTorch's sort) above the unit index, so that the entries
+// order as (t_lo, unit).
+__device__ __forceinline__ u64 pack_entry(float key, int unit) {
+  return ((u64)(__float_as_uint(key) & 0x7FFFFFFFu) << 32) | (unsigned)unit;
+}
+__device__ __forceinline__ float entry_key(u64 e) {
+  return __uint_as_float((unsigned)(e >> 32));
+}
+__device__ __forceinline__ int entry_unit(u64 e) {
+  return (int)(unsigned)(e & 0xFFFFFFFFull);
+}
+
+// A lane's best hit as (float bits of t) << 32 | prim: the smaller value is
+// the nearer hit, or at equal t the smaller prim.
+__device__ __forceinline__ u64 pack_hit(float t, int prim) {
+  return ((u64)__float_as_uint(t) << 32) | (unsigned)prim;
+}
+
+// Ascending sort of s[0, n) with a bitonic network whose comparators all
+// put the smaller entry at the lower index, so entries past n behave as +inf
+// and need no storage. Starts and ends with the CTA in step.
+__device__ void bitonic_sort(u64* s, int n) {
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int k = 2; k <= n2; k <<= 1) {
+    const int half = k >> 1;
+    for (int i = threadIdx.x; i < (n2 >> 1); i += kBlock) {
+      int blk = i / half, off = i - blk * half;
+      int a = blk * k + off, b = blk * k + k - 1 - off;
+      if (b < n) {
+        u64 x = s[a], y = s[b];
+        if (y < x) { s[a] = y; s[b] = x; }
+      }
     }
     __syncthreads();
-
-    for (int q = 0; q < kGroup; ++q) {
-      if (p.has_anim) {
-        int ci = s_meta[2 * q];
-        if (ci != cur_ci) {
-          unit_ray(p.inst + (ci > 0 ? ci : 0) * kInstRec, ci, time, ox, oy,
-                   oz, dx, dy, dz, r);
-          cur_ci = ci;
+    for (int j = k >> 2; j >= 1; j >>= 1) {
+      for (int i = threadIdx.x; i < (n2 >> 1); i += kBlock) {
+        int blk = i / j, off = i - blk * j;
+        int a = blk * 2 * j + off, b = a + j;
+        if (b < n) {
+          u64 x = s[a], y = s[b];
+          if (y < x) { s[a] = y; s[b] = x; }
         }
       }
-      const float rox = r[0], roy = r[1], roz = r[2];
-      const float rdx = r[3], rdy = r[4], rdz = r[5];
-      const int slot0 = s_meta[2 * q + 1];
-      const float4* tri =
-          reinterpret_cast<const float4*>(s_woop + q * kUnitRec);
-#pragma unroll 4
-      for (int j = 0; j < kChunk; ++j) {
-        const float4 w0 = tri[3 * j], w1 = tri[3 * j + 1], w2 = tri[3 * j + 2];
-        float ozp = w2.x * rox + w2.y * roy + w2.z * roz + w2.w;
-        float dzp = w2.x * rdx + w2.y * rdy + w2.z * rdz;
-        float t = -ozp / dzp;
-        float o0 = w0.x * rox + w0.y * roy + w0.z * roz + w0.w;
-        float d0 = w0.x * rdx + w0.y * rdy + w0.z * rdz;
-        float u = o0 + t * d0;
-        float o1 = w1.x * rox + w1.y * roy + w1.z * roz + w1.w;
-        float d1 = w1.x * rdx + w1.y * rdy + w1.z * rdz;
-        float v = o1 + t * d1;
-        if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
-            t < maxt && t < best_t) {
-          best_t = t;
-          best_p = slot0 + j;
-        }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+// One round of the block's visit list into s_list: the (up to cap)
+// smallest entries above `last` (all entries in the first round), sorted.
+// Units are scanned cap at a time; whenever more than cap entries are
+// held, they are sorted and the largest dropped, and *s_more is set.
+// s_list holds n_units <= cap ? n_units : 2 * cap entries. Returns the
+// round's length, the same on every thread.
+__device__ int build_round(const Scene& sc, const float* s_bb, bool has_last,
+                           u64 last, u64* s_list, int* s_n, int* s_more) {
+  const int cap = sc.cap;
+  if (threadIdx.x == 0) {
+    *s_n = 0;
+    *s_more = 0;
+  }
+  __syncthreads();
+  for (int u0 = 0; u0 < sc.n_units; u0 += cap) {
+    const int u1 = min(u0 + cap, sc.n_units);
+    for (int u = u0 + threadIdx.x; u < u1; u += kBlock) {
+      float key = unit_key(s_bb, sc.box + 6LL * u);
+      if (key < kBig) {
+        u64 e = pack_entry(key, u);
+        if (!has_last || e > last) s_list[atomicAdd(s_n, 1)] = e;
       }
     }
-    bound = block_bound(lane_term<kAnyHit>(best_t, best_p, maxt), s_red);
-    ++g;
+    __syncthreads();
+    const int n = *s_n;
+    if (n > cap) {
+      bitonic_sort(s_list, n);
+      if (threadIdx.x == 0) {
+        *s_n = cap;
+        *s_more = 1;
+      }
+      __syncthreads();
+    }
   }
-  p.t_out[lane] = best_t;
-  p.prim_out[lane] = best_p;
+  const int n = *s_n;
+  bitonic_sort(s_list, n);
+  return n;
+}
+
+// Largest term of the warp's lanes, capped: the far end of its walk.
+template <bool kAnyHit>
+__device__ __forceinline__ float warp_bound(float best_t, int best_p,
+                                            float maxt) {
+  float v = kAnyHit ? (best_p >= 0 ? -kBig : maxt) : fminf(best_t, maxt);
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return fminf(v, kBoundCap);
+}
+
+// May a ray of the warp whose bounds are `g` enter `box` at a distance in
+// [0, t_hi]? The block's slab test on the warp's 32 rays.
+__device__ __forceinline__ bool warp_gate(const float* g, const float* box,
+                                          float t_hi) {
+  float t_lo = 0.0f;
+  for (int ax = 0; ax < 3; ++ax) {
+    if (g[5 * ax + 4] == 0.0f) continue;
+    float ol = g[5 * ax], oh = g[5 * ax + 1];
+    float ia = g[5 * ax + 2], ib = g[5 * ax + 3];
+    float bmin = __ldg(box + ax), bmax = __ldg(box + 3 + ax);
+    float n0 = bmin - ol, n1 = bmin - oh, n2 = bmax - ol, n3 = bmax - oh;
+    float v0 = n0 * ia, v1 = n0 * ib, v2 = n1 * ia, v3 = n1 * ib;
+    float v4 = n2 * ia, v5 = n2 * ib, v6 = n3 * ia, v7 = n3 * ib;
+    float lo = fminf(fminf(fminf(v0, v1), fminf(v2, v3)),
+                     fminf(fminf(v4, v5), fminf(v6, v7)));
+    float hi = fmaxf(fmaxf(fmaxf(v0, v1), fmaxf(v2, v3)),
+                     fmaxf(fmaxf(v4, v5), fmaxf(v6, v7)));
+    t_lo = fmaxf(t_lo, lo);
+    t_hi = fminf(t_hi, hi);
+  }
+  return t_lo <= t_hi;
+}
+
+// The lane's ray against the 32 triangles of `unit`: Woop's test in the
+// plain version's order of operations. A hit replaces (bt, bp) if nearer,
+// or as near with a smaller slot. `lim` is the largest float below maxt
+// (-inf for a NaN maxt), so that one compare t <= min(bt, lim) stands for
+// t < maxt and t <= bt (a finite bt is below maxt); the triangles go from
+// the last to the first, so the smallest slot among the unit's equal t is
+// the one kept, and a tie with the best of earlier units is settled once
+// per unit.
+__device__ __forceinline__ void test_unit(const Scene& sc, int unit,
+                                          const float* w, float time,
+                                          float lim, int& cur_ci, float* r,
+                                          float4* stage, float& bt, int& bp) {
+  const int ci = __ldg(sc.meta + 2 * unit);
+  const int slot0 = __ldg(sc.meta + 2 * unit + 1);
+  if (sc.has_anim && ci != cur_ci) {
+    unit_ray(sc.inst + (ci > 0 ? ci : 0) * kInstRec, ci, time, w, r);
+    cur_ci = ci;
+  }
+  const float rox = r[0], roy = r[1], roz = r[2];
+  const float rdx = r[3], rdy = r[4], rdz = r[5];
+  // the unit's 1.5 KB record into the warp's stage: three coalesced
+  // 16-byte loads a lane, then read back as broadcasts
+  const float4* src =
+      reinterpret_cast<const float4*>(sc.woop) + (long long)unit * kChunk * 3;
+  const int lane = threadIdx.x & 31;
+  const float4 c0 = __ldg(src + lane), c1 = __ldg(src + 32 + lane);
+  const float4 c2 = __ldg(src + 64 + lane);
+  __syncwarp();
+  stage[lane] = c0;
+  stage[32 + lane] = c1;
+  stage[64 + lane] = c2;
+  __syncwarp();
+  const float4* tri = stage;
+  float ut = fminf(bt, lim);
+  int uj = -1;
+#pragma unroll 4
+  for (int j = kChunk - 1; j >= 0; --j) {
+    const float4 w0 = tri[3 * j];
+    const float4 w1 = tri[3 * j + 1];
+    const float4 w2 = tri[3 * j + 2];
+    float ozp = w2.x * rox + w2.y * roy + w2.z * roz + w2.w;
+    float dzp = w2.x * rdx + w2.y * rdy + w2.z * rdz;
+    float t = -ozp / dzp;
+    float o0 = w0.x * rox + w0.y * roy + w0.z * roz + w0.w;
+    float d0 = w0.x * rdx + w0.y * rdy + w0.z * rdz;
+    float u = o0 + t * d0;
+    float o1 = w1.x * rox + w1.y * roy + w1.z * roz + w1.w;
+    float d1 = w1.x * rdx + w1.y * rdy + w1.z * rdz;
+    float v = o1 + t * d1;
+    if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t <= ut) {
+      ut = t;
+      uj = j;
+    }
+  }
+  if (uj >= 0 && (ut < bt || slot0 + uj < bp)) {
+    bt = ut;
+    bp = slot0 + uj;
+  }
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kBlock)
+    v4_walk_kernel(Scene sc, Rays ry, float* t_out, int* prim_out) {
+  extern __shared__ u64 s_list[];
+  __shared__ u64 s_best[kBlock];
+  __shared__ float s_maxt[kBlock];
+  __shared__ float s_part[kWarps * 13];
+  __shared__ float s_bb[kBounds];
+  __shared__ float s_gate[kWarps * kGate];
+  __shared__ float4 s_stage[kWarps][kChunk * 3];
+  __shared__ int s_n, s_more;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long base = (long long)blockIdx.x * kBlock;
+  {
+    float w[6], time, maxt;
+    load_lane(ry, sc.scene_box, base + tid, w, &time, &maxt);
+    s_maxt[tid] = maxt;
+    s_best[tid] = kNoHit;
+    ray_bounds(w, maxt, s_part, s_bb, s_gate + warp * kGate);
+  }
+
+  bool has_last = false;
+  u64 last = 0;
+  for (;;) {
+    const int m = build_round(sc, s_bb, has_last, last, s_list, &s_n,
+                              &s_more);
+    const bool more = s_more != 0;
+    // entry p of warp a's walk goes to warp p mod kWarps, which holds warp
+    // a's 32 rays; a walk ends at the first entry past its warp's bound
+    for (int a = 0; a < kWarps; ++a) {
+      const int ta = a * 32 + lane;
+      float wa[6], time_a;
+      load_lane(ry, sc.scene_box, base + ta, wa, &time_a, nullptr);
+      const float maxt_a = s_maxt[ta];
+      const float lim = maxt_a == maxt_a ? nextafterf(maxt_a, -INFINITY)
+                                         : -INFINITY;
+      float r[6] = {wa[0], wa[1], wa[2], wa[3], wa[4], wa[5]};
+      int cur_ci = -2;
+      volatile u64* best_a = s_best + ta;
+      for (int p = warp; p < m; p += kWarps) {
+        const u64 cb = *best_a;
+        float bt = __uint_as_float((unsigned)(cb >> 32));
+        int bp = (int)(unsigned)(cb & 0xFFFFFFFFull);
+        const float bound = warp_bound<kAnyHit>(bt, bp, maxt_a);
+        const u64 e = s_list[p];
+        if (entry_key(e) > bound) break;
+        const int unit = entry_unit(e);
+        if (!warp_gate(s_gate + a * kGate, sc.box + 6LL * unit, bound))
+          continue;
+        const int bp0 = bp;
+        test_unit(sc, unit, wa, time_a, lim, cur_ci, r, s_stage[warp], bt,
+                  bp);
+        if (bp != bp0) atomicMin(s_best + ta, pack_hit(bt, bp));
+      }
+    }
+    __syncthreads();
+    if (!more) break;
+    last = s_list[m - 1];
+    has_last = true;
+  }
+  if (base + tid < ry.n) {
+    const u64 cb = s_best[tid];
+    t_out[base + tid] = __uint_as_float((unsigned)(cb >> 32));
+    prim_out[base + tid] = (int)(unsigned)(cb & 0xFFFFFFFFull);
+  }
+}
+
+// The visit lists alone (a check of the walk's lists, not a path): per
+// block the reachable units sorted by (t_lo, unit), then the unreachable
+// ones in index order with key 3e38 -- the rows of a stable argsort of the
+// keys -- and the number reachable.
+__global__ void __launch_bounds__(kBlock)
+    v4_lists_kernel(Scene sc, Rays ry, int* order_out, float* tlo_out,
+                    int* len_out) {
+  extern __shared__ u64 s_list[];
+  __shared__ float s_part[kWarps * 13];
+  __shared__ float s_bb[kBounds];
+  __shared__ float s_gate[kWarps * kGate];
+  __shared__ int s_count[kWarps];
+  __shared__ int s_n, s_more;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long base = (long long)blockIdx.x * kBlock;
+  float w[6], time, maxt;
+  load_lane(ry, sc.scene_box, base + tid, w, &time, &maxt);
+  ray_bounds(w, maxt, s_part, s_bb, s_gate + warp * kGate);
+  int* order = order_out + (long long)blockIdx.x * sc.n_units;
+  float* tlo = tlo_out + (long long)blockIdx.x * sc.n_units;
+
+  int written = 0;
+  bool has_last = false;
+  u64 last = 0;
+  for (;;) {
+    const int m = build_round(sc, s_bb, has_last, last, s_list, &s_n,
+                              &s_more);
+    const bool more = s_more != 0;
+    for (int i = tid; i < m; i += kBlock) {
+      const int unit = entry_unit(s_list[i]);
+      order[written + i] = unit;
+      tlo[written + i] = unit_key(s_bb, sc.box + 6LL * unit);
+    }
+    written += m;
+    if (!more) break;
+    last = s_list[m - 1];
+    has_last = true;
+    __syncthreads();
+  }
+  if (tid == 0) len_out[blockIdx.x] = written;
+  for (int u0 = 0; u0 < sc.n_units; u0 += kBlock) {
+    const int u = u0 + tid;
+    const bool out = u < sc.n_units && !(unit_key(s_bb, sc.box + 6LL *
+                                                    min(u, sc.n_units - 1))
+                                         < kBig);
+    const unsigned bal = __ballot_sync(0xffffffffu, out);
+    if (lane == 0) s_count[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, total = 0;
+    for (int q = 0; q < kWarps; ++q) {
+      off += q < warp ? s_count[q] : 0;
+      total += s_count[q];
+    }
+    if (out) {
+      const int at = written + off + __popc(bal & ((1u << lane) - 1u));
+      order[at] = u;
+      tlo[at] = kBig;
+    }
+    written += total;
+    __syncthreads();
+  }
+}
+
+Scene make_scene(const void* woop, const void* meta, const void* inst,
+                 const void* box, const void* scene_box, int n_units,
+                 int has_anim, int cap) {
+  Scene s;
+  s.woop = static_cast<const float*>(woop);
+  s.meta = static_cast<const int*>(meta);
+  s.inst = static_cast<const float*>(inst);
+  s.box = static_cast<const float*>(box);
+  s.scene_box = static_cast<const float*>(scene_box);
+  s.n_units = n_units;
+  s.has_anim = has_anim;
+  s.cap = cap;
+  return s;
+}
+
+Rays make_rays(const void* ox, const void* oy, const void* oz,
+               const void* dx, const void* dy, const void* dz,
+               const void* time, const void* maxt, long long n) {
+  Rays r;
+  r.ox = static_cast<const float*>(ox);
+  r.oy = static_cast<const float*>(oy);
+  r.oz = static_cast<const float*>(oz);
+  r.dx = static_cast<const float*>(dx);
+  r.dy = static_cast<const float*>(dy);
+  r.dz = static_cast<const float*>(dz);
+  r.time = static_cast<const float*>(time);
+  r.maxt = static_cast<const float*>(maxt);
+  r.n = n;
+  return r;
+}
+
+// Dynamic shared memory of a round's list; raises the kernel's limit above
+// the default 48 KB where needed.
+template <typename K>
+int list_bytes(K kernel, int n_units, int cap, size_t* bytes) {
+  *bytes = (size_t)(n_units <= cap ? n_units : 2 * cap) * sizeof(u64);
+  if (*bytes > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" int mi_intersect_v4_block() { return kBlock; }
+extern "C" int mi_intersect_v4_max_cap() { return kMaxCap; }
 
-// Launch on `stream` over n lanes (a multiple of kBlock, one visit list per
-// block); returns cudaGetLastError() of the launch (0 = ok).
+// Launch on `stream` over n lanes, one CTA per block of kBlock lanes (the
+// last one ragged), with lists of at most `cap` entries a round; returns
+// cudaGetLastError() of the launch (0 = ok).
 extern "C" int mi_intersect_v4(
-    const void* woop, const void* meta, const void* inst, const void* order,
-    const void* tlo, int n_units, int has_anim, const void* ox,
-    const void* oy, const void* oz, const void* dx, const void* dy,
-    const void* dz, const void* time, const void* maxt, long long n,
-    int any_hit, void* t_out, void* prim_out, void* stream) {
-  if (n <= 0 || n % kBlock != 0 || n_units <= 0)
+    const void* woop, const void* meta, const void* inst, const void* box,
+    const void* scene_box, int n_units, int has_anim, int cap,
+    const void* ox, const void* oy, const void* oz, const void* dx,
+    const void* dy, const void* dz, const void* time, const void* maxt,
+    long long n, int any_hit, void* t_out, void* prim_out, void* stream) {
+  if (n <= 0 || n_units <= 0 || cap <= 0 || cap > kMaxCap)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.woop = static_cast<const float*>(woop);
-  p.meta = static_cast<const int*>(meta);
-  p.inst = static_cast<const float*>(inst);
-  p.order = static_cast<const int*>(order);
-  p.tlo = static_cast<const float*>(tlo);
-  p.n_units = n_units;
-  p.has_anim = has_anim;
-  p.ox = static_cast<const float*>(ox);
-  p.oy = static_cast<const float*>(oy);
-  p.oz = static_cast<const float*>(oz);
-  p.dx = static_cast<const float*>(dx);
-  p.dy = static_cast<const float*>(dy);
-  p.dz = static_cast<const float*>(dz);
-  p.time = static_cast<const float*>(time);
-  p.maxt = static_cast<const float*>(maxt);
-  p.t_out = static_cast<float*>(t_out);
-  p.prim_out = static_cast<int*>(prim_out);
-  unsigned int blocks = (unsigned int)(n / kBlock);
+  Scene sc = make_scene(woop, meta, inst, box, scene_box, n_units, has_anim,
+                        cap);
+  Rays ry = make_rays(ox, oy, oz, dx, dy, dz, time, maxt, n);
+  unsigned int blocks = (unsigned int)((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    walk_kernel<true><<<blocks, kBlock, 0, s>>>(p);
-  else
-    walk_kernel<false><<<blocks, kBlock, 0, s>>>(p);
+  size_t bytes;
+  int err;
+  if (any_hit) {
+    if ((err = list_bytes(v4_walk_kernel<true>, n_units, cap, &bytes)))
+      return err;
+    v4_walk_kernel<true><<<blocks, kBlock, bytes, s>>>(
+        sc, ry, static_cast<float*>(t_out),
+        static_cast<int*>(prim_out));
+  } else {
+    if ((err = list_bytes(v4_walk_kernel<false>, n_units, cap, &bytes)))
+      return err;
+    v4_walk_kernel<false><<<blocks, kBlock, bytes, s>>>(
+        sc, ry, static_cast<float*>(t_out),
+        static_cast<int*>(prim_out));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The visit lists of the n lanes' blocks: order_out and tlo_out (n_blocks,
+// n_units), len_out (n_blocks,) reachable units per block.
+extern "C" int mi_intersect_v4_lists(
+    const void* box, const void* scene_box, int n_units, int cap,
+    const void* ox, const void* oy, const void* oz, const void* dx,
+    const void* dy, const void* dz, const void* time, const void* maxt,
+    long long n, void* order_out, void* tlo_out, void* len_out,
+    void* stream) {
+  if (n <= 0 || n_units <= 0 || cap <= 0 || cap > kMaxCap)
+    return (int)cudaErrorInvalidValue;
+  Scene sc = make_scene(nullptr, nullptr, nullptr, box, scene_box, n_units,
+                        0, cap);
+  Rays ry = make_rays(ox, oy, oz, dx, dy, dz, time, maxt, n);
+  unsigned int blocks = (unsigned int)((n + kBlock - 1) / kBlock);
+  size_t bytes;
+  int err;
+  if ((err = list_bytes(v4_lists_kernel, n_units, cap, &bytes))) return err;
+  v4_lists_kernel<<<blocks, kBlock, bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      sc, ry, static_cast<int*>(order_out), static_cast<float*>(tlo_out),
+      static_cast<int*>(len_out));
   return (int)cudaGetLastError();
 }

@@ -1,31 +1,38 @@
 """Kernel B2: the large-scene ray query, (t, prim) over 32-triangle Woop
 units walked front to back (port of the JAX package's
 ``ops/intersect_v4.py``: the Pallas kernel ``_build_v4_kernel`` and its
-wrapper ``_v4_tables`` / ``_pad_to`` / ``_v4_call`` / ``intersect_v4``).
+wrapper ``_v4_tables`` / ``_pad_to`` / ``_v4_call`` / ``intersect_v4``,
+with the visit lists of ``intersect_v3._unit_visit_order``).
 
 The triangles sit in 32-triangle units (``intersect_stream``'s layout,
-Woop coefficients from ``intersect_v3._woop_records``). For each block of
-``BLOCK`` lanes a dense slab test in PyTorch sorts the units by a
-conservative entry distance t_lo (``intersect_v3._unit_visit_order``);
-rays are clamped to the scene box first (``intersect_v2.scene_box_exit``).
-The CUDA kernel ``csrc/intersect_v4.cu`` runs one CTA per block: it walks
-the block's list in groups of ``GROUP`` units and stops once the next
-group's t_lo exceeds the block's bound (the largest ``min(t, maxt)`` of its
-lanes; -3e38 for an any-hit lane that has a hit). Culling is conservative,
-so the result equals a dense test of every lane against every unit up to
-ties in t.
+Woop coefficients from ``intersect_v3._woop_records``). The CUDA kernel
+``csrc/intersect_v4.cu`` runs one CTA per block of ``BLOCK`` lanes and
+builds the block's visit list itself: it clamps maxt by the scene box
+(``intersect_v2.scene_box_exit``), slab-tests every unit box against the
+block's ray bounds and sorts the reachable units by their conservative
+entry distance t_lo (``intersect_v3._unit_visit_order``'s list, in rounds
+of at most ``cap`` entries). The list is walked for each warp's 32 lanes
+on their own bound (the largest ``min(t, maxt)``; -3e38 for an any-hit
+lane that has a hit), skipping units those rays cannot enter, and every
+such walk is shared by the CTA's eight warps, entry by entry. Culling
+is conservative, so the result equals a dense test of every lane against
+every unit; the nearest hit wins, and the smallest slot among equal t.
 
-  * ``intersect_v4(sa, ray, any_hit)`` — the kernel for CUDA tensors, the
-    plain version for CPU tensors;
+  * ``intersect_v4(sa, ray, any_hit)`` — the kernel for CUDA tensors (one
+    launch, no PyTorch visit lists), the plain version for CPU tensors;
   * ``intersect_v4_reference(sa, ray, any_hit)`` — the plain version: the
     dense Woop test of every lane against every unit in the kernel's order
-    of operations, in chunks of lanes and units.
+    of operations, in chunks of lanes and units;
+  * ``lists(tables, ray, cap)`` — the kernel's visit lists alone, for
+    checking them against ``_unit_visit_order``; no render calls it;
+  * ``prepare(tables, ray)`` — the visit lists in PyTorch, which B5
+    (``intersect_v3``) walks.
 
-Both return (t, prim) in the global slot convention ([0, n_static)
+Both queries return (t, prim) in the global slot convention ([0, n_static)
 static, then animated); ``ops/intersect_mxu.payload_from_prim`` rebuilds
 the hit record. The any-hit form promises only occlusion (prim >= 0): the
 kernel stops early with some hit, the plain version returns the closest.
-``LAUNCHES`` / ``LAUNCHES_BY_FORM`` count kernel launches.
+``LAUNCHES`` / ``LAUNCHES_BY_FORM`` count the walk's launches.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core.vec import Vec3
 from ..render.types import Ray
 from .cuda_build import CudaLibrary
 from .intersect_kernel import _check_rays
@@ -43,7 +51,6 @@ from .intersect_stream import (CHUNK, _chunk_boxes, _chunked_layout,
 from .intersect_v2 import _clamped_maxt
 from .intersect_v3 import _unit_visit_order, _woop_records
 
-GROUP = 8               # units per step of the walk
 BLOCK = 256             # lanes per CTA = lanes per visit list
 _BIG = 3.0e38
 # lanes x triangles per chunk of the plain version (elements of one
@@ -70,6 +77,8 @@ class V4Tables(NamedTuple):
     box: torch.Tensor       # (n_units, 6) f32 world AABBs
     n_units: int
     runs: Tuple[Tuple[int, int, int], ...]   # (anim range | -1, u0, u1)
+    woop_tri: torch.Tensor  # (n_units, 32, 12) f32, triangle-major woop
+    scene_box: torch.Tensor  # (6,) f32 union of the unit boxes
 
 
 def v4_tables(sa) -> V4Tables:
@@ -79,20 +88,23 @@ def v4_tables(sa) -> V4Tables:
         return sa._cache["v4"]
     segments, meta = _chunked_layout(sa.n_static_tris, sa.anim_ranges)
     n_units = meta.shape[0]
+    woop = _woop_records(sa, segments, n_units)
+    box = _chunk_boxes(sa, n_units).contiguous()
     tables = V4Tables(
-        torch.as_tensor(meta, device=sa.device).contiguous(),
-        _woop_records(sa, segments, n_units), _inst_table(sa),
-        bool(sa.anim_ranges), _chunk_boxes(sa, n_units).contiguous(),
-        n_units, _runs(meta, 1))
+        torch.as_tensor(meta, device=sa.device).contiguous(), woop,
+        _inst_table(sa), bool(sa.anim_ranges), box, n_units,
+        _runs(meta, 1),
+        woop.reshape(n_units, 12, CHUNK).transpose(1, 2).contiguous(),
+        torch.cat([box[:, :3].amin(dim=0), box[:, 3:].amax(dim=0)]))
     sa._cache["v4"] = tables
     return tables
 
 
 def prepare(tables: V4Tables, ray: Ray):
-    """The kernel's per-query inputs (JAX ``_v4_call`` up to the launch):
-    ray columns padded to whole blocks, maxt clamped by the scene box
-    (padding lanes dead), and the blocks' visit lists. Returns (o, d,
-    time, maxt, order, tlo)."""
+    """The visit lists in PyTorch (JAX ``_v4_call`` up to the launch), as
+    B5 walks them: ray columns padded to whole blocks, maxt clamped by the
+    scene box (padding lanes dead), and the blocks' visit lists. Returns
+    (o, d, time, maxt, order, tlo)."""
     o, d, time, maxt = _padded_cols(ray, ray.maxt, BLOCK)
     maxt = _clamped_maxt(tables.box, o, d, maxt)
     x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [maxt])
@@ -180,11 +192,17 @@ def intersect_v4_reference(sa, ray: Ray, any_hit: bool = False,
 def _bind(lib):
     fn = lib.mi_intersect_v4
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 3)
-    lib.mi_intersect_v4_block.restype = ctypes.c_int
-    lib.mi_intersect_v4_block.argtypes = []
+    fl = lib.mi_intersect_v4_lists
+    fl.restype = ctypes.c_int
+    fl.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 4)
+    for name in ("mi_intersect_v4_block", "mi_intersect_v4_max_cap"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
     if lib.mi_intersect_v4_block() != BLOCK:
         raise RuntimeError("csrc/intersect_v4.cu was built for another "
                            "block size than ops/intersect_v4.py BLOCK")
@@ -193,14 +211,14 @@ def _bind(lib):
 LIBRARY = CudaLibrary("intersect_v4", _bind)
 
 
-def launch(tables: V4Tables, prep, any_hit: bool):
-    """One launch over prepared inputs (``prepare``). Returns (t, prim) at
-    the padded length."""
-    global LAUNCHES
-    o, d, time, maxt, order, tlo = prep
-    cols = (*o, *d, time, maxt)
-    n_pad = maxt.shape[0]
-    dev = maxt.device
+def _columns(tables: V4Tables, ray: Ray, cap: Optional[int]):
+    """The eight ray columns as the kernel takes them (contiguous float32
+    (n,) on the scene tables' CUDA device), the list capacity (default:
+    every unit, up to the compiled maximum) and the loaded library."""
+    cols = (ray.o.x, ray.o.y, ray.o.z, ray.d.x, ray.d.y, ray.d.z, ray.time,
+            ray.maxt)
+    n = cols[0].shape[0]
+    dev = cols[0].device
     if dev.type != "cuda":
         raise ValueError(f"intersect_v4 kernel: rays on {dev}, need CUDA")
     if tables.woop.device != dev:
@@ -208,25 +226,36 @@ def launch(tables: V4Tables, prep, any_hit: bool):
                          f"{tables.woop.device}, rays on {dev}")
     for c in cols:
         if (c.dtype != torch.float32 or not c.is_contiguous()
-                or c.shape != (n_pad,) or c.device != dev):
+                or c.shape != (n,) or c.device != dev):
             raise ValueError("intersect_v4 kernel: ray columns must be "
-                             f"contiguous ({n_pad},) float32 on {dev}")
-    nb = n_pad // BLOCK
-    if n_pad % BLOCK or order.shape != (nb, tables.n_units) \
-            or tlo.shape != order.shape:
-        raise ValueError("intersect_v4 kernel: lanes must fill whole "
-                         "blocks with one visit list each")
+                             f"contiguous ({n},) float32 on {dev}")
     lib = LIBRARY.load()
-    t = torch.empty((n_pad,), device=dev)
-    prim = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    if n_pad > 0:
+    max_cap = lib.mi_intersect_v4_max_cap()
+    cap = min(tables.n_units, max_cap) if cap is None else cap
+    if not 1 <= cap <= max_cap:
+        raise ValueError(f"intersect_v4 kernel: list capacity {cap} outside "
+                         f"[1, {max_cap}]")
+    return cols, n, dev, cap, lib
+
+
+def launch(tables: V4Tables, ray: Ray, any_hit: bool,
+           cap: Optional[int] = None):
+    """One launch over the ray columns and the scene tables: the kernel
+    builds its visit lists (``cap`` entries a round) and walks them.
+    Returns (t, prim) of the n lanes."""
+    global LAUNCHES
+    cols, n, dev, cap, lib = _columns(tables, ray, cap)
+    t = torch.empty((n,), device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.mi_intersect_v4(
-                tables.woop.data_ptr(), tables.meta.data_ptr(),
-                tables.inst.data_ptr(), order.data_ptr(), tlo.data_ptr(),
-                tables.n_units, int(tables.has_anim),
-                *(c.data_ptr() for c in cols), n_pad, int(any_hit),
+                tables.woop_tri.data_ptr(), tables.meta.data_ptr(),
+                tables.inst.data_ptr(), tables.box.data_ptr(),
+                tables.scene_box.data_ptr(), tables.n_units,
+                int(tables.has_anim), cap,
+                *(c.data_ptr() for c in cols), n, int(any_hit),
                 t.data_ptr(), prim.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"intersect_v4 kernel launch failed: CUDA "
@@ -236,18 +265,47 @@ def launch(tables: V4Tables, prep, any_hit: bool):
     return t, prim
 
 
+def lists(tables: V4Tables, ray: Ray, cap: Optional[int] = None):
+    """The kernel's visit lists alone (a check, not a path): per block of
+    ``BLOCK`` lanes the units sorted by (t_lo, unit), the unreachable ones
+    last in index order with key 3e38, as ``_unit_visit_order`` gives them
+    for ``prepare``'s inputs. Returns (order (n_blocks, n_units) int32,
+    t_lo (n_blocks, n_units) float32, reachable units per block). For CPU
+    tensors the plain version: ``prepare``'s lists, the same at any
+    capacity."""
+    if ray.o.x.device.type == "cpu":
+        order, tlo = prepare(tables, ray)[4:]
+        return order, tlo, (tlo < _BIG).sum(dim=1, dtype=torch.int32)
+    cols, n, dev, cap, lib = _columns(tables, ray, cap)
+    nb = -(-n // BLOCK)
+    order = torch.empty((nb, tables.n_units), dtype=torch.int32, device=dev)
+    tlo = torch.empty((nb, tables.n_units), device=dev)
+    length = torch.empty((nb,), dtype=torch.int32, device=dev)
+    if n > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.mi_intersect_v4_lists(
+                tables.box.data_ptr(), tables.scene_box.data_ptr(),
+                tables.n_units, cap, *(c.data_ptr() for c in cols), n,
+                order.data_ptr(), tlo.data_ptr(), length.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"intersect_v4 lists launch failed: CUDA "
+                               f"error {err}")
+    return order, tlo, length
+
+
 def intersect_v4(sa, ray: Ray, any_hit: bool = False):
     """Closest-hit (or any-hit) (t, prim) over all triangles: the CUDA
     kernel for tensors on the card, the plain version for CPU tensors."""
     _check_rays(ray)
     if ray.o.x.device.type == "cpu":
         return intersect_v4_reference(sa, ray, any_hit)
-    n = ray.o.x.shape[0]
-    tables = v4_tables(sa)
-    t, prim = launch(tables, prepare(tables, ray), any_hit)
-    return t[:n], prim[:n]
+    ray = Ray(Vec3(*(c.contiguous() for c in ray.o)),
+              Vec3(*(c.contiguous() for c in ray.d)), ray.time.contiguous(),
+              ray.maxt.contiguous())
+    return launch(v4_tables(sa), ray, any_hit)
 
 
 __all__ = ["intersect_v4", "intersect_v4_reference", "v4_tables", "prepare",
-           "launch", "LIBRARY", "GROUP", "BLOCK", "LAUNCHES",
+           "launch", "lists", "LIBRARY", "BLOCK", "LAUNCHES",
            "LAUNCHES_BY_FORM"]

@@ -9,12 +9,16 @@ scene: one first render and three warm renders timed on
 the host clock (each ends in ``torch.cuda.synchronize()``), then one warm
 render under ``torch.profiler`` (CPU and CUDA activities) with its device
 kernel time summed by group: the six ray-query kernels B1-B6 by their
-kernel names, sorts, gathers and scatters, and the rest. The device
+kernel names (B2: ``v4_walk_kernel``, which builds its visit lists
+itself), the visit lists that B5, B4 and B6 build in PyTorch (every
+kernel that runs inside their ``prepare``, marked by a profiler range),
+sorts, gathers and scatters, and the rest. The device
 busy share is the kernel time over the median unprofiled wall time; the
 rest of the wall the card idles. The phases of ``core/logger.profile_phase``
 (ray queries, film splat) are listed with their spans on the device
-timeline, gaps included. Prints the card's name and power limit
-first. Needs a CUDA card.
+timeline, gaps included, and the large-scene query kernels' launches in
+the order they ran. Prints the card's name and power limit first. Needs a
+CUDA card.
 
 Scenes: ``canonical`` (scenes/canonical/scene.xml, 256x256 x 1024 spp) and
 the benchmark meshes of ``utils/bench_scenes.py`` at 256x256 x 256 spp:
@@ -25,6 +29,8 @@ directory.
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import os
 import statistics
 import subprocess
@@ -39,9 +45,55 @@ _GROUPS = (("B1 intersect_bruteforce", ("intersect_kernel",)),
            ("B4 intersect_v2", ("v2_walk_kernel",)),
            ("B3 intersect_stream", ("stream_kernel",)),
            ("B6 intersect_mxu", ("mxu_kernel",)),
-           ("B2 intersect_v4", ("walk_kernel",)),
+           ("B2 intersect_v4", ("v4_walk_kernel", "v4_lists_kernel")),
            ("sort", ("sort", "Sort", "radix")),
            ("gather/scatter", ("index", "gather", "scatter")))
+_LISTS = "visit lists"
+_LISTS_GROUP = "visit lists (PyTorch prepare of B5, B4, B6)"
+
+
+@contextlib.contextmanager
+def _marked_lists():
+    """Every route's visit lists built in PyTorch (``prepare`` of B5, B4
+    and B6; B2 builds its own in the kernel, B3 has none) under one
+    profiler range."""
+    from ..ops import intersect_mxu, intersect_v2, intersect_v4
+    saved = [(m, m.prepare) for m in (intersect_v4, intersect_v2,
+                                      intersect_mxu)]
+
+    def marked(fn):
+        def prepare(*args, **kwargs):
+            with torch.profiler.record_function(_LISTS):
+                return fn(*args, **kwargs)
+        return prepare
+    for m, fn in saved:
+        m.prepare = marked(fn)
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.prepare = fn
+
+
+def _lists_kernels(prof, device_type):
+    """(name, ms) of each device kernel that started inside a ``visit
+    lists`` range on the device timeline; None if the trace has no such
+    ranges on the device."""
+    evs = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.name == _LISTS and e.device_type == device_type)
+    if not spans:
+        return None
+    starts = [a for a, _ in spans]
+    out = []
+    for e in evs:
+        if (e.device_type != device_type or e.name == _LISTS
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            out.append((e.name, e.time_range.elapsed_us() / 1e3))
+    return out
 
 
 def _load(mi, name: str):
@@ -112,8 +164,8 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
 
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _marked_lists(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         mi.render(scene, spp=spp, seed=0)
         torch.cuda.synchronize()
     prof_s = time.perf_counter() - t0
@@ -129,11 +181,23 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
     total = sum(ms for _, ms, _ in rows)
     groups = {g: [0.0, 0] for g, _ in _GROUPS}
     groups["other"] = [0.0, 0]
+    def group_of(key):
+        return next((g for g, frags in _GROUPS
+                     if any(f in key for f in frags)), "other")
     for key, ms, count in rows:
-        g = next((g for g, frags in _GROUPS
-                  if any(f in key for f in frags)), "other")
-        groups[g][0] += ms
-        groups[g][1] += count
+        groups[group_of(key)][0] += ms
+        groups[group_of(key)][1] += count
+    in_lists = _lists_kernels(prof, DeviceType.CUDA)
+    if in_lists is not None:
+        groups[_LISTS_GROUP] = [0.0, 0]
+        for key, ms in in_lists:
+            for g, d_ms, d_n in ((group_of(key), -ms, -1),
+                                 (_LISTS_GROUP, ms, 1)):
+                groups[g][0] += d_ms
+                groups[g][1] += d_n
+    elif any(key == _LISTS for key, _, _ in ranges):
+        print(f"  {_LISTS_GROUP}: not measured (no device ranges in the "
+              f"trace)", flush=True)
     print(f"  profiled render {prof_s:.3f} s wall; device kernel time "
           f"{total:.1f} ms = {100 * total / 1e3 / med:.1f}% of the median "
           f"unprofiled wall (idle {100 - 100 * total / 1e3 / med:.1f}%)",
@@ -147,6 +211,20 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
               f"calls", flush=True)
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"    {ms:9.1f} ms {count:7d}x  {key[:110]}", flush=True)
+    # each large-scene query kernel's launches in the order they ran (per
+    # strip pass: the camera rays, then one bounce after another)
+    per_launch = {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and group_of(e.name)[:2] in ("B2", "B3", "B4", "B5",
+                                                  "B6")),
+                    key=lambda e: e.time_range.start):
+        per_launch.setdefault(e.name, []).append(
+            e.time_range.elapsed_us() / 1e3)
+    for key, times in per_launch.items():
+        print(f"  per launch, ms, {key[:60]}: "
+              + " ".join(f"{t:.2f}" for t in times), flush=True)
 
 
 def main(argv) -> int:

@@ -134,8 +134,9 @@ def _mesh_scene(device, tmp_path, animated, nu=48, nv=32, spp=4, res=16):
 def test_v4_kernel_matches_plain(cuda, tmp_path, animated):
     """B2 against its plain version on 3,072 triangles: the same lanes hit
     (closest-hit and any-hit), t bit for bit on hit lanes (--fmad=false,
-    the same order of operations), prim different only where t ties; the
-    kernel over binned rays gives the same result."""
+    the same order of operations), prim different only where t ties (the
+    kernel keeps the smallest slot among equal t, as the plain version);
+    the kernel over binned rays gives the same result."""
     sa = _mesh_scene(cuda, tmp_path, animated).compile()
     assert sa.n_static_tris + sa.n_anim_tris > ik.STREAM_THRESHOLD
     ray = _rays(1 << 16, 3, cuda, -4.0, 0.0015 if animated else 0.0)
@@ -149,10 +150,58 @@ def test_v4_kernel_matches_plain(cuda, tmp_path, animated):
     assert int(hit.sum()) > 5000
     assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
     assert torch.equal(t_k[hit], t_r[hit])
-    assert int((p_k != p_r).sum()) <= 20
+    differ = p_k != p_r
+    assert int(differ.sum()) <= 20
+    assert torch.equal(t_k[differ], t_r[differ])
     t_b, p_b = binned(sa, ray, None, lambda r: list(v4.intersect_v4(sa, r)))
     assert torch.equal(t_b, t_k)
     assert int((p_b != p_k).sum()) <= 20
+
+
+@pytest.mark.parametrize("cap", [None, 8])
+def test_v4_lists_match_visit_order(cuda, tmp_path, cap):
+    """The kernel's visit lists (``mi_intersect_v4_lists``, built by the
+    same device code as the walk's) against ``_unit_visit_order`` on
+    ``prepare``'s inputs: order and t_lo bit for bit, the reachable count
+    per block; with a capacity of 8 entries every block takes rounds. The
+    walk with that capacity still equals the plain version on hit lanes."""
+    sa = _mesh_scene(cuda, tmp_path, True).compile()
+    tables = v4.v4_tables(sa)
+    ray = _rays((1 << 14) + 100, 5, cuda, -4.0, 0.0015)   # a ragged block
+    order_k, tlo_k, len_k = v4.lists(tables, ray, cap)
+    order_r, tlo_r = v4.prepare(tables, ray)[4:]
+    assert torch.equal(order_k, order_r)
+    assert torch.equal(tlo_k.view(torch.int32), tlo_r.view(torch.int32))
+    assert torch.equal(len_k, (tlo_r < 3.0e38).sum(dim=1, dtype=torch.int32))
+    assert int(len_k.max()) > 8 and int(len_k.min()) < tables.n_units
+    for any_hit in (False, True):
+        t_k, p_k = v4.launch(tables, ray, any_hit, cap=cap)
+        t_r, p_r = v4.intersect_v4_reference(sa, ray)
+        hit = p_r >= 0
+        assert torch.equal(p_k >= 0, hit)
+        if not any_hit:
+            assert torch.equal(t_k[hit], t_r[hit])
+
+
+def test_v4_query_builds_no_lists(cuda, tmp_path, monkeypatch):
+    """On the card ``intersect_v4`` and the large-scene route launch B2
+    once a query and build no visit lists in PyTorch: ``prepare`` and
+    ``_unit_visit_order`` are never called."""
+    sa = _mesh_scene(cuda, tmp_path, True).compile()
+    ray = _rays(1 << 14, 6, cuda, -4.0, 0.0015)
+
+    def spy(*args, **kwargs):
+        raise AssertionError("B2 built its visit lists in PyTorch")
+    monkeypatch.setattr(v4, "prepare", spy)
+    monkeypatch.setattr(v4, "_unit_visit_order", spy)
+    monkeypatch.setattr(v3, "_unit_visit_order", spy)
+    v4.reset_launch_counts()
+    v4.intersect_v4(sa, ray)
+    v4.intersect_v4(sa, ray, any_hit=True)
+    ik.intersect(sa, ray)
+    ik.ray_test(sa, ray)
+    torch.cuda.synchronize()
+    assert v4.LAUNCHES_BY_FORM == {"closest_hit": 2, "any_hit": 2}
 
 
 def test_large_scene_route_matches_plain(cuda, tmp_path):

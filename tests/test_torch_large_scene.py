@@ -208,6 +208,47 @@ def test_chunk_layout_woop_and_visit_order_match_jax(scene):
     assert (tlo_t.numpy() < 3e38).any() and (tlo_t.numpy() == 3e38).any()
 
 
+def test_v4_tables_and_lists_match_jax(scene):
+    """What B2's kernel takes and builds, on the CPU: the triangle-major
+    Woop table is the coefficient-major one transposed, the scene box is
+    the union of the unit boxes, and ``lists`` (the plain version of the
+    kernel's visit lists) equals the JAX package's ``_unit_visit_order``
+    over ``_v4_call``'s inputs (rays padded to whole blocks, maxt clamped
+    by the scene box, the padding dead), order and t_lo bit for bit, for a
+    ragged last block; the reachable counts are the keys below 3e38."""
+    sa_j, sa_t = scene[0], scene[1]
+    tb = tv4.v4_tables(sa_t)
+    n_units = tb.n_units
+    assert torch.equal(tb.woop_tri, tb.woop.reshape(n_units, 12, 32)
+                       .transpose(1, 2))
+    box = np.array(sa_j.chunk_aabb)[:n_units]
+    assert np.array_equal(tb.scene_box.numpy(), np.concatenate(
+        [box[:, :3].min(axis=0), box[:, 3:].max(axis=0)]))
+
+    n = 2048 + 77
+    o, d, time, maxt = _rays(n, seed=11)
+    jr, tr = _both(o, d, time, maxt)
+    n_pad = -(-n // tv4.BLOCK) * tv4.BLOCK
+    oj = tuple(jv4._pad_to(c, n_pad) for c in jr.o)
+    dj = tuple(jv4._pad_to(c, n_pad) for c in jr.d)
+    maxtp = jnp.minimum(jv4._pad_to(jnp.minimum(jr.maxt, 3.0e38), n_pad,
+                                    fill=-1.0),
+                        jv2.scene_box_exit(jnp.asarray(box), oj, dj))
+    x = jnp.stack(list(oj) + [jnp.ones((n_pad,), jnp.float32)] + list(dj)
+                  + [maxtp])
+    c_pad = -(-n_units // 128) * 128
+    order_j, tlo_j = jv3._unit_visit_order(jnp.asarray(box), n_units, c_pad,
+                                           x, tv4.BLOCK)
+    nb = n_pad // tv4.BLOCK
+    order_j = np.asarray(order_j).reshape(-1, c_pad)[:nb, :n_units]
+    tlo_j = np.asarray(tlo_j).reshape(-1, c_pad)[:nb, :n_units]
+    order_t, tlo_t, len_t = tv4.lists(tb, tr)
+    assert np.array_equal(order_t.numpy(), order_j)
+    assert np.array_equal(tlo_t.numpy().view(np.int32), tlo_j.view(np.int32))
+    assert np.array_equal(len_t.numpy(), (tlo_j < np.float32(3e38)).sum(1))
+    assert 0 < int(len_t.min()) and int(len_t.max()) < n_units
+
+
 def test_scene_box_exit_matches_jax(scene):
     """Within 2 float32 ulps (XLA may fuse the pad's multiply-add); rays
     that miss the box are -1 on both sides."""
