@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b2-walk CHECKOUT
+    python3 chip_smoke.py --b1-walk CHECKOUT
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
 ``--b2-walk CHECKOUT`` runs only B2's walk report (phase 4's B2 lines) on
 the package of another checkout, such as the parent commit unpacked with
-``git archive``, so that two commits compare on one card in one call.
-Every phase raises on failure:
+``git archive``, so that two commits compare on one card in one call;
+``--b1-walk CHECKOUT`` likewise times that checkout's B1 on phase 3's
+four canonical wavefronts. Every phase raises on failure:
 
   1. the card: name and power limit (nvidia-smi);
   2. build all six kernels from the checkout, one nvcc each, started
@@ -16,11 +18,16 @@ Every phase raises on failure:
      (intersect_stream.cu), B4 (intersect_v2.cu), B5 (intersect_v3.cu) and
      B6 (intersect_mxu.cu), with their registers and spills (ptxas -v);
   3. B1 against its plain PyTorch version on the card: 1M random rays in
-     the canonical scene, the canonical scene's camera wavefront and its
-     shadow wavefront (the main path's shapes), and a scene with spheres
-     and animated cubes; closest-hit and any-hit, with the hit-matching
-     criteria of tests/test_pallas_parity.py and an exact occlusion match;
-     then kernel and plain times at the main path's shapes;
+     the canonical scene, the canonical scene's wavefronts of one strip
+     pass (camera rays, depth-1 shadow rays, depth-2 bounce rays and
+     depth-2 shadow rays: the main path's shapes), and a scene with
+     spheres and animated cubes; closest-hit and any-hit, with the
+     hit-matching criteria of tests/test_pallas_parity.py, t bitwise on
+     triangle hits, prim equal and an exact occlusion match; then kernel
+     (device time, by torch.profiler) and plain times
+     on the four canonical wavefronts, the slots a warp's gate passes
+     (mean, p99, max) and the bound from the gated walk's work per warp
+     beside the dense one;
   4. the large-scene kernels B2-B6 against their plain PyTorch versions on
      the card, on the 40k animated UV-sphere scene and the static 50k one
      (utils/bench_scenes.py, the JAX package's scripts/bench_suite.py
@@ -66,8 +73,11 @@ chunks that a walk of the timed wavefront's visit lists must test, computed
 in PyTorch from the lists and the plain versions' results (``WalkWork``),
 not from counters in the kernels: per 256-lane block for B3-B6, per 32-lane
 warp for B2 (whose warps stop on their own bounds), plus B2's lists (a slab
-test per block and unit, n log2 n compares to sort). No single PyTorch call
-computes a ray-triangle query, so ``library_ms`` is null.
+test per block and unit, n log2 n compares to sort). B1's count the slots,
+instances and boxes that each warp's gate makes it test (``b1_work``, from
+the gate's plain version ``b1_warp_masks``); the dense count (every lane
+tests every slot) is printed beside it. No single PyTorch call computes a
+ray-triangle query, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -106,6 +116,16 @@ WOOP_OPS = 48
 # per lane and animated range: lerp of 12 entries, adjugate inverse and
 # the ray's transform
 INV_LERP_OPS = 130
+# per lane and sphere: the inverse and the ray's transform, then the
+# quadratic (three dot products, discriminant, square root, two divisions,
+# compares)
+SPHERE_OPS = INV_LERP_OPS + 30
+# B1's warp gate: per lane, the shuffle reductions of the ray bounds (12
+# minima or maxima of 5 rounds, the largest maxt), six reciprocals and the
+# pad; per box, the slab test (per axis two pads, four differences, eight
+# products, fourteen minima or maxima, two clamps; the final compare)
+B1_GATE_LANE_OPS = 80
+B1_SLAB_OPS = 91
 # one slab test of a block's ray bounds against a unit box in the kernel's
 # list (per axis four differences, eight products, eight minima, eight
 # maxima and the two clamps; then the final compare), and the scene-box
@@ -325,6 +345,176 @@ def b2_walk_main(root: str) -> int:
         print(walk_line(tag, wname, any_hit, b2_times(v4, sa, ray_s, any_hit),
                         walk.b2_distribution(), card), flush=True)
         del walk, ray_s, t_ref
+    return 0
+
+
+def b1_wavefronts(scene, ik, dev, n):
+    """The canonical scene's wavefronts of one strip pass (``n`` lanes from
+    the middle of the frame, 1024 lanes a pixel in pixel order), drawn
+    from its correlated sampler as the render draws them: the camera rays,
+    the depth-1 shadow rays toward light samples, the depth-2 bounce rays
+    (cosine-weighted; a lane whose camera ray missed keeps it, as in the
+    render) and the depth-2 shadow rays from their hits. Hits come from
+    the plain version."""
+    import torch
+    from mitsuba3dopplertof_tpu_torch import emitters as em
+    from mitsuba3dopplertof_tpu_torch.core.vec import where3
+    from mitsuba3dopplertof_tpu_torch.core.warp import cosine_hemisphere_c
+    from mitsuba3dopplertof_tpu_torch.render.scene import build_si
+    from mitsuba3dopplertof_tpu_torch.render.types import Ray
+    from mitsuba3dopplertof_tpu_torch.samplers import TIME_ANTITHETIC
+    from mitsuba3dopplertof_tpu_torch.sensors import sample_ray_kind
+    sa = scene.compile()
+    sensor, sampler = scene.sensor, scene.sensor.sampler
+    W, H = sensor.film.crop_size
+    spp = 1024
+    sampler.set_sample_count(spp)
+    sampler.set_samples_per_wavefront(spp)
+    st = sampler.seed(0, (n // (W * spp)) * W * spp,
+                      lane0=(H // 2) * W * spp, device=dev)
+    pix = st.lane // spp
+    off, st = sampler.next_2d_correlate(st, None, True)
+    ts, st = sampler.next_1d_time(st, None, TIME_ANTITHETIC, 0.5, True)
+    tcam = ts * 0.0015
+    tcam = torch.where(tcam < 0.0015, tcam, tcam - 0.0015)
+    cam, _ = sample_ray_kind(
+        sensor.device_params(), tcam,
+        ((pix % W).float() + off[0]) * (1.0 / W),
+        ((pix // W).float() + off[1]) * (1.0 / H))
+    si = build_si(sa, cam, ik.intersect_reference(sa, cam))
+    (ux, uy), st = sampler.next_2d(st, None)
+    ds, _ = em.sample_direction(sa, si.p, cam.time, ux, uy)
+    shadow = si.spawn_ray_to(ds.p)
+    (bx, by), st = sampler.next_2d(st, None)
+    b = si.spawn_ray(si.to_world(cosine_hemisphere_c(bx, by)))
+    bounce = Ray(where3(si.valid, b.o, cam.o), where3(si.valid, b.d, cam.d),
+                 cam.time, b.maxt)
+    si2 = build_si(sa, bounce, ik.intersect_reference(sa, bounce))
+    (ux, uy), st = sampler.next_2d(st, None)
+    ds2, _ = em.sample_direction(sa, si2.p, bounce.time, ux, uy)
+    return sa, {"camera": cam, "shadow": shadow, "bounce": bounce,
+                "shadow2": si2.spawn_ray_to(ds2.p)}
+
+
+# B1's timed wavefronts: name, label, any-hit
+B1_WAVEFRONTS = (("camera", "camera", False), ("bounce", "bounce (depth 2)",
+                                                False),
+                 ("shadow", "shadow (depth 1)", True),
+                 ("shadow2", "shadow (depth 2)", True))
+
+
+def b1_work(ik, sa, ray, any_hit):
+    """What B1's gated walk must do on one wavefront, per 32-lane warp,
+    from the gate's plain version (``b1_warp_masks``) and the exact tests'
+    acceptance (``slot_hits``): the slots it tests (a round of 32 whose
+    mask passes three quarters or more, whole), the instances it inverts
+    and the boxes it slab-tests. The any-hit walk stops after the slot
+    where the warp's last live lane finds its first hit (in a dense round,
+    after the round). Returns the per-warp slots tested and the float32
+    operations of the whole wavefront."""
+    import torch
+    m = ik.b1_warp_masks(sa, ray)
+    n = ray.o.x.shape[0]
+    n_w = m.slots.shape[0]
+    ns, nt = sa.n_static_tris, sa.n_static_tris + sa.n_anim_tris
+    ranges = m.ranges
+    # a round of 32 slots whose mask passes three quarters or more is
+    # tested whole
+    slots = m.slots.clone()
+    rounds = [(c, min(c + 32, ns)) for c in range(0, ns, 32)]
+    dense = []
+    for c0, c1 in rounds:
+        dense.append(m.slots[:, c0:c1].sum(1) * 4 >= 3 * (c1 - c0))
+        slots[:, c0:c1] |= dense[-1][:, None]
+    first_slot = torch.tensor([ns + start for _, start, _ in sa.anim_ranges],
+                              device=slots.device)
+    if any_hit:
+        hits = ik.slot_hits(sa, ray)
+        pos = torch.arange(hits.shape[1], device=hits.device)
+        big = hits.shape[1]
+        first = torch.where(hits, pos, big).amin(1)
+        live = ray.maxt > 0.0
+        first = torch.where(live, first, -1)
+        first = torch.cat([first, first.new_full((n_w * 32 - n,), -1)])
+        stop = first.reshape(n_w, 32).amax(1)
+        # a dense round, and an instance's triangles, vote once at the end
+        ends = rounds + [(ns + st + c, ns + st + min(c + 32, count))
+                         for _, st, count in sa.anim_ranges
+                         for c in range(0, count, 32)]
+        for i, (c0, c1) in enumerate(ends):
+            whole = dense[i] if i < len(rounds) else True
+            stop = torch.where(whole & (stop >= c0) & (stop < c1), c1 - 1,
+                               stop)
+        slots = slots & (pos[None, :] <= stop[:, None])
+        ranges = ranges & (first_slot[None, :] <= stop[:, None])
+    tests = (slots[:, :nt].sum(1) * MOLLER_OPS
+             + slots[:, nt:].sum(1) * SPHERE_OPS
+             + ranges.sum(1) * INV_LERP_OPS)
+    n_boxes = ns + len(sa.anim_ranges) + sa.n_spheres
+    ops = 32 * (tests + B1_GATE_LANE_OPS) + B1_SLAB_OPS * n_boxes * m.culls
+    return slots.sum(1), float(ops.sum())
+
+
+def kernel_ms(fn, name: str, reps: int = 50) -> float:
+    """Device ms of one launch of the kernel whose name holds ``name``: the
+    mean over ``reps`` calls of ``fn`` under torch.profiler, after 10.
+    For kernels shorter than the wrapper's host time per call, where CUDA
+    events around a series of calls time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in evs)
+    if count < reps // 2:     # the profiler may drop an event or two
+        fail(f"profiled {count} launches of {name} in {reps} calls")
+    return sum(e.self_device_time_total for e in evs) / count / 1e3
+
+
+def b1_time(ik, sa, ray, any_hit):
+    """Device ms of one B1 launch on ``ray``, by the wrapper's call as the
+    main path makes it."""
+    fn = ik.ray_test if any_hit else ik.intersect
+    return kernel_ms(lambda: fn(sa, ray), "intersect_kernel")
+
+
+def b1_walk_main(root: str) -> int:
+    """``--b1-walk DIR``: B1's times alone, on the package of the checkout
+    at DIR (another commit, to compare with this one on one card in one
+    call): the canonical scene's camera, bounce and shadow wavefronts, as
+    the full run builds them."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    root = os.path.abspath(root)
+    if not os.path.isdir(os.path.join(root, "mitsuba3dopplertof_tpu_torch")):
+        fail(f"{root} holds no mitsuba3dopplertof_tpu_torch/")
+    sys.path.insert(0, root)
+    card = card_line()
+    print(card, flush=True)
+    import mitsuba3dopplertof_tpu_torch as mi
+    from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as ik
+    if not ik.__file__.startswith(root):
+        fail(f"imported {ik.__file__}, not the package under {root}")
+    ik.LIBRARY.load()
+    for line in ik.LIBRARY.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas {ik.LIBRARY.name}: {line.strip()}", flush=True)
+    mi.set_variant("cuda_rgb")
+    sa, waves = b1_wavefronts(mi.load_file(CANONICAL), ik,
+                              torch.device("cuda"), WAVEFRONT)
+    tag = f"B1 at {os.path.basename(root.rstrip(os.sep)) or root}"
+    for name, label, any_hit in B1_WAVEFRONTS:
+        print(f"{tag} {label} wavefront "
+              f"({'any-hit' if any_hit else 'closest-hit'}, "
+              f"{waves[name].o.x.shape[0]} lanes): kernel "
+              f"{b1_time(ik, sa, waves[name], any_hit):.4f} ms ({card})",
+              flush=True)
     return 0
 
 
@@ -719,31 +909,11 @@ def main() -> int:
                       Vec3(*(f32(d[:, i]) for i in range(3))),
                       f32(rng.uniform(0.0, 0.0015, n)), f32(maxt))
 
-    # the main path's first wavefront: one strip pass of camera rays, from
-    # the middle of the frame (the top rows look out of the open box)
-    from mitsuba3dopplertof_tpu_torch.samplers import TIME_ANTITHETIC
-    from mitsuba3dopplertof_tpu_torch.sensors import sample_ray_kind
-    sensor, sampler = scene.sensor, scene.sensor.sampler
-    W, H = sensor.film.crop_size
-    spp = 1024
-    sampler.set_sample_count(spp)
-    sampler.set_samples_per_wavefront(spp)
-    st = sampler.seed(0, (n // (W * spp)) * W * spp,
-                      lane0=(H // 2) * W * spp, device=dev)
-    pix = st.lane // spp
-    off, st = sampler.next_2d_correlate(st, None, True)
-    ts, st = sampler.next_1d_time(st, None, TIME_ANTITHETIC, 0.5, True)
-    tcam = ts * 0.0015
-    tcam = torch.where(tcam < 0.0015, tcam, tcam - 0.0015)
-    cam_rays, _ = sample_ray_kind(
-        sensor.device_params(), tcam,
-        ((pix % W).float() + off[0]) * (1.0 / W),
-        ((pix // W).float() + off[1]) * (1.0 / H))
-    # ... and its shadow rays towards light samples
-    si = build_si(sa, cam_rays, ik.intersect_reference(sa, cam_rays))
-    (ux, uy), st = sampler.next_2d(st, None)
-    ds, _ = em.sample_direction(sa, si.p, cam_rays.time, ux, uy)
-    shadow_rays = si.spawn_ray_to(ds.p)
+    # the main path's wavefronts: one strip pass of camera rays from the
+    # middle of the frame (the top rows look out of the open box), its
+    # shadow rays, its bounce rays and their shadow rays
+    sa, b1_waves = b1_wavefronts(scene, ik, dev, n)
+    cam_rays, shadow_rays = b1_waves["camera"], b1_waves["shadow"]
 
     # a scene with static and animated spheres and animated cubes
     def anim(a, b, t0=0.0, t1=1.0):
@@ -786,12 +956,20 @@ def main() -> int:
     for label, s_a, rays in (("random", sa, random_rays),
                              ("camera", sa, cam_rays),
                              ("shadow", sa, shadow_rays),
+                             ("bounce (depth 2)", sa, b1_waves["bounce"]),
+                             ("shadow (depth 2)", sa, b1_waves["shadow2"]),
                              ("spheres", sa_sph, sph_rays)):
         hk = ik.intersect(s_a, rays)
         torch.cuda.synchronize()
         hr = ik.intersect_reference(s_a, rays)
         torch.cuda.synchronize()
         err, n_tri, n_diff = check_hits(hk, hr, label, ik._SPH_SLOT_BASE)
+        if n_diff:
+            fail(f"B1 {label}: t differs from the plain version on {n_diff} "
+                 f"triangle hits")
+        if not torch.equal(hk.prim, hr.prim):
+            fail(f"B1 {label}: prim differs on "
+                 f"{int((hk.prim != hr.prim).sum())} lanes")
         occ_k = ik.ray_test(s_a, rays)
         torch.cuda.synchronize()
         occ_r = ik.ray_test_reference(s_a, rays)
@@ -802,27 +980,40 @@ def main() -> int:
         errs["any_hit"] = max(errs["any_hit"], float(mism))
         print(f"B1 parity {label}: {rays.o.x.shape[0]} rays, max abs err "
               f"{err:.3g}, triangle hits {n_tri} with t bitwise equal on "
-              f"{n_tri - n_diff}; occlusion equal on all lanes", flush=True)
+              f"{n_tri - n_diff}; occlusion equal on all lanes; prim equal "
+              f"on all lanes", flush=True)
 
+    # times on the main path's wavefronts: the kernel as the wrapper
+    # launches it, and the plain version;
+    # the slots a warp's gate passes; the bound from the gated walk's work
+    # per warp, and the dense one (every lane tests every slot)
     n_tri_c = sa.n_static_tris + sa.n_anim_tris
-    n_cam = cam_rays.o.x.shape[0]
-    tri_bytes = n_tri_c * 25 * 4 + len(sa.anim_ranges) * 26 * 4
-    b1_ops = n_cam * (n_tri_c * MOLLER_OPS
-                      + len(sa.anim_ranges) * INV_LERP_OPS)
-    b1 = {
-        "closest_hit": (cuda_time_ms(lambda: ik.intersect(sa, cam_rays)),
-                        cuda_time_ms(lambda: ik.intersect_reference(
-                            sa, cam_rays), reps=5),
-                        bound(n_cam * (32 + 52) + tri_bytes, b1_ops)),
-        "any_hit": (cuda_time_ms(lambda: ik.ray_test(sa, shadow_rays)),
-                    cuda_time_ms(lambda: ik.ray_test_reference(
-                        sa, shadow_rays), reps=5),
-                    bound(n_cam * (32 + 4) + tri_bytes, b1_ops)),
-    }
-    for form, (k_ms, p_ms, (b_ms, b_by)) in b1.items():
-        print(f"B1 time {form} at {n_cam} lanes, {n_tri_c} triangles: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+    n_anim_c = len(sa.anim_ranges)
+    tri_bytes = (n_tri_c * 25 * 4 + n_anim_c * 26 * 4
+                 + 6 * 4 * (sa.n_static_tris + n_anim_c))
+    b1_rows = {}
+    for name, label, any_hit in B1_WAVEFRONTS:
+        rays = b1_waves[name]
+        n_l = rays.o.x.shape[0]
+        k_ms = b1_time(ik, sa, rays, any_hit)
+        plain = ik.ray_test_reference if any_hit else ik.intersect_reference
+        p_ms = cuda_time_ms(lambda: plain(sa, rays), reps=5)
+        per_warp, ops = b1_work(ik, sa, rays, any_hit)
+        q = torch.quantile(per_warp.float(), 0.99).item()
+        n_bytes = n_l * (32 + (4 if any_hit else 52)) + tri_bytes
+        dense = bound(n_bytes, n_l * (n_tri_c * MOLLER_OPS
+                                      + n_anim_c * INV_LERP_OPS))
+        b_ms, b_by = bound(n_bytes, ops)
+        b1_rows[name] = (k_ms, p_ms, (b_ms, b_by))
+        print(f"B1 time {label} wavefront "
+              f"({'any-hit' if any_hit else 'closest-hit'}) at {n_l} lanes, "
+              f"{n_tri_c} triangles: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; dense {dense[0]:.4f} ms, "
+              f"{dense[1]}); slots a warp tests: mean "
+              f"{per_warp.float().mean().item():.2f}, p99 {q:.0f}, max "
+              f"{int(per_warp.max())} of {n_tri_c + sa.n_spheres} ({card})",
+              flush=True)
+    b1 = {"closest_hit": b1_rows["camera"], "any_hit": b1_rows["shadow"]}
 
     # ---- 4. B2 against plain --------------------------------------------
     scene_dir = BUILD_DIR / "scenes"
@@ -1294,6 +1485,9 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--b2-walk":
         sys.exit(b2_walk_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--b1-walk":
+        sys.exit(b1_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
-        fail("usage: chip_smoke.py [--b2-walk CHECKOUT]")
+        fail("usage: chip_smoke.py [--b2-walk CHECKOUT | --b1-walk "
+             "CHECKOUT]")
     sys.exit(main())

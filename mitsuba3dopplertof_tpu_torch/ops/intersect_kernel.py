@@ -119,6 +119,40 @@ _TRI_NAMES = _GEOM + ("n0x", "n0y", "n0z", "n1x", "n1y", "n1z",
                       "uv2u", "uv2v", "inst")
 
 
+def _moller(o: Vec3, d: Vec3, maxt, cols, c0: int, c1: int):
+    """Möller-Trumbore of every lane against triangles [c0, c1), in the
+    kernels' order of operations: (hit, t), (N, c1 - c0) each; a hit is
+    any t in (0, maxt). ``o``, ``d``, ``maxt``: (N, 1) columns; ``cols``:
+    per-column (T,) tensors."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        cols[c][None, c0:c1] for c in _GEOM)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = torch.abs(det) > 1e-12
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > 0.0) & (t < maxt))
+    return hit, t
+
+
+def _columns(o: Vec3, d: Vec3, maxt):
+    return (Vec3(o.x[:, None], o.y[:, None], o.z[:, None]),
+            Vec3(d.x[:, None], d.y[:, None], d.z[:, None]), maxt[:, None])
+
+
 def _scan(o: Vec3, d: Vec3, maxt, cols, start: int, count: int, best_t,
           best_idx):
     """Möller-Trumbore over triangles [start, start + count) against all
@@ -128,30 +162,10 @@ def _scan(o: Vec3, d: Vec3, maxt, cols, start: int, count: int, best_t,
     ``_intersect_scan``. ``cols``: per-column (T,) tensors."""
     n = o.x.shape[0]
     step = max(1, min(count, _SCAN_ELEMS // max(n, 1)))
-    ox, oy, oz = o.x[:, None], o.y[:, None], o.z[:, None]
-    dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
-    mt = maxt[:, None]
+    oc, dc, mt = _columns(o, d, maxt)
     for c0 in range(start, start + count, step):
         c1 = min(c0 + step, start + count)
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-            cols[c][None, c0:c1] for c in _GEOM)
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        ok = torch.abs(det) > 1e-12
-        inv_det = 1.0 / torch.where(ok, det, 1.0)
-        tx = ox - v0x
-        ty = oy - v0y
-        tz = oz - v0z
-        u = (tx * px + ty * py + tz * pz) * inv_det
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv_det
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-               & (t > 0.0) & (t < mt))
+        hit, t = _moller(oc, dc, mt, cols, c0, c1)
         tm = torch.where(hit, t, float("inf"))
         k = torch.argmin(tm, dim=1)
         tk = torch.gather(tm, 1, k[:, None])[:, 0]
@@ -207,32 +221,40 @@ def _miss_record(n: int, dev) -> HitRecord:
                      *([z] * 10))
 
 
+def _sphere_test(sa, ray: Ray, s: int):
+    """The unit sphere of sphere ``s`` in its object space (reference
+    src/shapes/sphere.cpp): (hit, t, o, d, inv) per lane, a hit being any
+    t in (0, maxt); o, d the object-space ray, inv the inverse matrix."""
+    if sa.sphere_animated[s]:
+        c_t = _lerped_matrix(sa.sph_m0c, sa.sph_m1c, sa.sph_t0,
+                             sa.sph_t1, ray.time, s)
+    else:
+        c_t = tuple(sa.sph_m0c[j, s] for j in range(12))
+    inv = cmat_inverse(c_t)
+    o = cmat_apply_point(inv, ray.o)
+    d = cmat_apply_vector(inv, ray.d)
+    a = dot(d, d)
+    b = 2.0 * dot(o, d)
+    c = dot(o, o) - 1.0
+    disc = b * b - 4.0 * a * c
+    ok = disc >= 0.0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = -0.5 * (b + torch.where(b >= 0.0, sq, -sq))
+    t0 = q / torch.where(a != 0.0, a, 1.0)
+    t1 = c / torch.where(q != 0.0, q, 1.0)
+    tn = torch.minimum(t0, t1)
+    tf = torch.maximum(t0, t1)
+    t = torch.where(tn > 0.0, tn, tf)
+    return ok & (t > 0.0) & (t < ray.maxt), t, o, d, inv
+
+
 def _spheres_reference(sa, ray: Ray, hit: HitRecord) -> HitRecord:
     """Analytic spheres: the unit sphere in object space (reference
     src/shapes/sphere.cpp)."""
     out = hit
     for s in range(sa.n_spheres):
-        if sa.sphere_animated[s]:
-            c_t = _lerped_matrix(sa.sph_m0c, sa.sph_m1c, sa.sph_t0,
-                                 sa.sph_t1, ray.time, s)
-        else:
-            c_t = tuple(sa.sph_m0c[j, s] for j in range(12))
-        inv = cmat_inverse(c_t)
-        o = cmat_apply_point(inv, ray.o)
-        d = cmat_apply_vector(inv, ray.d)
-        a = dot(d, d)
-        b = 2.0 * dot(o, d)
-        c = dot(o, o) - 1.0
-        disc = b * b - 4.0 * a * c
-        ok = disc >= 0.0
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        q = -0.5 * (b + torch.where(b >= 0.0, sq, -sq))
-        t0 = q / torch.where(a != 0.0, a, 1.0)
-        t1 = c / torch.where(q != 0.0, q, 1.0)
-        tn = torch.minimum(t0, t1)
-        tf = torch.maximum(t0, t1)
-        t = torch.where(tn > 0.0, tn, tf)
-        hit_m = ok & (t > 0.0) & (t < ray.maxt) & (t < out.t)
+        ok, t, o, d, inv = _sphere_test(sa, ray, s)
+        hit_m = ok & (t < out.t)
         pn = o + d * t                 # object-space normal = hit point
         wn = cmat_apply_transpose_vector(inv, pn)
         u = torch.atan2(pn.y, pn.x) * (0.5 / math.pi)
@@ -346,7 +368,8 @@ def ray_test_reference(sa, ray: Ray):
 def _bind(lib):
     fn = lib.mi_intersect_bruteforce
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float]
                    + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 3)
 
@@ -388,6 +411,170 @@ def scene_tables(sa):
     return sa._tables
 
 
+# ---------------------------------------------------------------------------
+# B1's warp gate: conservative boxes per slot and the gate's plain version
+# ---------------------------------------------------------------------------
+
+# Box pads, so that float rounding never culls a slot the exact test
+# accepts: each table box grows by GATE_TABLE_PAD * (1 + the largest
+# |coordinate| of the boxes), and each warp's gate by GATE_ORIGIN_PAD * its
+# largest |origin|. Both are orders of magnitude above the rounding of the
+# slab and Möller arithmetic (a few float32 ulps of those magnitudes).
+GATE_TABLE_PAD = 1e-4
+GATE_ORIGIN_PAD = 1e-5
+_BIG = 3.0e38
+
+
+def gate_boxes(sa):
+    """B1's gate boxes, cached: (6, T_s + A + S) float32, rows lo xyz and hi
+    xyz, columns the static triangles (world boxes), the animated ranges
+    (the swept world box of the instance: its triangles' boxes at both
+    keyframes, which hold every lerped position) and the spheres (the world
+    box of the unit sphere under each keyframe matrix; the first only for a
+    sphere that does not move), padded by ``GATE_TABLE_PAD``."""
+    box = sa._cache.get("b1_gate_boxes")
+    if box is not None:
+        return box
+    tri, inst, anim, sph, sph_anim = scene_tables(sa)
+    ns = sa.n_static_tris
+    g = tri[:, :9].to(torch.float64)
+    verts = torch.stack([g[:, 0:3], g[:, 0:3] + g[:, 3:6],
+                         g[:, 0:3] + g[:, 6:9]], dim=1)        # (T, 3, 3)
+    lo, hi = [verts[:ns].amin(1)], [verts[:ns].amax(1)]
+    for a, (_, start, count) in enumerate(anim.tolist()):
+        m = inst[a, :24].to(torch.float64).reshape(2, 3, 4)
+        pts = verts[ns + start:ns + start + count].reshape(-1, 3)
+        w = (torch.einsum("kij,vj->kvi", m[:, :, :3], pts)
+             + m[:, None, :, 3]).reshape(-1, 3)
+        lo.append(w.amin(0, keepdim=True))
+        hi.append(w.amax(0, keepdim=True))
+    for s in range(sph.shape[0]):
+        m = sph[s, :24 if int(sph_anim[s]) else 12].to(
+            torch.float64).reshape(-1, 3, 4)
+        half = torch.sqrt((m[:, :, :3] ** 2).sum(-1))
+        lo.append((m[:, :, 3] - half).amin(0, keepdim=True))
+        hi.append((m[:, :, 3] + half).amax(0, keepdim=True))
+    lo, hi = torch.cat(lo), torch.cat(hi)
+    scale = float(torch.cat([lo.abs(), hi.abs()]).max()) if lo.numel() \
+        else 0.0
+    pad = GATE_TABLE_PAD * (1.0 + scale)
+    box = torch.cat([lo - pad, hi + pad], dim=1).T.to(
+        torch.float32).contiguous()
+    sa._cache["b1_gate_boxes"] = box
+    return box
+
+
+class WarpMasks(NamedTuple):
+    slots: torch.Tensor       # (W, T + S) bool: the warp tests this slot
+    ranges: torch.Tensor      # (W, A) bool: it reaches this instance
+    culls: torch.Tensor       # (W,) bool: its gate runs slab tests
+
+
+def _warp_bounds(o, d, maxt, live):
+    """A warp's ray bounds as the kernel's ``warp_bounds`` computes them;
+    every argument (W, 32). Lanes that cannot hit (``live`` false) stay
+    out; a direction axis is bounded if its component is beyond ±1e-12 on
+    every live lane; NaN origins stay out, as fminf/fmaxf skip them."""
+    def wmin(x):
+        return torch.where(live & ~torch.isnan(x), x, float("inf")).amin(1)
+
+    def wmax(x):
+        return torch.where(live & ~torch.isnan(x), x, -float("inf")).amax(1)
+
+    same, ia, ib, ol, oh = [], [], [], [], []
+    omax = torch.zeros_like(maxt[:, 0])
+    for dc, oc in zip(d, o):
+        dl, dh = wmin(dc), wmax(dc)
+        # beyond ±1e-12 on every live lane (a NaN component never is)
+        sm = ((~live | (dc > 1e-12)).all(1)
+              | (~live | (dc < -1e-12)).all(1))
+        same.append(sm)
+        ia.append(1.0 / torch.where(sm, dl, 1.0))
+        ib.append(1.0 / torch.where(sm, dh, 1.0))
+        ol.append(wmin(oc))
+        oh.append(wmax(oc))
+        omax = torch.maximum(omax, torch.maximum(ol[-1].abs(),
+                                                 oh[-1].abs()))
+    # a warp whose directions straddle zero on two axes or three runs no
+    # slab tests: every slot passes
+    return dict(same=same, ia=ia, ib=ib, ol=ol, oh=oh,
+                culls=(same[0].int() + same[1].int() + same[2].int()) >= 2,
+                t_hi=torch.clamp(wmax(maxt), max=_BIG),
+                pad=GATE_ORIGIN_PAD * omax, live=live.any(1))
+
+
+def _gate_pass(g, box, c0: int, c1: int):
+    """(W, c1 - c0) bool: may a ray of the warp enter box column c of
+    ``box`` at a distance in [0, t_hi] (the kernel's ``box_pass``); every
+    box passes where the gate cannot cull, none where no lane is live."""
+    pad = g["pad"][:, None]
+    t_lo = torch.zeros((pad.shape[0], c1 - c0), device=box.device)
+    t_hi = g["t_hi"][:, None].expand_as(t_lo)
+    for ax in range(3):
+        bmin = box[ax, None, c0:c1] - pad
+        bmax = box[3 + ax, None, c0:c1] + pad
+        ol, oh = g["ol"][ax][:, None], g["oh"][ax][:, None]
+        ia, ib = g["ia"][ax][:, None], g["ib"][ax][:, None]
+        vals = [n * r for n in (bmin - ol, bmin - oh, bmax - ol, bmax - oh)
+                for r in (ia, ib)]
+        lo = torch.stack(vals).amin(0)
+        hi = torch.stack(vals).amax(0)
+        sm = g["same"][ax][:, None]
+        t_lo = torch.where(sm, torch.maximum(t_lo, lo), t_lo)
+        t_hi = torch.where(sm, torch.minimum(t_hi, hi), t_hi)
+    return (((t_lo <= t_hi) | ~g["culls"][:, None])
+            & g["live"][:, None])
+
+
+def b1_warp_masks(sa, ray: Ray) -> WarpMasks:
+    """The plain version of B1's gate: per 32-lane warp (lanes in order,
+    the last warp padded with dead lanes), the slots its gate passes (an
+    animated range's triangles all of them, where its swept box passes),
+    the instances whose inverse it computes, and whether it runs slab
+    tests. The kernel tests these slots, and all of a round of 32 where
+    most pass; the any-hit form stops once every lane is occluded. For
+    tests and measurement; the kernel never calls it."""
+    n = ray.o.x.shape[0]
+    w = -(-n // 32)
+
+    def lanes(x, fill):
+        return torch.cat([x, x.new_full((w * 32 - n,), fill)]).reshape(w, 32)
+
+    maxt = lanes(ray.maxt, -1.0)
+    live = maxt > 0.0
+    g = _warp_bounds([lanes(c, 0.0) for c in ray.o],
+                     [lanes(c, 0.0) for c in ray.d], maxt, live)
+    gate = _gate_pass(g, gate_boxes(sa), 0, gate_boxes(sa).shape[1])
+    ns = sa.n_static_tris
+    na = len(sa.anim_ranges)
+    ranges = gate[:, ns:ns + na]
+    anim = [ranges[:, a, None].expand(w, count)
+            for a, (_, _, count) in enumerate(sa.anim_ranges)]
+    return WarpMasks(torch.cat([gate[:, :ns], *anim, gate[:, ns + na:]],
+                               dim=1), ranges, g["culls"] & g["live"])
+
+
+def slot_hits(sa, ray: Ray):
+    """(N, T + S) bool: whether each lane's exact test accepts each
+    triangle slot and sphere (any t in (0, maxt), not only the closest), in
+    the plain version's arithmetic. Every slot set here must be set in the
+    lane's warp mask (``b1_warp_masks``)."""
+    s_cols = {c: sa.tri("s", c) for c in _GEOM}
+    a_cols = {c: sa.tri("a", c) for c in _GEOM}
+    out = [_moller(*_columns(ray.o, ray.d, ray.maxt), s_cols, 0,
+                   sa.n_static_tris)[0]]
+    for (inst, start, count) in sa.anim_ranges:
+        inv = cmat_inverse(_lerped_matrix(sa.inst_m0c, sa.inst_m1c,
+                                          sa.inst_t0, sa.inst_t1, ray.time,
+                                          inst))
+        cols = _columns(cmat_apply_point(inv, ray.o),
+                        cmat_apply_vector(inv, ray.d), ray.maxt)
+        out.append(_moller(*cols, a_cols, start, start + count)[0])
+    out += [_sphere_test(sa, ray, s)[0][:, None]
+            for s in range(sa.n_spheres)]
+    return torch.cat(out, dim=1)
+
+
 def _check_rays(ray: Ray):
     comps = (ray.o.x, ray.o.y, ray.o.z, ray.d.x, ray.d.y, ray.d.z,
              ray.time, ray.maxt)
@@ -415,6 +602,7 @@ def _launch(sa, ray: Ray, any_hit: bool, spheres_only: bool = False):
                          f"rays on {dev}")
     lib = LIBRARY.load()
     tri, inst, anim, sph, sph_anim = scene_tables(sa)
+    box = gate_boxes(sa)
     n_tri, n_static, n_anim = ((0, 0, 0) if spheres_only else
                                (tri.shape[0], sa.n_static_tris,
                                 inst.shape[0]))
@@ -429,9 +617,11 @@ def _launch(sa, ray: Ray, any_hit: bool, spheres_only: bool = False):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.mi_intersect_bruteforce(
                 tri.data_ptr(), inst.data_ptr(), anim.data_ptr(),
-                sph.data_ptr(), sph_anim.data_ptr(),
-                n_tri, n_static, n_anim, sph.shape[0],
-                *(c.data_ptr() for c in comps), n, int(any_hit),
+                sph.data_ptr(), sph_anim.data_ptr(), box.data_ptr(),
+                n_tri, n_static, n_anim, sph.shape[0], box.shape[1],
+                box.shape[1] - sph.shape[0] if spheres_only else 0,
+                GATE_ORIGIN_PAD, *(c.data_ptr() for c in comps), n,
+                int(any_hit),
                 outf.data_ptr(), outi.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"intersect kernel launch failed: CUDA "
@@ -548,5 +738,6 @@ def ray_test(sa, ray: Ray, active=None):
 
 __all__ = ["HitRecord", "intersect", "ray_test", "intersect_reference",
            "ray_test_reference", "intersect_large", "ray_test_large",
-           "scene_tables", "LIBRARY", "LAUNCHES",
+           "scene_tables", "gate_boxes", "b1_warp_masks", "slot_hits",
+           "WarpMasks", "LIBRARY", "LAUNCHES",
            "LAUNCHES_BY_FORM", "STREAM_THRESHOLD"]

@@ -17,8 +17,9 @@ busy share is the kernel time over the median unprofiled wall time; the
 rest of the wall the card idles. The phases of ``core/logger.profile_phase``
 (ray queries, film splat) are listed with their spans on the device
 timeline, gaps included, and the large-scene query kernels' launches in
-the order they ran. Prints the card's name and power limit first. Needs a
-CUDA card.
+the order they ran; for the scenes that B1 serves, its launches split by
+the query that made them (camera, bounce and shadow rays by depth). Prints
+the card's name and power limit first. Needs a CUDA card.
 
 Scenes: ``canonical`` (scenes/canonical/scene.xml, 256x256 x 1024 spp) and
 the benchmark meshes of ``utils/bench_scenes.py`` at 256x256 x 256 spp:
@@ -73,6 +74,39 @@ def _marked_lists():
     finally:
         for m, fn in saved:
             m.prepare = fn
+
+
+@contextlib.contextmanager
+def _labelled_queries(labels):
+    """Appends to ``labels`` each ray query of the path loop, in the order
+    the render makes them: "camera" (the first closest hit of a pass),
+    "bounce d<k>" (the closest hit that finds the k-th vertex) and "shadow
+    d<k>" (the shadow rays from the k-th vertex)."""
+    from .. import integrators
+    saved = (integrators._path_loop, integrators.ray_intersect,
+             integrators.ray_test)
+    depth = [0]
+
+    def path_loop(*args, **kwargs):
+        depth[0] = 0
+        return saved[0](*args, **kwargs)
+
+    def ray_intersect(*args, **kwargs):
+        depth[0] += 1
+        labels.append("camera" if depth[0] == 1 else f"bounce d{depth[0]}")
+        return saved[1](*args, **kwargs)
+
+    def ray_test(*args, **kwargs):
+        labels.append(f"shadow d{depth[0]}")
+        return saved[2](*args, **kwargs)
+
+    (integrators._path_loop, integrators.ray_intersect,
+     integrators.ray_test) = path_loop, ray_intersect, ray_test
+    try:
+        yield
+    finally:
+        (integrators._path_loop, integrators.ray_intersect,
+         integrators.ray_test) = saved
 
 
 def _lists_kernels(prof, device_type):
@@ -164,8 +198,9 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
 
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    with _marked_lists(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    labels = []
+    with _marked_lists(), _labelled_queries(labels), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         mi.render(scene, spp=spp, seed=0)
         torch.cuda.synchronize()
     prof_s = time.perf_counter() - t0
@@ -225,6 +260,25 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
     for key, times in per_launch.items():
         print(f"  per launch, ms, {key[:60]}: "
               + " ".join(f"{t:.2f}" for t in times), flush=True)
+    # B1's launches by the kind of query that made them, where every query
+    # of the render is one B1 launch (scenes of at most 192 triangles)
+    b1 = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and group_of(e.name).startswith("B1")),
+                key=lambda e: e.time_range.start)
+    if b1 and len(b1) == len(labels):
+        kinds = {}
+        for label, e in zip(labels, b1):
+            kinds.setdefault(label, []).append(
+                e.time_range.elapsed_us() / 1e3)
+        print("  B1 by query: " + "; ".join(
+            f"{k} {len(v)} launches {sum(v):.1f} ms (mean {sum(v) / len(v):.4f}"
+            f", max {max(v):.4f})" for k, v in sorted(kinds.items())),
+            flush=True)
+    elif b1:
+        print(f"  B1 by query: not measured ({len(b1)} launches, "
+              f"{len(labels)} queries)", flush=True)
 
 
 def main(argv) -> int:

@@ -77,14 +77,53 @@ def _rays(n, seed, device, z0, tmax):
                f(rng.uniform(0.0, tmax, n)), f(maxt))
 
 
-@pytest.mark.parametrize("which", ["canonical", "spheres"])
+def _canonical_wavefront(kind, device, n=1 << 16, spp=256, seed=3):
+    """The canonical scene and one of its wavefronts at the main path's
+    layout: camera rays of ``spp`` lanes a pixel in pixel order from the
+    middle of the frame, the shadow rays from their hits toward light
+    samples, or the diffuse bounce rays from them (lanes whose camera ray
+    missed dead, maxt -1). Offsets, times and samples drawn with numpy."""
+    from mitsuba3dopplertof_tpu_torch import emitters as em
+    from mitsuba3dopplertof_tpu_torch.core.warp import cosine_hemisphere_c
+    from mitsuba3dopplertof_tpu_torch.render.scene import build_si
+    from mitsuba3dopplertof_tpu_torch.sensors import sample_ray_kind
+    scene = mt.load_file(CANONICAL, device=device)
+    sa = scene.compile()
+    W, H = scene.sensor.film.crop_size
+    rng = np.random.default_rng(seed)
+    pix = (H // 2 * W + W // 2 - n // spp // 2) + np.arange(n) // spp
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    cam, _ = sample_ray_kind(
+        scene.sensor.device_params(), f(rng.uniform(0.0, 0.0015, n)),
+        f(((pix % W) + rng.uniform(0.0, 1.0, n)) / W),
+        f(((pix // W) + rng.uniform(0.0, 1.0, n)) / H))
+    if kind == "camera":
+        return sa, cam
+    u = f(rng.uniform(0.0, 1.0, (4, n)))
+    si = build_si(sa, cam, ik.intersect_reference(sa, cam))
+    if kind == "shadow":
+        ds, _ = em.sample_direction(sa, si.p, cam.time, u[0], u[1])
+        ray = si.spawn_ray_to(ds.p)
+    else:
+        ray = si.spawn_ray(si.to_world(cosine_hemisphere_c(u[2], u[3])))
+    return sa, ray._replace(maxt=torch.where(si.valid, ray.maxt, -1.0))
+
+
+@pytest.mark.parametrize("which", ["canonical", "spheres", "camera",
+                                   "bounce", "shadow"])
 def test_kernel_matches_plain(cuda, which):
+    """B1 against its plain version at 65,536 lanes: random rays in the
+    canonical scene, rays through a scene of spheres and animated cubes,
+    and the canonical scene's camera, bounce and shadow wavefronts, whose
+    warps the gate culls (camera, shadow) or mostly cannot (bounce)."""
     if which == "canonical":
         sa = mt.load_file(CANONICAL, device=cuda).compile()
         ray = _rays(1 << 16, 1, cuda, 3.5, 0.0015)
-    else:
+    elif which == "spheres":
         sa = _sphere_scene(cuda).compile()
         ray = _rays(1 << 16, 2, cuda, -6.0, 1.0)
+    else:
+        sa, ray = _canonical_wavefront(which, cuda)
     ik.reset_launch_counts()
     hk = ik.intersect(sa, ray)
     occ = ik.ray_test(sa, ray)

@@ -4,8 +4,9 @@ package: its oracle ``render/scene.py:_hit_reference`` and the Pallas
 kernel ``intersect_pallas`` / ``ray_test_pallas`` run in interpret mode on
 the CPU, as tests/test_pallas_parity.py runs them. Both sides get the same
 compiled tables (``from_jax_scene_arrays``) and the same rays, made with
-numpy. The CUDA kernel itself runs only on the card
-(tests/test_torch_cuda.py)."""
+numpy. Also B1's warp gate (its plain version ``b1_warp_masks``): it never
+culls a slot that the exact test accepts. The CUDA kernel itself runs only
+on the card (tests/test_torch_cuda.py)."""
 
 import functools
 import os
@@ -27,8 +28,12 @@ from mitsuba3dopplertof_tpu.render.types import Ray as JRay
 import mitsuba3dopplertof_tpu_torch as mt
 from mitsuba3dopplertof_tpu_torch.core.transform import \
     AnimatedTransform as TAnimatedTransform
+from mitsuba3dopplertof_tpu_torch import emitters as tem
 from mitsuba3dopplertof_tpu_torch.core.vec import Vec3 as TVec3
+from mitsuba3dopplertof_tpu_torch.core.warp import cosine_hemisphere_c
 from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as tik
+from mitsuba3dopplertof_tpu_torch.render.scene import build_si
+from mitsuba3dopplertof_tpu_torch.sensors import sample_ray_kind
 from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
                                                        from_jax_scene_arrays)
 from mitsuba3dopplertof_tpu_torch.render.types import Ray as TRay
@@ -220,9 +225,11 @@ def test_plain_matches_pallas_kernel():
 
 def test_plain_time_clamp_and_maxt():
     """Times outside the keyframe window clamp (transform.h:461-466); rays
-    shorter than the first hit miss."""
-    sa_j = mj.load_dict(_scene_dict(animated=True, spheres=False)).compile()
-    n = 256
+    shorter than the first hit miss. (The scene and ray count of the
+    oracle test's "animated" case, whose compile of the oracle this
+    reuses.)"""
+    sa_j, _ = _load("animated")
+    n = 1024
     o = np.tile([[-1.5, 0.0, -6.0]], (n, 1))
     d = np.tile([[0.0, 0.0, 1.0]], (n, 1))
     times = np.random.default_rng(5).uniform(-1.0, 2.0, n)
@@ -306,3 +313,77 @@ def test_large_scene_raises(monkeypatch):
         monkeypatch.setenv("MI_STREAM_KERNEL", "v3")
         assert tik.stream_kernel() == "v3"    # only B2 has rounds
         monkeypatch.delenv("MI_STREAM_KERNEL")
+
+
+@functools.lru_cache(maxsize=None)
+def _canonical_wavefronts(n=4096, spp=64, seed=3):
+    """The port's canonical scene on the CPU and its wavefronts: camera
+    rays of ``spp`` lanes a pixel in pixel order from the middle of the
+    frame (as a strip pass numbers its lanes, so that a warp holds one
+    pixel's samples), the shadow rays from their hits toward light samples
+    and the diffuse bounce rays from them; lanes whose camera ray missed
+    are dead (maxt -1). Offsets, times and samples drawn with numpy."""
+    scene = mt.load_file(CANONICAL, device="cpu")
+    sa = scene.compile("cpu")
+    W, H = scene.sensor.film.crop_size
+    rng = np.random.default_rng(seed)
+    pix = (H // 2 * W + W // 2 - n // spp // 2) + np.arange(n) // spp
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    cam, _ = sample_ray_kind(
+        scene.sensor.device_params(), f32(rng.uniform(0.0, 0.0015, n)),
+        f32(((pix % W) + rng.uniform(0.0, 1.0, n)) / W),
+        f32(((pix // W) + rng.uniform(0.0, 1.0, n)) / H))
+    u = f32(rng.uniform(0.0, 1.0, (4, n)))
+    si = build_si(sa, cam, tik.intersect_reference(sa, cam))
+    ds, _ = tem.sample_direction(sa, si.p, cam.time, u[0], u[1])
+    dead = lambda r: r._replace(maxt=torch.where(si.valid, r.maxt, -1.0))
+    return sa, {"camera": cam, "shadow": dead(si.spawn_ray_to(ds.p)),
+                "bounce": dead(si.spawn_ray(si.to_world(
+                    cosine_hemisphere_c(u[2], u[3]))))}
+
+
+def _bundle_rays(n, seed):
+    """Coherent rays: per 32 lanes, origins within 0.05 of a point on the
+    shell of ``_shell_rays`` and directions toward points within 0.3 of a
+    target in the scene; times in [0, 1], a quarter at finite maxt."""
+    rng = np.random.default_rng(seed)
+    w = n // 32
+    o = np.repeat(rng.uniform(-3.0, 3.0, (w, 3)) - [0.0, 0.0, 5.0], 32, 0)
+    tgt = np.repeat(rng.uniform(-2.0, 2.0, (w, 3)), 32, 0)
+    dd = tgt + rng.uniform(-0.3, 0.3, (n, 3)) - o
+    o = o + rng.uniform(-0.05, 0.05, (n, 3))
+    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
+    maxt = np.where(rng.random(n) < 0.25, rng.uniform(3.0, 9.0, n), np.inf)
+    return o, dd, rng.uniform(0.0, 1.0, n), maxt
+
+
+@pytest.mark.parametrize("wavefront", ["camera", "bounce", "shadow",
+                                       "spheres"])
+def test_gate_is_conservative(wavefront):
+    """B1's gate never culls a slot that the exact test accepts for a lane
+    of the warp (any t in (0, maxt), not only the closest): on the
+    canonical scene's camera, bounce and shadow wavefronts, and on coherent
+    rays through the scene of animated cubes and spheres. The coherent
+    wavefronts cull slots, a camera warp most of the 34; diffuse bounce
+    rays, whose directions straddle zero on two axes, run no slab
+    tests."""
+    if wavefront == "spheres":
+        sa_j, _ = _load("animated_spheres")
+        sa = _port_tables(sa_j)
+        _, ray = _both_rays(*_bundle_rays(2048, seed=5))
+    else:
+        sa, rays = _canonical_wavefronts()
+        ray = rays[wavefront]
+    hits = tik.slot_hits(sa, ray)
+    n, n_slots = hits.shape
+    assert n_slots == (sa.n_static_tris + sa.n_anim_tris + sa.n_spheres)
+    assert int(hits.any(1).sum()) > n // 10
+    m = tik.b1_warp_masks(sa, ray)
+    assert m.slots.shape == (n // 32, n_slots)
+    culled = hits & ~m.slots.repeat_interleave(32, dim=0)
+    assert not culled.any(), int(culled.sum())
+    mean = float(m.slots.sum(1).float().mean())
+    if wavefront != "bounce":
+        assert mean < 0.8 * n_slots, mean
+    if wavefront == "camera":
+        assert mean < 12.0, mean           # 8.9 of 34 when written

@@ -3,8 +3,9 @@
 JAX package on the CPU, with dopplertofpath (the main path; a correlation
 image of scale ~1e-5) and with path (an O(1) image that shows errors the
 Doppler image's scale hides). Also: strip-pass renders equal single-pass
-renders bit for bit, the port compiles the JAX package's tables, and the
-port never imports jax."""
+renders bit for bit, ``MI_SPP_SLICE_PASSES`` slices spp as in the JAX
+package, the port compiles the JAX package's tables, and the port never
+imports jax."""
 
 import os
 
@@ -59,10 +60,17 @@ def jax_images():
     return {k: _render_jax(k) for k in ("dopplertofpath", "path")}
 
 
+@pytest.fixture(scope="module")
+def port_images():
+    # the port's single-pass renders, held against the JAX package's and
+    # against strip passes
+    return {k: _render_port(k) for k in ("dopplertofpath", "path")}
+
+
 @pytest.mark.parametrize("integrator", ["dopplertofpath", "path"])
-def test_port_matches_jax(jax_images, integrator):
+def test_port_matches_jax(jax_images, port_images, integrator):
     ref = jax_images[integrator]
-    img = _render_port(integrator)
+    img = port_images[integrator]
     assert img.shape == ref.shape == (16, 16, 3)
     assert np.isfinite(img).all()
     scale = np.abs(ref).max()
@@ -74,11 +82,35 @@ def test_port_matches_jax(jax_images, integrator):
 
 
 @pytest.mark.parametrize("integrator", ["dopplertofpath", "path"])
-def test_strip_passes_equal_single_pass(integrator):
-    single = _render_port(integrator)
+def test_strip_passes_equal_single_pass(port_images, integrator):
+    single = port_images[integrator]
     # 1024 lanes at 16 px x 16 spp: 4-row strips, 4 passes
     strips = _render_port(integrator, max_lanes=1024)
     assert np.array_equal(single, strips)
+
+
+def test_spp_slice_passes_match_jax(monkeypatch):
+    """With MI_SPP_SLICE_PASSES set, a frame that strip passes would split
+    by rows is split by spp, as the JAX package does
+    (``integrators/__init__.py`` ``render``): at 8x8 x 4 spp and 128 lanes
+    a pass, two passes of 2 spp each. The port's image equals the JAX
+    package's within the golden tolerance (atol 2e-6, rtol 1e-4), and
+    differs from the port's strip-pass image of the same frame."""
+    size = dict(spp=4, resx=8, resy=8)
+    monkeypatch.setenv("MI_SPP_SLICE_PASSES", "1")
+    scene_j = mj.load_file(CANONICAL, **size)
+    ref = np.asarray(scene_j.integrator.render(scene_j, spp=4, seed=0,
+                                               max_lanes=128))
+    scene = mt.load_file(CANONICAL, device="cpu", **size)
+    img = scene.integrator.render(scene, spp=4, seed=0,
+                                  max_lanes=128).numpy()
+    assert img.shape == ref.shape == (8, 8, 3)
+    assert np.abs(ref).max() > 0.0
+    assert np.allclose(img, ref, rtol=1e-4, atol=2e-6)
+    monkeypatch.delenv("MI_SPP_SLICE_PASSES")
+    strips = scene.integrator.render(scene, spp=4, seed=0,
+                                     max_lanes=128).numpy()
+    assert not np.array_equal(strips, img)
 
 
 def test_compiled_tables_match_jax():
