@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --b2-walk CHECKOUT
     python3 chip_smoke.py --b1-walk CHECKOUT
+    python3 chip_smoke.py --b6-walk CHECKOUT
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
@@ -10,13 +11,18 @@ without the package beside it) it exits non-zero and prints no result.
 the package of another checkout, such as the parent commit unpacked with
 ``git archive``, so that two commits compare on one card in one call;
 ``--b1-walk CHECKOUT`` likewise times that checkout's B1 on phase 3's
-four canonical wavefronts. Every phase raises on failure:
+four canonical wavefronts, and ``--b6-walk CHECKOUT`` its B6 on the 40k
+scene's binned camera, bounce and shadow wavefronts (kernel and query)
+and its 40k render through MI_STREAM_KERNEL=mxu. Every phase raises on
+failure:
 
   1. the card: name and power limit (nvidia-smi);
   2. build all six kernels from the checkout, one nvcc each, started
      together: B1 (csrc/intersect_bruteforce.cu), B2 (intersect_v4.cu), B3
      (intersect_stream.cu), B4 (intersect_v2.cu), B5 (intersect_v3.cu) and
-     B6 (intersect_mxu.cu), with their registers and spills (ptxas -v);
+     B6 (intersect_mxu.cu), with their registers and spills (ptxas -v),
+     and the count of tensor-core instructions (HMMA) in B6's library
+     (cuobjdump --dump-sass; fails if there are none);
   3. B1 against its plain PyTorch version on the card: 1M random rays in
      the canonical scene, the canonical scene's wavefronts of one strip
      pass (camera rays, depth-1 shadow rays, depth-2 bounce rays and
@@ -43,7 +49,12 @@ four canonical wavefronts. Every phase raises on failure:
      of the tests in the slowest 1%); bounds from the work a plain walk
      needs (WalkWork); B2's in-kernel visit lists against
      _unit_visit_order, bit for bit, also with a capacity that forces
-     rounds (and B2's walk with it against the plain version);
+     rounds (and B2's walk with it against the plain version); for B6
+     also its bounce wavefront, the chunks its warps' walks test per
+     32-lane warp, and the share of those pairs that its gate passes to
+     the exact test, by the gate's plain version (mxu_gate_reference) on
+     the first 65,536 lanes of each wavefront, with each lane's best t at
+     the chunk's start;
   4b. B2 on a 65,536-lane slice of the 100k animated scene's camera
      wavefront and its bounce and shadow rays: the in-kernel lists (one
      round and rounds of 1,024) and the walk against the plain version;
@@ -71,17 +82,24 @@ float32 rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s outside
 the tensor cores). For B2-B6 the operations count the units, quarters or
 chunks that a walk of the timed wavefront's visit lists must test, computed
 in PyTorch from the lists and the plain versions' results (``WalkWork``),
-not from counters in the kernels: per 256-lane block for B3-B6, per 32-lane
-warp for B2 (whose warps stop on their own bounds), plus B2's lists (a slab
+not from counters in the kernels: per 256-lane block for B3-B5, per 32-lane
+warp for B2 and B6 (whose warps stop on their own bounds; B6's each with
+its own slab test of a chunk's four boxes), plus B2's lists (a slab
 test per block and unit, n log2 n compares to sort). B1's count the slots,
 instances and boxes that each warp's gate makes it test (``b1_work``, from
 the gate's plain version ``b1_warp_masks``); the dense count (every lane
-tests every slot) is printed beside it. No single PyTorch call computes a
-ray-triangle query, so ``library_ms`` is null.
+tests every slot) is printed beside it. B6 has a second bound, for its
+tensor cores: the larger of the bytes over the memory rate, the product's
+96 flops a pair over the TF32 rate of the tensor cores (495 TFLOP/s) and
+the Woop epilogue's 15 float32 operations a pair (with the rays'
+transforms) over the float32 rate; its ``bound_ms`` is the smaller of the
+two. No single PyTorch call computes a ray-triangle query, so
+``library_ms`` is null.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -104,6 +122,7 @@ ALTERNATES = (("B5", "v3", "intersect_v3", 53),
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 on the tensor cores, dense
 # float32 operations of one ray-triangle test, counted in the kernels'
 # source: Möller-Trumbore in B1 (edge crosses, determinant, division,
 # three dot products, six compares), the Woop test in B2 (three affine
@@ -113,6 +132,11 @@ F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 # tests the function needs, not the zero terms
 MOLLER_OPS = 56
 WOOP_OPS = 48
+# B6 on the tensor cores: the (6 x 8) . (8 x 1) product of a pair (48
+# multiply-adds) and the Woop epilogue's float32 operations (division,
+# two multiply-adds, seven compares)
+MXU_PRODUCT_FLOPS = 96
+WOOP_EPILOGUE_OPS = 15
 # per lane and animated range: lerp of 12 entries, adjugate inverse and
 # the ray's transform
 INV_LERP_OPS = 130
@@ -301,11 +325,13 @@ def walk_line(tag, wname, any_hit, times, dist, card):
             f"{100 * ws:.1f}% ({card})")
 
 
-def b2_walk_main(root: str) -> int:
-    """``--b2-walk DIR``: B2's walk report alone, on the package of the
-    checkout at DIR (another commit, to compare with this one on one card
-    in one call): the 40k animated scene's binned camera, bounce and
-    shadow wavefronts, as the full run builds them."""
+def checkout_40k(root: str, module: str):
+    """The package of the checkout at ``root`` (another commit, to compare
+    with this one on one card in one call), its kernel module ``module``
+    of ``ops`` built and loaded, and the 40k animated scene's camera,
+    bounce and shadow wavefronts as the full run builds them. Returns
+    (card, mi, the module, OBJ path, SceneArrays, ((name, any_hit, ray),
+    ...))."""
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -316,13 +342,16 @@ def b2_walk_main(root: str) -> int:
     card = card_line()
     print(card, flush=True)
     import mitsuba3dopplertof_tpu_torch as mi
-    from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
     from mitsuba3dopplertof_tpu_torch.ops.cuda_build import BUILD_DIR
     from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
         ANIMATED_SIZES, animated_mesh_scene, write_uv_sphere_obj)
-    if not v4.__file__.startswith(root):
-        fail(f"imported {v4.__file__}, not the package under {root}")
-    v4.LIBRARY.load()
+    mod = importlib.import_module(f"mitsuba3dopplertof_tpu_torch.ops.{module}")
+    if not mod.__file__.startswith(root):
+        fail(f"imported {mod.__file__}, not the package under {root}")
+    mod.LIBRARY.load()
+    for line in mod.LIBRARY.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas {mod.LIBRARY.name}: {line.strip()}", flush=True)
     mi.set_variant("cuda_rgb")
     (BUILD_DIR / "scenes").mkdir(parents=True, exist_ok=True)
     nu, nv = ANIMATED_SIZES["40k"]
@@ -335,10 +364,18 @@ def b2_walk_main(root: str) -> int:
                                            // 2) * W * 256, 256, 0.0015,
                            seed=1)
     shadow, bounce, _ = secondary_wavefronts(sa, cam, seed=2)
-    tag = f"B2 at {os.path.basename(root.rstrip(os.sep)) or root}"
-    for wname, any_hit, ray in (("camera", False, cam),
-                                ("bounce", False, bounce),
-                                ("shadow", True, shadow)):
+    return card, mi, mod, obj, sa, (("camera", False, cam),
+                                    ("bounce", False, bounce),
+                                    ("shadow", True, shadow))
+
+
+def b2_walk_main(root: str) -> int:
+    """``--b2-walk DIR``: B2's walk report alone, on the package of the
+    checkout at DIR: the 40k animated scene's binned camera, bounce and
+    shadow wavefronts, as the full run builds them."""
+    card, _, v4, _, sa, waves = checkout_40k(root, "intersect_v4")
+    tag = f"B2 at {os.path.basename(os.path.abspath(root).rstrip(os.sep))}"
+    for wname, any_hit, ray in waves:
         ray_s, _ = sort_wavefront(sa, ray)
         t_ref = v4.intersect_v4_reference(sa, ray_s)[0]
         walk = WalkWork(sa, ray_s, t_ref, any_hit)
@@ -346,6 +383,170 @@ def b2_walk_main(root: str) -> int:
                         walk.b2_distribution(), card), flush=True)
         del walk, ray_s, t_ref
     return 0
+
+
+def b6_times(mxu, sa, ray_s, any_hit):
+    """(kernel, query) ms of B6 on one binned wavefront: one launch over
+    ``prepare``'s inputs, and the query as the route calls it (visit
+    lists in PyTorch included)."""
+    tables = mxu.mxu_tables(sa)
+    prep = mxu.prepare(tables, ray_s)
+    k_ms = cuda_time_ms(lambda: mxu.launch(tables, prep, any_hit))
+    q_ms = cuda_time_ms(lambda: mxu.intersect_mxu(sa, ray_s, any_hit=any_hit),
+                        reps=5)
+    return k_ms, q_ms
+
+
+def render_40k(mi, obj, route, reset, read):
+    """The 40k animated scene at 256x256 x 256 spp through
+    MI_STREAM_KERNEL=``route``, twice, with ``reset()`` just before the
+    first render and ``read()`` just after it: (image, second image,
+    first s, warm s, what ``read`` returned)."""
+    import torch
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
+        animated_mesh_scene
+    os.environ["MI_STREAM_KERNEL"] = route
+    try:
+        scene = mi.load_dict(animated_mesh_scene(obj, spp=256))
+        reset()
+        t0 = time.perf_counter()
+        img = mi.render(scene, spp=256, seed=0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read()
+        t0 = time.perf_counter()
+        img2 = mi.render(scene, spp=256, seed=0)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MI_STREAM_KERNEL", None)
+    return img, img2, first_s, warm_s, counts
+
+
+def b6_walk_main(root: str) -> int:
+    """``--b6-walk DIR``: B6's times alone, on the package of the checkout
+    at DIR: kernel and query on the 40k animated scene's binned camera,
+    bounce and shadow wavefronts, then the 40k render through
+    MI_STREAM_KERNEL=mxu."""
+    import torch
+    card, mi, mxu, obj, sa, waves = checkout_40k(root, "intersect_mxu")
+    tag = f"B6 at {os.path.basename(os.path.abspath(root).rstrip(os.sep))}"
+    for wname, any_hit, ray in waves:
+        ray_s, _ = sort_wavefront(sa, ray)
+        k_ms, q_ms = b6_times(mxu, sa, ray_s, any_hit)
+        print(f"{tag} {wname} wavefront "
+              f"({'any-hit' if any_hit else 'closest-hit'}, binned, "
+              f"{ray_s.o.x.shape[0]} lanes, 40k animated): kernel "
+              f"{k_ms:.4f} ms, query {q_ms:.4f} ms ({card})", flush=True)
+        del ray_s
+    img, _, first_s, warm_s, counts = render_40k(
+        mi, obj, "mxu", mxu.reset_launch_counts,
+        lambda: dict(mxu.LAUNCHES_BY_FORM))
+    if not bool(torch.isfinite(img).all()) or min(counts.values()) <= 0:
+        fail(f"{tag}: the 40k render did not run through B6")
+    print(f"{tag} render 40k animated 256x256x256 (MI_STREAM_KERNEL=mxu): "
+          f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{256 ** 3 / warm_s / 1e6:.3f} Msamples/s; launches "
+          f"{counts} ({card})", flush=True)
+    return 0
+
+
+def b6_chunk_t(mxu, tables, x, time):
+    """(lanes, n_chunks): each lane's smallest t that B6's exact test
+    accepts in each chunk (+inf: none), by the plain version's arithmetic
+    (``_affine_hit``, with no best so far)."""
+    import torch
+    from mitsuba3dopplertof_tpu_torch.ops.intersect_stream import _unit_ray
+    T = mxu.T
+    inf = torch.full((x.shape[1], 1), float("inf"), device=x.device)
+    out = []
+    for ci, c0, c1 in tables.runs:
+        r = _unit_ray(tables, ci, (x[0], x[1], x[2]), (x[4], x[5], x[6]),
+                      time)
+        xp = [c[:, None] for c in (*r[:3], x[3], *r[3:], x[7])]
+        for a in range(c0, c1, 4):
+            b = min(a + 4, c1)
+            w = tables.w[a * 8:b * 8].reshape(b - a, 8, 6, T).permute(
+                1, 2, 0, 3).reshape(8, 6, 1, (b - a) * T)
+            out.append(mxu._affine_hit(w, xp, inf).reshape(
+                -1, b - a, T).amin(dim=2))
+    return torch.cat(out, dim=1)
+
+
+def b6_gate_share(mxu, sa, ray_s, walk, n_lanes=1 << 16):
+    """What B6's gate passes to the exact test, by its plain version
+    ``mxu_gate_reference``, on the first ``n_lanes`` of a binned
+    wavefront: over the pairs (each lane of a warp, each triangle of a
+    chunk) of the chunks that the warp's walk tests
+    (``WalkWork.b6_warps``), with each lane's best t at the chunk's start
+    as the kernel has it: the smallest exact t (``b6_chunk_t``) of the
+    chunks before it in its block's list; any-hit, a lane with a hit
+    before the chunk is occluded and its pairs go nowhere. Returns
+    (pairs passed, pairs tested)."""
+    import torch
+    from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
+    from mitsuba3dopplertof_tpu_torch.render.types import Ray
+    cut = lambda v: v[:n_lanes].contiguous()
+    ray = Ray(Vec3(*map(cut, ray_s.o)), Vec3(*map(cut, ray_s.d)),
+              cut(ray_s.time), cut(ray_s.maxt))
+    tables = mxu.mxu_tables(sa)
+    x, t, order, _ = mxu.prepare(tables, ray)
+    n_chunks = tables.n_chunks
+    ordl = order.long().repeat_interleave(WalkWork.BLOCK, dim=0)
+    by_rank = b6_chunk_t(mxu, tables, x, t).gather(1, ordl)
+    start = torch.cat([torch.full_like(by_rank[:, :1], float("inf")),
+                       by_rank[:, :-1]], dim=1).cummin(dim=1).values
+    best = torch.empty_like(start).scatter_(1, ordl, start)
+    if walk.any_hit:
+        best = torch.where(torch.isinf(best), float("inf"), float("-inf"))
+    _, tested, ow, _ = walk.b6_warps()
+    nwl = n_lanes // 32
+    tested_c = torch.zeros((nwl, n_chunks), dtype=torch.bool,
+                           device=x.device).scatter_(1, ow[:nwl],
+                                                     tested[:nwl])
+    lane_t = tested_c.repeat_interleave(32, dim=0)
+    passed = 0
+    for c0 in range(0, n_chunks, 4):
+        c1 = min(c0 + 4, n_chunks)
+        g = mxu.mxu_gate_reference(tables, x, t, c0, c1, best[:, c0:c1])
+        passed += int((g.reshape(n_lanes, c1 - c0, mxu.T).sum(dim=2)
+                       * lane_t[:, c0:c1]).sum())
+    return passed, int(lane_t.sum()) * mxu.T
+
+
+def b6_bytes(n_lanes, distinct, reach):
+    """Bytes B6 must move: per lane X, time and the result; each chunk a
+    walk needs once (its W); per entry of a block's list that its warps
+    reach, the entry, the chunk's meta and its four boxes."""
+    return n_lanes * (36 + 8) + distinct * 8 * 768 * 4 + reach * (8 + 8
+                                                                 + 4 * 24)
+
+
+def b6_bounds(pairs, ray_ops, n_bytes):
+    """B6's two bounds for a walk that tests ``pairs`` pairs of lane and
+    triangle: on the CUDA cores (a Woop test a pair in float32) and with
+    the product on the tensor cores (the larger of the bytes, the
+    product's flops at the TF32 rate and the epilogue's float32
+    operations). Each a (bound_ms, bound_by)."""
+    cuda_cores = bound(n_bytes, pairs * WOOP_OPS + ray_ops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(pairs * MXU_PRODUCT_FLOPS / TF32_OPS_PER_S,
+                (pairs * WOOP_EPILOGUE_OPS + ray_ops) / F32_OPS_PER_S) * 1e3
+    tensor = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                          "operations")
+    return cuda_cores, tensor
+
+
+def sass_count(lib, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS (cuobjdump
+    --dump-sass, from the CUDA toolkit of nvcc)."""
+    from mitsuba3dopplertof_tpu_torch.ops.cuda_build import nvcc
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(lib.path())],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    return sum(1 for line in out.splitlines()
+               if line.strip().startswith("/*") and f" {opcode}" in line)
 
 
 def b1_wavefronts(scene, ik, dev, n):
@@ -551,9 +752,10 @@ class WalkWork:
     plain version's result, the same whatever implements the walk.
 
     Closest-hit: a walk over a sorted list tests exactly the entries whose
-    t_lo is at most the block's final bound (the bound never grows, and a
-    hit found in a unit is no nearer than the unit's t_lo), so the final
-    bound from the plain version's t decides; B3, which has no order, must
+    t_lo is at most the block's final bound (the warp's, for B2 and B6,
+    whose warps walk alone; the bound never grows, and a hit found in a
+    unit is no nearer than the unit's t_lo), so the final bound from the
+    plain version's t decides; B3, which has no order, must
     at least test the chunks that pass under its final t_hi. Any-hit: the
     bound before rank v is the largest maxt among the lanes that no
     earlier unit occludes, from each lane's first rank with a hit; the hit
@@ -573,7 +775,7 @@ class WalkWork:
             _slab_visit_order
         self.torch = torch
         self.any_hit = any_hit
-        self._b2 = None
+        self._b2 = self._b6 = None
         n = ray_s.o.x.shape[0]
         if n % self.BLOCK:
             raise ValueError("WalkWork: whole blocks only")
@@ -584,10 +786,11 @@ class WalkWork:
         self.key32 = self._unsort(self.order32, self.tlo32)
         tb2 = v2.v2_tables(sa)
         self.order128, self.tlo128 = v2.prepare(tb2, ray_s)[4:]
-        x, _, self.order128r, self.tlo128r = mxu.prepare(mxu.mxu_tables(sa),
-                                                         ray_s)
+        tb6 = mxu.mxu_tables(sa)
+        x, _, self.order128r, self.tlo128r = mxu.prepare(tb6, ray_s)
+        self.sub6 = tb6.sub
         self.x, self.box, self.maxtp, self.t_ref = x, tb4.box, maxtp, t_ref
-        # unit keys without the scene-box clamp (B6's and B3's gates)
+        # unit keys without the scene-box clamp (B3's gate)
         o32r, t32r = _slab_visit_order(tb4.box[:, :3], tb4.box[:, 3:], x,
                                        self.BLOCK)
         self.key32r = self._unsort(o32r, t32r)
@@ -598,7 +801,7 @@ class WalkWork:
             v4.intersect_v4_reference(sa, ray_s, unit_hits=hits)
             self.hits = hits
         else:
-            # the ordered walks' final bound, and B6's and B3's final t_hi
+            # the ordered walks' final bound, and B3's final t_hi
             self.bound = torch.clamp(self._blockmax(
                 torch.minimum(t_ref, maxtp)), max=self.CAP)
             self.t_hi = torch.minimum(self.mt_blk, torch.clamp(
@@ -633,7 +836,7 @@ class WalkWork:
 
     def far_ends(self, order, per_chunk, block_maxt):
         """(n_blocks, n_list) far end of the gate before each rank.
-        ``block_maxt``: B6 and B3 bound a block by its largest maxt until
+        ``block_maxt``: B3 bounds a block by its largest maxt until
         every lane is occluded; B2, B5 and B4 by the unoccluded lanes'
         own (clamped) maxt."""
         torch = self.torch
@@ -669,19 +872,30 @@ class WalkWork:
             1, order.long()[:, :, None].expand(-1, -1, 4))
         return (k <= g[:, :, None]) & (k < self.BIG)
 
-    def _slab_lohi(self, blk):
-        """(t_lo, t_hi), (groups, n_units): the slab test of each group of
-        ``blk`` lanes' ray bounds against each unit box with no far end
-        (``_slab_visit_order``'s algebra; csrc/intersect_v4.cu's warp gate
-        with blk = 32)."""
+    def _slab_lohi(self, blk, box=None, live_only=False):
+        """(t_lo, t_hi), (groups, boxes): the slab test of each group of
+        ``blk`` lanes' ray bounds against each box of ``box`` (default: the
+        unit boxes) with no far end (``_slab_visit_order``'s algebra;
+        csrc/intersect_v4.cu's warp gate with blk = 32). ``live_only``: the
+        bounds of the live lanes (maxt > 0) alone, as
+        csrc/intersect_mxu.cu takes them."""
         torch = self.torch
-        x, blo, bhi = self.x, self.box[:, :3], self.box[:, 3:]
+        box = self.box if box is None else box
+        x, blo, bhi = self.x, box[:, :3], box[:, 3:]
         ng = x.shape[1] // blk
         xb = x.reshape(8, ng, blk)
-        ol, oh = xb[0:3].amin(dim=2).T, xb[0:3].amax(dim=2).T
-        dl, dh = xb[4:7].amin(dim=2).T, xb[4:7].amax(dim=2).T
-        t_lo = torch.zeros((ng, self.n_units), device=x.device)
-        t_hi = torch.full((ng, self.n_units), self.BIG, device=x.device)
+        if live_only:
+            live = xb[7:8] > 0.0
+            inf = float("inf")
+            ol = torch.where(live, xb[0:3], inf).amin(dim=2).T
+            oh = torch.where(live, xb[0:3], -inf).amax(dim=2).T
+            dl = torch.where(live, xb[4:7], inf).amin(dim=2).T
+            dh = torch.where(live, xb[4:7], -inf).amax(dim=2).T
+        else:
+            ol, oh = xb[0:3].amin(dim=2).T, xb[0:3].amax(dim=2).T
+            dl, dh = xb[4:7].amin(dim=2).T, xb[4:7].amax(dim=2).T
+        t_lo = torch.zeros((ng, box.shape[0]), device=x.device)
+        t_hi = torch.full((ng, box.shape[0]), self.BIG, device=x.device)
         for ax in range(3):
             dla, dha = dl[:, ax:ax + 1], dh[:, ax:ax + 1]
             same = (dla > 1e-12) | (dha < -1e-12)
@@ -732,6 +946,52 @@ class WalkWork:
                 nw, wl).amax(dim=1), max=self.CAP)[:, None]
         tested = self._prefix(tw, g) & (glo <= torch.minimum(ghi, g))
         return tested.sum(dim=1), tested, ow
+
+    def b6_warps(self):
+        if self._b6 is None:
+            self._b6 = self._b6_warps()
+        return self._b6
+
+    def _b6_warps(self):
+        """The chunks csrc/intersect_mxu.cu's walk must test per 32-lane
+        warp: the entries of its block's chunk list up to the first whose
+        t_lo exceeds the warp's own far end (or is unreachable), less
+        those none of whose four 32-triangle boxes the warp's live rays can
+        enter within it (the kernel's slab test). Far ends: closest-hit the
+        largest over the warp's lanes of min(final t, maxt); any-hit the
+        largest maxt of the warp's lanes that no earlier entry occludes
+        (-3e38 once all are). Returns (entries tested per warp, (warps,
+        n_chunks) tested by rank, (warps, n_chunks) chunk at each rank,
+        (blocks,) entries of its list each block reads: its warps' longest
+        prefix)."""
+        torch = self.torch
+        wl = 32
+        k = self.BLOCK // wl
+        nw = self.n // wl
+        n_list = self.order128r.shape[1]
+        t_lo_w, t_hi_w = self._slab_lohi(wl, self.sub6, live_only=True)
+        ow = self.order128r.long().repeat_interleave(k, dim=0)
+        idx = ow[:, :, None].expand(-1, -1, 4)
+        glo = t_lo_w.reshape(nw, n_list, 4).gather(1, idx)
+        ghi = t_hi_w.reshape(nw, n_list, 4).gather(1, idx)
+        del t_lo_w, t_hi_w, idx
+        tw = self.tlo128r.repeat_interleave(k, dim=0)
+        maxt = self.x[7]
+        if self.any_hit:
+            first = self._first_rank(self.order128r, True)
+            a = torch.full((nw, n_list + 1), -self.BIG, device=tw.device)
+            a.scatter_reduce_(1, first.reshape(nw, wl),
+                              maxt.reshape(nw, wl), reduce="amax")
+            g = torch.clamp(a.flip(1).cummax(dim=1).values.flip(1)
+                            [:, :n_list], max=self.BIG)
+        else:
+            g = torch.clamp(torch.minimum(self.t_ref, maxt).reshape(
+                nw, wl).amax(dim=1), max=self.BIG)[:, None]
+        reach = self._prefix(tw, g)
+        tested = reach & (glo <= torch.minimum(ghi, g[:, :, None])).any(
+            dim=2)
+        per_block = reach.sum(dim=1).reshape(self.nb, k).amax(dim=1)
+        return tested.sum(dim=1), tested, ow, per_block
 
     def b2_work(self):
         """(units tested over all warps, distinct units, operations of the
@@ -784,11 +1044,11 @@ class WalkWork:
                 self.order128, q.any(dim=2), self.order128.shape[1]),
                 "quarters")
         if row == "B6":
-            g = self.far_ends(self.order128r, True, True)
-            vis = self._prefix(self.tlo128r, g) & self._quarters(
-                self.order128r, self.key32r, g).any(dim=2)
-            return (int(vis.sum()), self._distinct(
-                self.order128r, vis, self.order128r.shape[1]), "chunks")
+            per_warp, tested, ow, _ = self.b6_warps()
+            seen = torch.zeros((self.order128r.shape[1],), dtype=torch.bool,
+                               device=tested.device)
+            seen[ow[tested]] = True
+            return int(per_warp.sum()), int(seen.sum()), "chunks"
         if row == "B3":                 # table order, no list
             ident = torch.arange(self.n_units, dtype=torch.int32,
                                  device=self.key32r.device).expand(
@@ -822,7 +1082,6 @@ def main() -> int:
     from mitsuba3dopplertof_tpu_torch.core import transform as tf
     from mitsuba3dopplertof_tpu_torch.core.transform import AnimatedTransform
     from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
-    import importlib
     from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as ik
     from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
     from mitsuba3dopplertof_tpu_torch.ops.cuda_build import (BUILD_DIR,
@@ -831,6 +1090,7 @@ def main() -> int:
     alt_mod = {row: importlib.import_module(
         f"mitsuba3dopplertof_tpu_torch.ops.{name}")
         for row, _, name, _ in ALTERNATES}
+    mxu = alt_mod["B6"]
     # per alternate: tables, prepare, wrapper, plain version (B5 shares
     # B2's tables, visit lists and plain version)
     alt_fn = {
@@ -886,6 +1146,11 @@ def main() -> int:
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {lib.name}: {line.strip()}", flush=True)
+    n_hmma = sass_count(alt_mod["B6"].LIBRARY, "HMMA")
+    print(f"B6 ({alt_mod['B6'].LIBRARY.name}): {n_hmma} tensor-core "
+          f"instructions (HMMA) in its SASS", flush=True)
+    if n_hmma == 0:
+        fail("B6's library holds no tensor-core instruction")
 
     mi.set_variant("cuda_rgb")
     if mi.get_device().type != "cuda":
@@ -1196,7 +1461,28 @@ def main() -> int:
               f"operations; bound {b2_bound[0]:.4f} ms ({b2_bound[1]}) "
               f"({card})", flush=True)
         check_lists(v4, f"40k {wname}", sa40, ray_s)
+        # B6: the chunks its warps' walks test, and the share of those
+        # pairs that its gate passes (plain version, on a slice)
+        need6, distinct6, _ = walk.work("B6")
+        b6_pairs = need6 * 32 * mxu.T
+        b6_n_bytes = b6_bytes(n_lanes, distinct6,
+                              int(walk.b6_warps()[3].sum()))
+        passed, gated = b6_gate_share(mxu, sa40, ray_s, walk)
+        b6_share = (f"its gate passes {100 * passed / gated:.3f}% of those "
+                    f"pairs ({passed} of {gated}) on the first {1 << 16} "
+                    f"lanes (mxu_gate_reference)")
+        print(f"B6 walk {wname} ({'any-hit' if any_hit else 'closest-hit'}):"
+              f" a plain walk tests {need6} chunks over {n_lanes // 32} "
+              f"warps ({need6 / (n_lanes // 32):.2f} per warp, {distinct6} "
+              f"distinct), {b6_pairs} pairs; {b6_share}", flush=True)
         if wname == "bounce":
+            k_ms, q_ms = b6_times(mxu, sa40, ray_s, False)
+            b_cc, b_tc = b6_bounds(b6_pairs, ray_ops, b6_n_bytes)
+            print(f"B6 time bounce (closest-hit) at {n_lanes} lanes (binned),"
+                  f" 40k animated: kernel {k_ms:.4f} ms, query {q_ms:.4f} "
+                  f"ms; bound {b_cc[0]:.4f} ms ({b_cc[1]}) on the CUDA "
+                  f"cores, {b_tc[0]:.4f} ms ({b_tc[1]}) with the tensor "
+                  f"cores ({card})", flush=True)
             # rounds: lists and walk with a capacity of 100 entries
             check_lists(v4, f"40k {wname}", sa40, ray_s, cap=100)
             t_k, p_k = v4.launch(v4.v4_tables(sa40), ray_s, False, cap=100)
@@ -1217,6 +1503,8 @@ def main() -> int:
                                 reps=5)
             del prep
             need, distinct, what = walk.work(row)
+            grp, gname = ((32, "warps") if row == "B6"
+                          else (walk.BLOCK, "blocks"))
             if row == "B5":
                 n_ops = need * walk.BLOCK * 32 * WOOP_OPS + ray_ops
                 n_bytes = (n_lanes * (32 + 8) + distinct * UNIT_REC * 4
@@ -1230,21 +1518,28 @@ def main() -> int:
                 n_bytes = (n_lanes * (32 + (8 if any_hit else 52))
                            + distinct * 32 * 25 * 4 + need * 24)
             else:
-                n_ops = need * walk.BLOCK * 128 * WOOP_OPS + ray_ops
-                n_bytes = (n_lanes * (36 + 8) + distinct * 8 * 768 * 4
-                           + need * (8 + 8 + 4 * 24))
+                n_bytes = b6_n_bytes
+                n_ops = b6_pairs * WOOP_OPS + ray_ops
             times_l[row][form] = (k_ms, plain_ms[row][form],
                                   bound(n_bytes, n_ops))
             b_ms, b_by = times_l[row][form][2]
+            extra = ""
+            if row == "B6":
+                b_cc, b_tc = b6_bounds(b6_pairs, ray_ops, n_bytes)
+                extra = (f"; {b6_share}; tensor-core bound "
+                         f"{b_tc[0]:.4f} ms ({b_tc[1]})")
+                times_l[row][form] = (k_ms, plain_ms[row][form],
+                                      min(b_cc, b_tc))
             print(f"{row} time {form} at {n_lanes} lanes (binned), 40k "
                   f"animated: kernel {k_ms:.4f} ms, its inputs "
                   f"({prepare.__module__.split('.')[-1]}.prepare) "
                   f"{prep_ms:.3f} ms, query {q_ms:.4f} ms, plain "
                   f"{plain_ms[row][form]:.3f} ms; a plain walk needs {need} "
-                  f"{what} over {n_lanes // walk.BLOCK} blocks "
-                  f"({need / (n_lanes // walk.BLOCK):.1f} per block, "
+                  f"{what} over {n_lanes // grp} {gname} "
+                  f"({need / (n_lanes // grp):.1f} per {gname[:-1]}, "
                   f"{distinct} distinct records); "
-                  f"bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+                  f"bound {b_ms:.4f} ms ({b_by}){extra} ({card})",
+                  flush=True)
         del walk, ray_s, t_ref, p_ref
     # what binning saves: the units a closest-hit walk of the bounce
     # wavefront needs per 256-lane block, in the wavefront's own order and
@@ -1330,22 +1625,8 @@ def main() -> int:
     row_of = {"v4": "B2", **{route: row for row, route, _, _ in ALTERNATES}}
     launches_l = {}
     for route, row in row_of.items():
-        if route != "v4":
-            os.environ["MI_STREAM_KERNEL"] = route
-        try:
-            scene = mi.load_dict(animated_mesh_scene(obj40, spp=256))
-            reset_counts()
-            t0 = time.perf_counter()
-            img = mi.render(scene, spp=256, seed=0)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            counts = read_counts()
-            t0 = time.perf_counter()
-            img2 = mi.render(scene, spp=256, seed=0)
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-        finally:
-            os.environ.pop("MI_STREAM_KERNEL", None)
+        img, img2, first_s, warm_s, counts = render_40k(
+            mi, obj40, route, reset_counts, read_counts)
         tag = f"40k render through {row} (MI_STREAM_KERNEL={route})"
         if tuple(img.shape) != (256, 256, 3):
             fail(f"{tag}: image shape {tuple(img.shape)}")
@@ -1487,7 +1768,9 @@ if __name__ == "__main__":
         sys.exit(b2_walk_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--b1-walk":
         sys.exit(b1_walk_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--b6-walk":
+        sys.exit(b6_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
         fail("usage: chip_smoke.py [--b2-walk CHECKOUT | --b1-walk "
-             "CHECKOUT]")
+             "CHECKOUT | --b6-walk CHECKOUT]")
     sys.exit(main())

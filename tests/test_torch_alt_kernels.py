@@ -10,6 +10,8 @@ selected against the JAX package's render. Inputs are made with numpy from
 a seed; each tolerance is stated where it is used. The CUDA kernels run
 only on the card (tests/test_torch_cuda.py)."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as tv4
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
     animated_mesh_scene
 
+from torch_adversarial_rays import adversarial_rays
 from torch_port_helpers import (F32_ULP, assert_t_prim, both_rays,
                                 build_mixed_scene, jax_mesh_render,
                                 shell_rays)
@@ -334,3 +337,196 @@ def test_route_render_matches_jax(monkeypatch, route):
     assert scale > 0.0 and np.isfinite(img).all()
     assert np.allclose(img, ref, rtol=1e-4, atol=1e-4 * scale), \
         np.abs(img - ref).max()
+
+
+# ---------------------------------------------------------------------------
+# (e) B6's design: the tensor-core gate and the exact test behind it
+# ---------------------------------------------------------------------------
+
+N_ADVERSARIAL = 1024
+
+
+@pytest.fixture(scope="module")
+def gate_case(scene, rays):
+    """B6's tables of the mixed scene, the shell rays followed by 1,024
+    adversarial rays (``adversarial_rays``: edges, vertices, grazing,
+    beside the plane, origins ~1e3 away) as ``prepare`` pads them, and per
+    pair of lanes and triangles the plain version's t (``_affine_hit``,
+    the 8-term ordered sums; +inf where the exact test rejects, with no
+    best so far): (tables, x, time, t8)."""
+    sa_t = scene[1]
+    tb = tmxu.mxu_tables(sa_t)
+    adv = adversarial_rays(sa_t, N_ADVERSARIAL, 11, "cpu")
+    cat = lambda a, b: torch.cat([a, b])
+    tr = rays[1]
+    ray = type(tr)(type(tr.o)(*(cat(a, b) for a, b in zip(tr.o, adv.o))),
+                   type(tr.d)(*(cat(a, b) for a, b in zip(tr.d, adv.d))),
+                   cat(tr.time, adv.time), cat(tr.maxt, adv.maxt))
+    x, time, _, _ = tmxu.prepare(tb, ray)
+    assert x.shape[1] == N_RAYS + N_ADVERSARIAL
+    inf = torch.full((x.shape[1], 1), float("inf"))
+    t8 = torch.cat([tmxu._affine_hit(_chunk_w(tb, a, b), _features(tb, ci, x,
+                                                                  time), inf)
+                    for ci, a, b in tb.runs], dim=1)
+    return tb, x, time, t8
+
+
+def _chunk_w(tb, a, b):
+    """The float32 W of chunks a..b-1 as ``_affine_hit`` takes it."""
+    return tb.w[a * 8:b * 8].reshape(b - a, 8, 6, tmxu.T).permute(
+        1, 2, 0, 3).reshape(8, 6, 1, (b - a) * tmxu.T)
+
+
+def _features(tb, ci, x, time):
+    """The eight ray features in transform group ``ci``'s hit space, as
+    (L, 1) columns, with X's row 3 (ones) and row 7 (maxt)."""
+    r = tstream._unit_ray(tb, ci, (x[0], x[1], x[2]), (x[4], x[5], x[6]),
+                          time)
+    return [c[:, None] for c in (*r[:3], x[3], *r[3:], x[7])]
+
+
+def test_mxu_gate_covers_every_exact_hit(gate_case):
+    """(a) The gate (``mxu_gate_reference``, the kernel's radius and reject
+    rule in float32) passes every pair that the exact test accepts with
+    t < maxt, on the shell rays and on the adversarial ones, with no
+    tolerance; it rejects most of the shell rays' pairs (all but 2%; a
+    warp of adversarial rays, with origins 1e3 away among them, has a
+    radius too wide to reject much), and the adversarial rays give the
+    exact test hundreds of pairs to accept. With a best t per lane and
+    chunk (here each chunk's smallest exact t, on the adversarial rays),
+    the gate still passes each chunk's nearest exact hit, and only pairs
+    it passes with no best."""
+    tb, x, time, t8 = gate_case
+    gate = torch.cat([tmxu.mxu_gate_reference(
+        tb, x[:, l0:l0 + 1024], time[l0:l0 + 1024], 0, tb.n_chunks)
+        for l0 in range(0, x.shape[1], 1024)])
+    exact = torch.isfinite(t8)
+    assert int(exact[N_RAYS:].sum()) > 300 and int(exact[:N_RAYS].sum()) > 400
+    assert not bool((exact & ~gate).any()), int((exact & ~gate).sum())
+    assert float(gate[:N_RAYS].float().mean()) < 0.02
+    adv = slice(N_RAYS, None)
+    t_chunk = t8[adv].reshape(N_ADVERSARIAL, tb.n_chunks, tmxu.T)
+    nearest = t_chunk.amin(dim=2)
+    gate_best = tmxu.mxu_gate_reference(tb, x[:, adv], time[adv], 0,
+                                        tb.n_chunks, nearest)
+    first = exact[adv] & (t_chunk == nearest[:, :, None]).reshape(
+        N_ADVERSARIAL, -1)
+    assert int(first.sum()) > 100
+    assert not bool((first & ~gate_best).any())
+    assert not bool((gate_best & ~gate[adv]).any())
+
+
+def test_mxu_gate_radius_covers_any_summation_order(gate_case):
+    """(b) The radius GATE_EPS * S * M (M of the lane itself, not the
+    warp's larger one) bounds |approximate - exact| of every component of
+    every pair, where exact is the plain version's float32 8-term ordered
+    sum of the float32 products and approximate sums the exact products
+    of the TF32-rounded table and features in float32 forward, in
+    reverse and pairwise, and in float64. No tolerance: the bound must
+    hold (the differences are taken in float64); the largest ratio is
+    reported."""
+    tb, x, time, _ = gate_case
+    w = tb.w.reshape(tb.n_chunks, 8, 6, tmxu.T)
+    wt = tmxu._unfragment(tb.frag, tb.n_chunks).reshape(w.shape)
+    s = w.abs().sum(dim=1).double() * tmxu.GATE_EPS     # (n, 6, T)
+    worst = 0.0
+    for (ci, a, b), l0 in itertools.product(tb.runs,
+                                            range(0, x.shape[1], 512)):
+        # 512 lanes at a time: temporaries that stay in the CPU's caches
+        f = _features(tb, ci, x[:, l0:l0 + 512], time[l0:l0 + 512])
+        f[7] = torch.zeros_like(f[7])               # maxt meets zeros
+        ft = [tmxu.tf32_round(c) for c in f]
+        m = (torch.cat(f[:4], dim=1).abs().amax(dim=1, keepdim=True),
+             torch.cat(f[4:7], dim=1).abs().amax(dim=1, keepdim=True))
+        for c in range(6):
+            wc = w[a:b, :, c].permute(1, 0, 2).reshape(8, -1)
+            wtc = wt[a:b, :, c].permute(1, 0, 2).reshape(8, -1)
+            exact = wc[0] * f[0]
+            for k in range(1, 8):
+                exact = exact + wc[k] * f[k]
+            exact = exact.double()
+            p = [wtc[k] * ft[k] for k in range(8)]  # exact in float32
+            fwd, rev = p[0], p[7]
+            for k in range(1, 8):
+                fwd, rev = fwd + p[k], rev + p[7 - k]
+            pair = ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5])
+                                                      + (p[6] + p[7]))
+            f64 = p[0].double()
+            for k in range(1, 8):
+                f64 = f64 + p[k]
+            err = (f64 - exact).abs()
+            for approx in (fwd, rev, pair):
+                err = torch.maximum(err, (approx.double() - exact).abs())
+            rad = s[a:b, c].reshape(-1) * m[c // 3].double()
+            assert bool((err <= rad).all()), (ci, c)
+            worst = max(worst, float((err / rad.clamp(min=1e-300)).max()))
+    assert 0.0 < worst <= 1.0
+    print(f"largest |approximate - exact| / radius: {worst:.3g}")
+
+
+def test_mxu_zero_skipped_sums_match_ordered_sums(gate_case):
+    """(c) The exact test as the kernel computes it, from the float32
+    Woop rows with W's structural zeros skipped (o' = ((w0 ox + w1 oy) +
+    w2 oz) + w3, d' = (w4 dx + w5 dy) + w6 dz), gives the same hit
+    decision on every pair and bitwise the same t on every hit as the
+    plain version's 8-term ordered sums: no tolerance."""
+    tb, x, time, t8 = gate_case
+    rec = tb.rec.reshape(-1, 3, 4)
+    out = []
+    for ci, a, b in tb.runs:
+        f = _features(tb, ci, x, time)
+        rw = rec[a * tmxu.T:b * tmxu.T]
+        o = [((rw[:, i, 0] * f[0] + rw[:, i, 1] * f[1]) + rw[:, i, 2] * f[2])
+             + rw[:, i, 3] for i in range(3)]
+        d = [(rw[:, i, 0] * f[4] + rw[:, i, 1] * f[5]) + rw[:, i, 2] * f[6]
+             for i in range(3)]
+        dz_ok = d[2].abs() > 1e-30
+        t = -o[2] / torch.where(dz_ok, d[2], 1.0)
+        u = o[0] + t * d[0]
+        v = o[1] + t * d[1]
+        hit = (dz_ok & (torch.minimum(u, v) >= 0.0) & (u + v <= 1.0)
+               & (t > 0.0) & (t < f[7]))
+        out.append(torch.where(hit, t, float("inf")))
+    t_skip = torch.cat(out, dim=1)
+    assert int(torch.isfinite(t8).sum()) > 700
+    assert torch.equal(t_skip.view(torch.int32), t8.view(torch.int32))
+
+
+def test_mxu_fragment_table_is_tf32_woop_table(scene):
+    """(d) The fragment-ordered table, read as ``mma.m16n8k8``'s A
+    fragments are defined (lane 4g + c holds A[g][c], A[g+8][c],
+    A[g][c+4], A[g+8][c+4]; tile m of group q has components 2m and
+    2m + 1 of triangle 8q + g in rows g and g + 8), equals ``_woop_table``
+    rounded to TF32 (to nearest, ties away from zero), exactly; and the
+    radius table holds GATE_EPS times each component's sum of |w|, with
+    -1 for o'z and d'z of the zero rows."""
+    sa_j, sa_t = scene
+    seg, _, n_units = _layout(sa_j)
+    n_chunks = n_units // tmxu.SUBS
+    tb = tmxu.mxu_tables(sa_t)
+    w = tmxu._woop_table(sa_t, seg, n_chunks).numpy().reshape(
+        n_chunks, 8, 6, tmxu.T)
+    frag = tb.frag.numpy().reshape(n_chunks, tmxu.T // 8, 3, 32, 4)
+    a = np.zeros((n_chunks, tmxu.T // 8, 3, 16, 8), np.float32)
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        for i, (row, col) in enumerate(((g, c), (g + 8, c), (g, c + 4),
+                                        (g + 8, c + 4))):
+            a[:, :, :, row, col] = frag[:, :, :, lane, i]
+    # a[n, q, m, half * 8 + g, k] = W[n, k, 2m + half, 8q + g]
+    back = a.reshape(n_chunks, tmxu.T // 8, 3, 2, 8, 8).transpose(
+        0, 5, 2, 3, 1, 4).reshape(w.shape)
+    bits = w.view(np.int32).astype(np.int64)
+    want = (((bits + 0x1000) & ~0x1FFF) & 0xFFFFFFFF).astype(
+        np.uint32).view(np.float32)
+    assert np.array_equal(back, want)
+    assert np.array_equal(tmxu.tf32_round(torch.from_numpy(w)).numpy(), want)
+    rel = np.abs(want - w) / np.maximum(np.abs(w), 1e-38)
+    assert rel.max() <= 2.0 ** -11 and (want != w).any()
+    s = tb.rad.numpy().reshape(n_chunks, tmxu.T, 8)
+    ref = np.abs(w).sum(axis=1).transpose(0, 2, 1) * tmxu.GATE_EPS
+    dead = ref[:, :, 5] == 0
+    assert 200 < dead.sum()
+    ref[dead, 2] = ref[dead, 5] = -1.0
+    assert np.allclose(s[:, :, :6], ref, rtol=1e-6, atol=0.0)
+    assert not s[:, :, 6:].any()

@@ -31,6 +31,8 @@ from mitsuba3dopplertof_tpu_torch.render.types import Ray
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
     animated_mesh_scene, static_mesh_scene, write_uv_sphere_obj)
 
+from torch_adversarial_rays import adversarial_rays
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
 
@@ -375,3 +377,37 @@ def test_alternate_route_render_on_card_matches_cpu(cuda, tmp_path,
     close = np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale)
     assert close.mean() >= 0.99
     assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())
+
+
+@pytest.mark.parametrize("animated", [True, False])
+def test_mxu_kernel_matches_plain_on_adversarial_rays(cuda, tmp_path,
+                                                      animated):
+    """B6 (its tensor-core gate ahead of the exact test) against its plain
+    version on 65,536 ``adversarial_rays`` of 3,072 triangles: the same
+    lanes hit in both forms (any-hit occlusion exact), t bit for bit on
+    every hit lane, and a different prim only where t ties bit for bit
+    (rays through shared edges and vertices tie often; the kernel keeps
+    the first chunk it visits among equal t, the plain version the lowest
+    slot). The gate's plain version (``mxu_gate_reference``) passes some
+    of these rays' pairs to the exact test, not all."""
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    ray = adversarial_rays(sa, 1 << 16, 8, cuda)
+    tables = mxu.mxu_tables(sa)
+    prep = mxu.prepare(tables, ray)
+    mxu.reset_launch_counts()
+    t_k, p_k = mxu.launch(tables, prep, False)
+    _, p_any = mxu.launch(tables, prep, True)
+    torch.cuda.synchronize()
+    assert mxu.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    n = 1 << 16
+    t_k, p_k, p_any = t_k[:n], p_k[:n], p_any[:n]
+    t_r, p_r = mxu.intersect_mxu_reference(sa, ray)
+    hit = p_r >= 0
+    assert int(hit.sum()) > 5000
+    assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
+    assert torch.equal(t_k[hit], t_r[hit])
+    differ = p_k != p_r
+    assert torch.equal(t_k[differ], t_r[differ])
+    gate = mxu.mxu_gate_reference(tables, prep[0], prep[1], 0,
+                                  tables.n_chunks)
+    assert 0 < int(gate.sum()) < gate.numel()

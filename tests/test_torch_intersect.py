@@ -212,11 +212,13 @@ def test_plain_matches_pallas_kernel():
     both sides, held against the kernel's closest hit here and against
     the oracle in ``test_plain_matches_jax_oracle``; the other scenes are
     held against the oracle only, and the JAX package's own tests hold the
-    oracle against the Pallas kernel on them)."""
+    oracle against the Pallas kernel on them). The wrapper runs under one
+    ``jax.jit``, as the package's render runs it: with a cold compile
+    cache that compiles faster than the wrapper's ops one by one."""
     sa_j, rays = _load("canonical")
     jr, tr = _both_rays(*rays)
     sa_t = _port_tables(sa_j)
-    hp = jik.intersect_pallas(sa_j, jr)
+    hp = jax.jit(lambda r: jik.intersect_pallas(sa_j, r))(jr)
     _assert_hits_match(tik.intersect_reference(sa_t, tr), hp,
                        "canonical vs intersect_pallas", sphere_uv=False)
     assert (tik.ray_test_reference(sa_t, tr).numpy()

@@ -56,6 +56,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's oracle under one jit: compiled once for the mixed scene
 # and 2,048 rays, not op by op
 _oracle = jax.jit(_hit_reference)
+# the JAX package's unit visit lists under one jit (eagerly each of their
+# ops compiles on its own, for each ray count); the slab arithmetic has no
+# product that XLA could fuse into a sum, so the keys are the same bits
+_visit_order_j = jax.jit(jv3._unit_visit_order, static_argnums=(1, 2, 4))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -194,8 +198,8 @@ def test_chunk_layout_woop_and_visit_order_match_jax(scene):
                   d[:, 1], d[:, 2], maxt]).astype(np.float32)
     box = np.array(sa_j.chunk_aabb)
     c_pad = -(-n_units // 128) * 128
-    order_j, tlo_j = jv3._unit_visit_order(jnp.asarray(box), n_units,
-                                           c_pad, jnp.asarray(x), 256)
+    order_j, tlo_j = _visit_order_j(jnp.asarray(box), n_units, c_pad,
+                                    jnp.asarray(x), 256)
     order_t, tlo_t = tv3._unit_visit_order(torch.from_numpy(box), n_units,
                                            torch.from_numpy(x), 256)
     nb = 2048 // 256
@@ -237,8 +241,8 @@ def test_v4_tables_and_lists_match_jax(scene):
     x = jnp.stack(list(oj) + [jnp.ones((n_pad,), jnp.float32)] + list(dj)
                   + [maxtp])
     c_pad = -(-n_units // 128) * 128
-    order_j, tlo_j = jv3._unit_visit_order(jnp.asarray(box), n_units, c_pad,
-                                           x, tv4.BLOCK)
+    order_j, tlo_j = _visit_order_j(jnp.asarray(box), n_units, c_pad, x,
+                                    tv4.BLOCK)
     nb = n_pad // tv4.BLOCK
     order_j = np.asarray(order_j).reshape(-1, c_pad)[:nb, :n_units]
     tlo_j = np.asarray(tlo_j).reshape(-1, c_pad)[:nb, :n_units]
