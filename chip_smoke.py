@@ -4,6 +4,7 @@
     python3 chip_smoke.py --b2-walk CHECKOUT
     python3 chip_smoke.py --b1-walk CHECKOUT
     python3 chip_smoke.py --b6-walk CHECKOUT
+    python3 chip_smoke.py --b3-walk CHECKOUT
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
@@ -13,7 +14,9 @@ the package of another checkout, such as the parent commit unpacked with
 ``--b1-walk CHECKOUT`` likewise times that checkout's B1 on phase 3's
 four canonical wavefronts, and ``--b6-walk CHECKOUT`` its B6 on the 40k
 scene's binned camera, bounce and shadow wavefronts (kernel and query)
-and its 40k render through MI_STREAM_KERNEL=mxu. Every phase raises on
+and its 40k render through MI_STREAM_KERNEL=mxu; ``--b3-walk CHECKOUT``
+its B3 on those wavefronts and on those of the lower strip (phase 4a)
+and its 40k render through MI_STREAM_KERNEL=v1. Every phase raises on
 failure:
 
   1. the card: name and power limit (nvidia-smi);
@@ -54,7 +57,15 @@ failure:
      32-lane warp, and the share of those pairs that its gate passes to
      the exact test, by the gate's plain version (mxu_gate_reference) on
      the first 65,536 lanes of each wavefront, with each lane's best t at
-     the chunk's start;
+     the chunk's start; for B3 also its bounce wavefront, the chunks its
+     warps' walks test per 32-lane warp, and a walk with lists of 16
+     groups a round (rounds) against the plain version;
+  4a. the lower strip of the 40k frame (pixel rows 192-207: camera rays
+     that pass under the sphere's lower half to the floor, the render's
+     longest walks), its camera, bounce and shadow wavefronts, binned: B3
+     against its plain version (t bitwise, prim and the record equal,
+     occlusion exact), its times and bound; B2's times and walk there as
+     a measurement;
   4b. B2 on a 65,536-lane slice of the 100k animated scene's camera
      wavefront and its bounce and shadow rays: the in-kernel lists (one
      round and rounds of 1,024) and the walk against the plain version;
@@ -82,10 +93,11 @@ float32 rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s outside
 the tensor cores). For B2-B6 the operations count the units, quarters or
 chunks that a walk of the timed wavefront's visit lists must test, computed
 in PyTorch from the lists and the plain versions' results (``WalkWork``),
-not from counters in the kernels: per 256-lane block for B3-B5, per 32-lane
-warp for B2 and B6 (whose warps stop on their own bounds; B6's each with
-its own slab test of a chunk's four boxes), plus B2's lists (a slab
-test per block and unit, n log2 n compares to sort). B1's count the slots,
+not from counters in the kernels: per 256-lane block for B4 and B5, per
+32-lane warp for B2, B3 and B6 (whose warps stop on their own bounds; B6's
+and B3's each with its own slab test of a chunk's boxes over its live
+lanes), plus B2's and B3's lists (a slab test per block and unit or
+group, n log2 n compares to sort) and B3's chunk gates. B1's count the slots,
 instances and boxes that each warp's gate makes it test (``b1_work``, from
 the gate's plain version ``b1_warp_masks``); the dense count (every lane
 tests every slot) is printed beside it. B6 has a second bound, for its
@@ -157,6 +169,12 @@ B1_SLAB_OPS = 91
 SLAB_OPS = 92
 EXIT_OPS = 40
 WAVEFRONT = 1 << 20             # lanes of one strip pass
+# first pixel rows of the two strips of the 40k frame (256 x 256, 256 lanes
+# a pixel: a strip pass is 16 rows) whose wavefronts are timed: the middle
+# strip, and the lower one, whose camera rays pass under the sphere's
+# lower half to the floor (the render's longest walks)
+MIDDLE_ROW = 120
+LOWER_ROW = 192
 
 
 def fail(msg: str):
@@ -325,13 +343,28 @@ def walk_line(tag, wname, any_hit, times, dist, card):
             f"{100 * ws:.1f}% ({card})")
 
 
-def checkout_40k(root: str, module: str):
+def strip_waves(sc, sa, row0, seed):
+    """The camera wavefront of one strip pass of the 40k (or 50k) scene,
+    from pixel row ``row0`` (256 lanes a pixel, 1.5 ms shutter where the
+    scene moves), and its bounce and shadow rays: ((name, any_hit, ray),
+    ...) for camera (closest-hit), bounce (closest-hit) and shadow
+    (any-hit), and the number of camera hits."""
+    W = sc.sensor.film.crop_size[0]
+    cam = camera_wavefront(sc, WAVEFRONT, row0 * W * 256, 256,
+                           0.0015 if sa.anim_ranges else 0.0, seed=seed)
+    shadow, bounce, n_valid = secondary_wavefronts(sa, cam, seed=seed + 1)
+    return (("camera", False, cam), ("bounce", False, bounce),
+            ("shadow", True, shadow)), n_valid
+
+
+def checkout_40k(root: str, module: str, lower: bool = False):
     """The package of the checkout at ``root`` (another commit, to compare
     with this one on one card in one call), its kernel module ``module``
     of ``ops`` built and loaded, and the 40k animated scene's camera,
-    bounce and shadow wavefronts as the full run builds them. Returns
-    (card, mi, the module, OBJ path, SceneArrays, ((name, any_hit, ray),
-    ...))."""
+    bounce and shadow wavefronts of the middle strip as the full run
+    builds them, with ``lower`` also those of the lower strip (names
+    prefixed "lower "). Returns (card, mi, the module, OBJ path,
+    SceneArrays, ((name, any_hit, ray), ...))."""
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -359,14 +392,11 @@ def checkout_40k(root: str, module: str):
     write_uv_sphere_obj(obj, nu, nv)
     sc = mi.load_dict(animated_mesh_scene(obj, spp=256))
     sa = sc.compile()
-    W, H = sc.sensor.film.crop_size
-    cam = camera_wavefront(sc, WAVEFRONT, (H // 2 - WAVEFRONT // (W * 256)
-                                           // 2) * W * 256, 256, 0.0015,
-                           seed=1)
-    shadow, bounce, _ = secondary_wavefronts(sa, cam, seed=2)
-    return card, mi, mod, obj, sa, (("camera", False, cam),
-                                    ("bounce", False, bounce),
-                                    ("shadow", True, shadow))
+    waves = strip_waves(sc, sa, MIDDLE_ROW, seed=1)[0]
+    if lower:
+        waves += tuple((f"lower {name}", any_hit, ray) for name, any_hit, ray
+                       in strip_waves(sc, sa, LOWER_ROW, seed=5)[0])
+    return card, mi, mod, obj, sa, waves
 
 
 def b2_walk_main(root: str) -> int:
@@ -395,6 +425,49 @@ def b6_times(mxu, sa, ray_s, any_hit):
     q_ms = cuda_time_ms(lambda: mxu.intersect_mxu(sa, ray_s, any_hit=any_hit),
                         reps=5)
     return k_ms, q_ms
+
+
+def b3_times(stream, sa, ray_s, any_hit):
+    """(kernel, query) ms of B3 on one binned wavefront: one launch over
+    ``prepare``'s inputs (the padded columns), and the query as the route
+    calls it."""
+    tables = stream.stream_tables(sa)
+    prep = stream.prepare(tables, ray_s)
+    k_ms = cuda_time_ms(lambda: stream.launch(tables, prep, any_hit))
+    q_ms = cuda_time_ms(lambda: stream.intersect_stream(
+        sa, ray_s, any_hit=any_hit), reps=5)
+    return k_ms, q_ms
+
+
+def b3_bound(walk, ray_ops):
+    """B3's bound on a walk's wavefront (``WalkWork.b3_warps``): the
+    Möller tests of the chunks its warps' walks test, the block lists (a
+    slab test per block and group, n log2 n compares to sort) and the
+    warps' chunk gates (a slab test per chunk of each entry they reach)
+    over the float32 rate; the rays, the results, the geometry of each
+    chunk tested once (48 bytes a triangle) and the boxes over the memory
+    rate. Returns ((bound_ms, bound_by), a summary of the walk)."""
+    import torch
+    per_warp, tested, _, reach, length = walk.b3_warps()
+    tb = walk.tb3
+    n_groups = tb.n_chunks // 8
+    m = length.double()
+    sort_ops = float((m * torch.log2(torch.clamp(m, min=2.0))).sum())
+    need = int(per_warp.sum())
+    distinct = int(tested.any(dim=0).sum())
+    n_ops = (need * 32 * 32 * MOLLER_OPS + ray_ops
+             + walk.nb * n_groups * SLAB_OPS + sort_ops
+             + int(reach.sum()) * 8 * SLAB_OPS)
+    n_bytes = (walk.n * (32 + (8 if walk.any_hit else 52))
+               + distinct * 32 * 48 + (n_groups + tb.n_chunks) * 24)
+    pw = per_warp.double()
+    summary = (f"a plain walk tests {need} chunks over {walk.n // 32} warps "
+               f"(per warp mean {float(pw.mean()):.2f}, p99 "
+               f"{float(torch.quantile(pw, 0.99)):.0f}, max "
+               f"{int(per_warp.max())}; {distinct} distinct), reaching "
+               f"{float(reach.double().mean()):.2f} of a mean "
+               f"{float(m.mean()):.2f} list entries per warp")
+    return bound(n_bytes, n_ops), summary
 
 
 def render_40k(mi, obj, route, reset, read):
@@ -445,6 +518,35 @@ def b6_walk_main(root: str) -> int:
     if not bool(torch.isfinite(img).all()) or min(counts.values()) <= 0:
         fail(f"{tag}: the 40k render did not run through B6")
     print(f"{tag} render 40k animated 256x256x256 (MI_STREAM_KERNEL=mxu): "
+          f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{256 ** 3 / warm_s / 1e6:.3f} Msamples/s; launches "
+          f"{counts} ({card})", flush=True)
+    return 0
+
+
+def b3_walk_main(root: str) -> int:
+    """``--b3-walk DIR``: B3's times alone, on the package of the checkout
+    at DIR: kernel and query on the 40k animated scene's binned camera,
+    bounce and shadow wavefronts of the middle and the lower strip, then
+    the 40k render through MI_STREAM_KERNEL=v1."""
+    import torch
+    card, mi, stream, obj, sa, waves = checkout_40k(root, "intersect_stream",
+                                                    lower=True)
+    tag = f"B3 at {os.path.basename(os.path.abspath(root).rstrip(os.sep))}"
+    for wname, any_hit, ray in waves:
+        ray_s, _ = sort_wavefront(sa, ray)
+        k_ms, q_ms = b3_times(stream, sa, ray_s, any_hit)
+        print(f"{tag} {wname} wavefront "
+              f"({'any-hit' if any_hit else 'closest-hit'}, binned, "
+              f"{ray_s.o.x.shape[0]} lanes, 40k animated): kernel "
+              f"{k_ms:.4f} ms, query {q_ms:.4f} ms ({card})", flush=True)
+        del ray_s
+    img, _, first_s, warm_s, counts = render_40k(
+        mi, obj, "v1", stream.reset_launch_counts,
+        lambda: dict(stream.LAUNCHES_BY_FORM))
+    if not bool(torch.isfinite(img).all()) or min(counts.values()) <= 0:
+        fail(f"{tag}: the 40k render did not run through B3")
+    print(f"{tag} render 40k animated 256x256x256 (MI_STREAM_KERNEL=v1): "
           f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
           f"{256 ** 3 / warm_s / 1e6:.3f} Msamples/s; launches "
           f"{counts} ({card})", flush=True)
@@ -752,30 +854,29 @@ class WalkWork:
     plain version's result, the same whatever implements the walk.
 
     Closest-hit: a walk over a sorted list tests exactly the entries whose
-    t_lo is at most the block's final bound (the warp's, for B2 and B6,
-    whose warps walk alone; the bound never grows, and a hit found in a
+    t_lo is at most the block's final bound (the warp's, for B2, B3 and
+    B6, whose warps walk alone; the bound never grows, and a hit found in a
     unit is no nearer than the unit's t_lo), so the final bound from the
-    plain version's t decides; B3, which has no order, must
-    at least test the chunks that pass under its final t_hi. Any-hit: the
-    bound before rank v is the largest maxt among the lanes that no
-    earlier unit occludes, from each lane's first rank with a hit; the hit
-    sets come from one dense pass of B2's plain version (every kernel
-    agrees with it on every lane's occlusion in the parity phase)."""
+    plain version's t decides. Any-hit: the bound before rank v is the
+    largest maxt among the lanes that no earlier unit occludes, from each
+    lane's first rank with a hit; the hit sets come from one dense pass of
+    B2's plain version (every kernel agrees with it on every lane's
+    occlusion in the parity phase), B3's from its own Möller test
+    (``stream_chunk_hits``)."""
 
     BLOCK = 256
     BIG = 3.0e38
     CAP = 1.0e37
 
-    def __init__(self, sa, ray_s, t_ref, any_hit):
+    def __init__(self, sa, ray_s, t_ref, any_hit, t_b3=None):
         import torch
         from mitsuba3dopplertof_tpu_torch.ops import intersect_mxu as mxu
+        from mitsuba3dopplertof_tpu_torch.ops import intersect_stream as st
         from mitsuba3dopplertof_tpu_torch.ops import intersect_v2 as v2
         from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
-        from mitsuba3dopplertof_tpu_torch.ops.intersect_v3 import \
-            _slab_visit_order
         self.torch = torch
         self.any_hit = any_hit
-        self._b2 = self._b6 = None
+        self._b2 = self._b3 = self._b6 = None
         n = ray_s.o.x.shape[0]
         if n % self.BLOCK:
             raise ValueError("WalkWork: whole blocks only")
@@ -790,22 +891,18 @@ class WalkWork:
         x, _, self.order128r, self.tlo128r = mxu.prepare(tb6, ray_s)
         self.sub6 = tb6.sub
         self.x, self.box, self.maxtp, self.t_ref = x, tb4.box, maxtp, t_ref
-        # unit keys without the scene-box clamp (B3's gate)
-        o32r, t32r = _slab_visit_order(tb4.box[:, :3], tb4.box[:, 3:], x,
-                                       self.BLOCK)
-        self.key32r = self._unsort(o32r, t32r)
-        self.mt_blk = torch.clamp(self._blockmax(x[7]), max=self.BIG)
+        self.st, self.tb3 = st, st.stream_tables(sa)
+        self.prep3 = st.prepare(self.tb3, ray_s)
+        self.t_b3 = t_ref if t_b3 is None else t_b3
         if any_hit:
             hits = torch.zeros((n, tb4.n_units), dtype=torch.bool,
                                device=maxtp.device)
             v4.intersect_v4_reference(sa, ray_s, unit_hits=hits)
             self.hits = hits
         else:
-            # the ordered walks' final bound, and B3's final t_hi
+            # the ordered walks' final bound
             self.bound = torch.clamp(self._blockmax(
                 torch.minimum(t_ref, maxtp)), max=self.CAP)
-            self.t_hi = torch.minimum(self.mt_blk, torch.clamp(
-                self._blockmax(t_ref), max=self.BIG))
 
     def _blockmax(self, v):
         return v.reshape(self.nb, self.BLOCK).amax(dim=1)
@@ -815,9 +912,11 @@ class WalkWork:
         out.scatter_(1, order.long(), key)
         return out
 
-    def _first_rank(self, order, per_chunk):
+    def _first_rank(self, order, per_chunk, hits=None):
         """Per lane the first rank of ``order`` with a hit (its length:
-        none). ``per_chunk``: the list is over 128-triangle chunks."""
+        none). ``per_chunk``: the list is over groups of units (B4's and
+        B6's 128-triangle chunks, B3's groups). ``hits``: (lanes, units)
+        hit sets in place of B2's."""
         torch = self.torch
         n_list = order.shape[1]
         rank = torch.empty_like(order)
@@ -827,31 +926,28 @@ class WalkWork:
         step = 64
         for b0 in range(0, self.nb, step):
             sl = slice(b0 * self.BLOCK, (b0 + step) * self.BLOCK)
-            h = self.hits[sl]
+            h = (self.hits if hits is None else hits)[sl]
             if per_chunk:
                 h = h.reshape(h.shape[0], n_list, -1).any(dim=2)
             r = rank[b0:b0 + step].repeat_interleave(self.BLOCK, dim=0)
             out[sl] = torch.where(h, r, n_list).amin(dim=1)
         return out
 
-    def far_ends(self, order, per_chunk, block_maxt):
-        """(n_blocks, n_list) far end of the gate before each rank.
-        ``block_maxt``: B3 bounds a block by its largest maxt until
-        every lane is occluded; B2, B5 and B4 by the unoccluded lanes'
-        own (clamped) maxt."""
+    def far_ends(self, order, per_chunk):
+        """(n_blocks, n_list) far end of the gate before each rank: the
+        unoccluded lanes' own (clamped) maxt (B5, B4)."""
         torch = self.torch
         n_list = order.shape[1]
         if not self.any_hit:
-            g = self.t_hi if block_maxt else self.bound
-            return g[:, None].expand(self.nb, n_list)
+            return self.bound[:, None].expand(self.nb, n_list)
         first = self._first_rank(order, per_chunk)
-        m = (self.mt_blk.repeat_interleave(self.BLOCK) if block_maxt
-             else self.maxtp)
-        a = torch.full((self.nb, n_list + 1), -self.BIG, device=m.device)
+        a = torch.full((self.nb, n_list + 1), -self.BIG,
+                       device=self.maxtp.device)
         a.scatter_reduce_(1, first.reshape(self.nb, self.BLOCK),
-                          m.reshape(self.nb, self.BLOCK), reduce="amax")
-        g = a.flip(1).cummax(dim=1).values.flip(1)[:, :n_list]
-        return g if block_maxt else torch.clamp(g, max=self.CAP)
+                          self.maxtp.reshape(self.nb, self.BLOCK),
+                          reduce="amax")
+        return torch.clamp(a.flip(1).cummax(dim=1).values.flip(1)
+                           [:, :n_list], max=self.CAP)
 
     def _prefix(self, tlo, g):
         """Entries a sorted walk reaches: t_lo within the far end, up to
@@ -993,6 +1089,75 @@ class WalkWork:
         per_block = reach.sum(dim=1).reshape(self.nb, k).amax(dim=1)
         return tested.sum(dim=1), tested, ow, per_block
 
+    def b3_warps(self):
+        if self._b3 is None:
+            self._b3 = self._b3_warps()
+        return self._b3
+
+    def _b3_warps(self):
+        """The chunks csrc/intersect_stream.cu's walk must test per 32-lane
+        warp: the entries of its block's group list (the groups whose boxes
+        the block's live rays can enter within their largest maxt, by entry
+        distance, ties by group) up to the first whose t_lo exceeds the
+        warp's far end, then the chunks of those entries whose boxes the
+        warp's live rays can enter within it. Far ends: closest-hit the
+        largest over the warp's live lanes of min(final t, maxt) (``t_b3``,
+        B3's plain t, or else ``t_ref``), any-hit the largest maxt of its
+        live lanes that no earlier entry occludes (B3's own hit sets),
+        capped at 3e38 (-3e38 where none). The slab tests are the
+        kernel's (``_slab_lohi`` of the live lanes, inverted boxes never
+        entered). Returns (chunks per warp, (warps, n_chunks)
+        tested, (warps, n_groups) far end before each rank, (warps,)
+        entries each warp reaches, (blocks,) entries of each block's
+        list)."""
+        torch = self.torch
+        tb = self.tb3
+        wl = 32
+        k = self.BLOCK // wl
+        nw = self.n // wl
+        n_groups = tb.n_chunks // 8
+        maxt = self.x[7]
+        live = maxt > 0.0
+        lo_b, hi_b = self._slab_lohi(self.BLOCK, tb.grp, live_only=True)
+        far_b = torch.where(live, maxt, -self.BIG).reshape(
+            self.nb, self.BLOCK).amax(dim=1)
+        far_b = torch.where(far_b > 0.0, torch.clamp(far_b, max=self.BIG),
+                            -self.BIG)[:, None]
+        ok = (lo_b <= torch.minimum(hi_b, far_b)) & (tb.grp[:, 0]
+                                                     <= tb.grp[:, 3])
+        key = torch.where(ok, lo_b, self.BIG)
+        del lo_b, hi_b, ok
+        tlo, order = key.sort(dim=1, stable=True)
+        if self.any_hit:
+            hits = self.st.stream_chunk_hits(tb, self.prep3)
+            first = self._first_rank(order.to(torch.int32), True, hits)
+            del hits
+            a = torch.full((nw, n_groups + 1), -self.BIG, device=maxt.device)
+            a.scatter_reduce_(1, first.reshape(nw, wl), torch.where(
+                live, maxt, -self.BIG).reshape(nw, wl), reduce="amax")
+            g = torch.clamp(a.flip(1).cummax(dim=1).values.flip(1)
+                            [:, :n_groups], max=self.BIG)
+        else:
+            g = torch.clamp(torch.where(
+                live, torch.minimum(self.t_b3, maxt), -self.BIG).reshape(
+                    nw, wl).amax(dim=1), max=self.BIG)[:, None].expand(
+                        nw, n_groups)
+        reach = self._prefix(tlo.repeat_interleave(k, dim=0), g)
+        lo_w, hi_w = self._slab_lohi(wl, tb.aabb, live_only=True)
+        idx = (order.repeat_interleave(k, dim=0)[:, :, None] * 8
+               + torch.arange(8, device=maxt.device)).reshape(nw, -1)
+        clo = lo_w.gather(1, idx).reshape(nw, n_groups, 8)
+        chi = hi_w.gather(1, idx).reshape(nw, n_groups, 8)
+        del lo_w, hi_w
+        run = (reach[:, :, None] & (clo <= torch.minimum(chi, g[:, :, None]))
+               & (tb.aabb[:, 0] <= tb.aabb[:, 3])[idx].reshape(nw, n_groups,
+                                                               8))
+        tested = torch.zeros((nw, tb.n_chunks), dtype=torch.bool,
+                             device=maxt.device).scatter_(
+                                 1, idx, run.reshape(nw, -1))
+        return (run.sum(dim=(1, 2)), tested, g, reach.sum(dim=1),
+                (tlo < self.BIG).sum(dim=1))
+
     def b2_work(self):
         """(units tested over all warps, distinct units, operations of the
         lists: a slab test per block and unit, and n log2 n compares to
@@ -1013,7 +1178,7 @@ class WalkWork:
         p99, max and the share of all tested units that fall in the
         slowest 1% of blocks or warps."""
         torch = self.torch
-        g = self.far_ends(self.order32, False, False)
+        g = self.far_ends(self.order32, False)
         per_block = self._prefix(self.tlo32, g).sum(dim=1).double()
         per_warp = self.b2_warps()[0].double()
         out = []
@@ -1030,13 +1195,13 @@ class WalkWork:
         an entry) for kernel ``row`` (B2's: ``b2_work``)."""
         torch = self.torch
         if row == "B5":
-            g = self.far_ends(self.order32, False, False)
+            g = self.far_ends(self.order32, False)
             vis = self._prefix(self.tlo32, g)
             return (int(vis.sum()),
                     self._distinct(self.order32, vis, self.n_units),
                     "units")
         if row == "B4":
-            g = self.far_ends(self.order128, True, False)
+            g = self.far_ends(self.order128, True)
             vis = self._prefix(self.tlo128, g)
             q = self._quarters(self.order128, self.key32, g) \
                 & vis[:, :, None]
@@ -1049,13 +1214,10 @@ class WalkWork:
                                device=tested.device)
             seen[ow[tested]] = True
             return int(per_warp.sum()), int(seen.sum()), "chunks"
-        if row == "B3":                 # table order, no list
-            ident = torch.arange(self.n_units, dtype=torch.int32,
-                                 device=self.key32r.device).expand(
-                                     self.nb, self.n_units).contiguous()
-            g = self.far_ends(ident, False, True)
-            vis = (self.key32r <= g) & (self.key32r < self.BIG)
-            return (int(vis.sum()), int(vis.any(dim=0).sum()), "chunks")
+        if row == "B3":
+            per_warp, tested = self.b3_warps()[:2]
+            return (int(per_warp.sum()), int(tested.any(dim=0).sum()),
+                    "chunks")
         raise KeyError(row)
 
 
@@ -1312,6 +1474,19 @@ def main() -> int:
         flat = nx * nx + ny * ny + nz * nz <= 1e-32
         return (p_r >= 0) & flat[torch.clamp(p_r, min=0).long()]
 
+    def check_record(tag, out, ref, skip):
+        """B3's hit record equal to the plain version's on every field,
+        where the winning slot is equal (every hit lane, but the ``skip``
+        lanes)."""
+        same = (out[1] == ref[1]) & ~skip
+        for f, a, b in zip(ik.HitRecord._fields, out, ref):
+            n_bad = int((a[same] != b[same]).sum())
+            if n_bad:
+                fail(f"{tag}: {f} differs from the plain version on "
+                     f"{n_bad} lanes")
+        print(f"{tag}: all 13 fields equal on {int(same.sum())} lanes",
+              flush=True)
+
     def check_t_prim(tag, t_k, p_k, t_r, p_r, any_hit, errs_k, skip=None):
         """Occlusion exact on every lane; closest-hit: t bitwise equal on
         hit lanes, prim different only at ties in t. ``skip``: lanes left
@@ -1352,14 +1527,10 @@ def main() -> int:
     plain_ms = {row: {} for row in rows}
     b2_rays = {}
     refs40 = {}
+    refs40_b3 = {}
     for label, (obj, sc, sab) in big.items():
-        shutter = 0.0015 if sab.anim_ranges else 0.0
-        W, H = sc.sensor.film.crop_size
-        spp = 256
-        cam = camera_wavefront(sc, WAVEFRONT, (H // 2 - WAVEFRONT // (W * spp)
-                                               // 2) * W * spp, spp,
-                               shutter, seed=1)
-        shadow, bounce, n_valid = secondary_wavefronts(sab, cam, seed=2)
+        waves, n_valid = strip_waves(sc, sab, MIDDLE_ROW, seed=1)
+        (_, _, cam), (_, _, bounce), (_, _, shadow) = waves
         if n_valid < WAVEFRONT // 4:
             fail(f"{label}: only {n_valid} camera hits")
         b2_rays[label] = (cam, shadow, bounce)
@@ -1411,15 +1582,9 @@ def main() -> int:
                     check_t_prim(tag, out[0], out[1], ref[0], ref[1],
                                  any_hit, errs_l[row], skip)
                     if row == "B3" and not any_hit:
-                        # the hit record, where the winning slot is equal
-                        same = (out[1] == ref[1]) & ~skip
-                        for f, a, b in zip(ik.HitRecord._fields, out, ref):
-                            n_bad = int((a[same] != b[same]).sum())
-                            if n_bad:
-                                fail(f"{tag}: {f} differs from the plain "
-                                     f"version on {n_bad} lanes")
-                        print(f"{tag}: all 13 fields equal on "
-                              f"{int(same.sum())} lanes", flush=True)
+                        check_record(tag, out, ref, skip)
+                if row == "B3" and label == "40k animated":
+                    refs40_b3[wname] = (ref.t, ref.prim)
                 del out, ref
 
     # times at the main path's shapes: the binned camera wavefront of the
@@ -1443,7 +1608,9 @@ def main() -> int:
         ray_s, pos = sort_wavefront(sa40, ray)
         t_ref, p_ref = (torch.empty_like(r) for r in refs40[wname])
         t_ref[pos], p_ref[pos] = refs40[wname]
-        walk = WalkWork(sa40, ray_s, t_ref, any_hit)
+        t_b3, p_b3 = (torch.empty_like(r) for r in refs40_b3[wname])
+        t_b3[pos], p_b3[pos] = refs40_b3[wname]
+        walk = WalkWork(sa40, ray_s, t_ref, any_hit, t_b3)
         n_lanes = ray_s.o.x.shape[0]
         ray_ops = n_lanes * n_anim * INV_LERP_OPS
         b2_t = b2_times(v4, sa40, ray_s, any_hit)
@@ -1475,7 +1642,25 @@ def main() -> int:
               f" a plain walk tests {need6} chunks over {n_lanes // 32} "
               f"warps ({need6 / (n_lanes // 32):.2f} per warp, {distinct6} "
               f"distinct), {b6_pairs} pairs; {b6_share}", flush=True)
+        b3_b, b3_walk = b3_bound(walk, ray_ops)
+        print(f"B3 walk {wname} ({'any-hit' if any_hit else 'closest-hit'}):"
+              f" {b3_walk}", flush=True)
         if wname == "bounce":
+            k_ms, q_ms = b3_times(alt_mod["B3"], sa40, ray_s, False)
+            print(f"B3 time bounce (closest-hit) at {n_lanes} lanes (binned),"
+                  f" 40k animated: kernel {k_ms:.4f} ms, query {q_ms:.4f} "
+                  f"ms; bound {b3_b[0]:.4f} ms ({b3_b[1]}) ({card})",
+                  flush=True)
+            # rounds: B3's group lists with a capacity of 16 entries
+            st3 = alt_mod["B3"]
+            tb3 = st3.stream_tables(sa40)
+            out = st3.launch(tb3, st3.prepare(tb3, ray_s), False, cap=16)
+            torch.cuda.synchronize()
+            check_t_prim(f"B3 40k bounce binned closest-hit, capacity 16 "
+                         f"({-(-tb3.n_chunks // 8 // 16)} rounds at most)",
+                         out[0], out[1], t_b3, p_b3, False, errs_l["B3"],
+                         zero_area_winner(sa40, p_b3))
+            del out
             k_ms, q_ms = b6_times(mxu, sa40, ray_s, False)
             b_cc, b_tc = b6_bounds(b6_pairs, ray_ops, b6_n_bytes)
             print(f"B6 time bounce (closest-hit) at {n_lanes} lanes (binned),"
@@ -1489,7 +1674,7 @@ def main() -> int:
             torch.cuda.synchronize()
             check_t_prim("B2 40k bounce binned closest-hit, capacity 100",
                          t_k, p_k, t_ref, p_ref, False, errs_l["B2"])
-            del walk, ray_s, t_ref, p_ref, t_k, p_k
+            del walk, ray_s, t_ref, p_ref, t_b3, p_b3, t_k, p_k
             continue
         times_l["B2"][form] = (b2_t[0], plain_ms["B2"][form], b2_bound)
         for row in rows[1:]:
@@ -1503,7 +1688,7 @@ def main() -> int:
                                 reps=5)
             del prep
             need, distinct, what = walk.work(row)
-            grp, gname = ((32, "warps") if row == "B6"
+            grp, gname = ((32, "warps") if row in ("B6", "B3")
                           else (walk.BLOCK, "blocks"))
             if row == "B5":
                 n_ops = need * walk.BLOCK * 32 * WOOP_OPS + ray_ops
@@ -1513,14 +1698,11 @@ def main() -> int:
                 n_ops = need * walk.BLOCK * 32 * MOLLER_OPS + ray_ops
                 n_bytes = (n_lanes * (32 + 8) + distinct * 9 * 128 * 4
                            + need * (8 + 8 + 24))
-            elif row == "B3":
-                n_ops = need * walk.BLOCK * 32 * MOLLER_OPS + ray_ops
-                n_bytes = (n_lanes * (32 + (8 if any_hit else 52))
-                           + distinct * 32 * 25 * 4 + need * 24)
             else:
                 n_bytes = b6_n_bytes
                 n_ops = b6_pairs * WOOP_OPS + ray_ops
             times_l[row][form] = (k_ms, plain_ms[row][form],
+                                  b3_b if row == "B3" else
                                   bound(n_bytes, n_ops))
             b_ms, b_by = times_l[row][form][2]
             extra = ""
@@ -1540,7 +1722,7 @@ def main() -> int:
                   f"{distinct} distinct records); "
                   f"bound {b_ms:.4f} ms ({b_by}){extra} ({card})",
                   flush=True)
-        del walk, ray_s, t_ref, p_ref
+        del walk, ray_s, t_ref, p_ref, t_b3, p_b3
     # what binning saves: the units a closest-hit walk of the bounce
     # wavefront needs per 256-lane block, in the wavefront's own order and
     # binned
@@ -1554,7 +1736,50 @@ def main() -> int:
     print(f"bounce wavefront, units a walk needs per block: unbinned "
           f"{per_block[0]:.1f}, binned {per_block[1]:.1f}", flush=True)
     del bounce_s, t_ref
-    del b2_rays, cam40, shadow40, bounce40, refs40
+    del b2_rays, cam40, shadow40, bounce40, refs40, refs40_b3
+
+    # ---- 4a. the lower strip of the 40k frame -----------------------------
+    # camera rays of pixel rows LOWER_ROW.. that pass under the sphere's
+    # lower half to the floor, and their bounce and shadow rays, binned: B3
+    # against its plain version (t bitwise, prim equal, the record equal
+    # where prim is, occlusion exact), its kernel and query times and its
+    # bound; B2's times and walk as a measurement (its far ends from B3's
+    # plain t, which differs from B2's in the last bits)
+    st3 = alt_mod["B3"]
+    waves_lo, n_valid = strip_waves(big["40k animated"][1], sa40, LOWER_ROW,
+                                    seed=5)
+    print(f"40k lower strip, pixel rows {LOWER_ROW}-{LOWER_ROW + 15}: "
+          f"camera wavefront {WAVEFRONT} lanes, {n_valid} hit", flush=True)
+    for wname, any_hit, ray in waves_lo:
+        ray_s, _ = sort_wavefront(sa40, ray)
+        ref, p_ms = timed_ms(lambda: st3.intersect_stream_reference(sa40,
+                                                                    ray_s))
+        skip = zero_area_winner(sa40, ref.prim)
+        for ah in (False, True):
+            out = st3.intersect_stream(sa40, ray_s, any_hit=ah)
+            torch.cuda.synchronize()
+            tag = (f"B3 40k lower {wname} binned "
+                   f"{'any-hit' if ah else 'closest-hit'}")
+            check_t_prim(tag, out[0], out[1], ref.t, ref.prim, ah,
+                         errs_l["B3"], skip)
+            if not ah:
+                check_record(tag, out, ref, skip)
+        del out
+        walk = WalkWork(sa40, ray_s, ref.t, any_hit)
+        n_lanes = ray_s.o.x.shape[0]
+        ray_ops = n_lanes * n_anim * INV_LERP_OPS
+        b3_b, b3_walk = b3_bound(walk, ray_ops)
+        k_ms, q_ms = b3_times(st3, sa40, ray_s, any_hit)
+        print(f"B3 time lower {wname} "
+              f"({'any-hit' if any_hit else 'closest-hit'}) at {n_lanes} "
+              f"lanes (binned), 40k animated: kernel {k_ms:.4f} ms, query "
+              f"{q_ms:.4f} ms, plain {p_ms:.3f} ms; {b3_walk}; bound "
+              f"{b3_b[0]:.4f} ms ({b3_b[1]}) ({card})", flush=True)
+        print(walk_line("B2", f"lower {wname}", any_hit,
+                        b2_times(v4, sa40, ray_s, any_hit),
+                        walk.b2_distribution(), card), flush=True)
+        del walk, ray_s, ref, skip
+    del waves_lo
 
     # ---- 4b. B2 on the 100k animated scene: a 65,536-lane slice -------------
     # of its camera wavefront and that slice's bounce and shadow rays,
@@ -1770,7 +1995,9 @@ if __name__ == "__main__":
         sys.exit(b1_walk_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--b6-walk":
         sys.exit(b6_walk_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--b3-walk":
+        sys.exit(b3_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
         fail("usage: chip_smoke.py [--b2-walk CHECKOUT | --b1-walk "
-             "CHECKOUT | --b6-walk CHECKOUT]")
+             "CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT]")
     sys.exit(main())

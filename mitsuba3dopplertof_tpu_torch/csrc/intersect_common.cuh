@@ -255,4 +255,224 @@ __device__ __forceinline__ float lane_term(float best_t, int best_p,
   return fminf(best_t, maxt);
 }
 
+// ---------------------------------------------------------------------------
+// Gates of a group of rays' live lanes (maxt > 0), and sorted lists of the
+// boxes they can enter (B2's and B3's walks).
+// ---------------------------------------------------------------------------
+
+constexpr int kGateLen = 16;   // per axis o lo, o hi, 1/d lo, 1/d hi, same;
+                               // then the far end
+typedef unsigned long long u64e;
+
+__device__ __forceinline__ float lanes_min(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float lanes_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The gate of bounds v[13] (min of o 0-2, max of o 3-5, min of d 6-8, max
+// of d 9-11, the largest maxt 12) into g[kGateLen]: per axis o lo, o hi,
+// the reciprocals of the d bounds (1 where d does not keep one sign) and
+// whether it does; then the far end, the largest maxt capped at 3e38
+// (-3e38 where no lane is live).
+__device__ __forceinline__ void gate_from_bounds(const float* v, float* g) {
+  for (int ax = 0; ax < 3; ++ax) {
+    const float dl = v[6 + ax], dh = v[9 + ax];
+    const bool same = (dl > 1e-12f) || (dh < -1e-12f);
+    g[5 * ax] = v[ax];
+    g[5 * ax + 1] = v[3 + ax];
+    g[5 * ax + 2] = 1.0f / (same ? dl : 1.0f);
+    g[5 * ax + 3] = 1.0f / (same ? dh : 1.0f);
+    g[5 * ax + 4] = same ? 1.0f : 0.0f;
+  }
+  g[15] = v[12] > 0.0f ? fminf(v[12], kBig) : -kBig;
+}
+
+// The gates of the CTA's live lanes (s_block) and of each warp's (s_warp,
+// kGateLen floats a warp, this warp's at s_warp + warp * kGateLen), from
+// the lane's world ray w[6] and maxt; a dead lane (maxt <= 0, or NaN)
+// takes no part. s_part: kWarps * 13 floats. Starts and ends with the CTA
+// in step.
+__device__ __forceinline__ void live_gates(const float* w, float maxt,
+                                           float* s_part, float* s_block,
+                                           float* s_warp) {
+  const bool live = maxt > 0.0f;
+  float v[13];
+  for (int a = 0; a < 3; ++a) {
+    v[a] = live ? w[a] : INFINITY;
+    v[3 + a] = live ? w[a] : -INFINITY;
+    v[6 + a] = live ? w[3 + a] : INFINITY;
+    v[9 + a] = live ? w[3 + a] : -INFINITY;
+  }
+  v[12] = live ? maxt : -INFINITY;
+  for (int a = 0; a < 13; ++a) {
+    const bool is_min = a < 3 || (a >= 6 && a < 9);
+    v[a] = is_min ? lanes_min(v[a]) : lanes_max(v[a]);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    for (int a = 0; a < 13; ++a) s_part[warp * 13 + a] = v[a];
+    gate_from_bounds(v, s_warp + warp * kGateLen);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float b[13];
+    for (int a = 0; a < 13; ++a) {
+      const bool is_min = a < 3 || (a >= 6 && a < 9);
+      float r = s_part[a];
+      for (int q = 1; q < kWarps; ++q) {
+        const float o = s_part[q * 13 + a];
+        r = is_min ? fminf(r, o) : fmaxf(r, o);
+      }
+      b[a] = r;
+    }
+    gate_from_bounds(b, s_block);
+  }
+  __syncthreads();
+}
+
+// The slab test of the rays of gate g against one box (lo xyz, hi xyz):
+// per axis whose d keeps one sign, the plane parameters (p - o) / d over
+// both planes and both ends of the o and d intervals span [lo, hi]; *t_lo
+// is the largest lo, at least 0, and *t_ex the smallest hi, at most 3e38.
+// Some ray may enter the box within a far end f if *t_lo <= min(*t_ex, f).
+// An inverted box (a pad chunk's, or a group of pad chunks) gives
+// *t_lo = 3e38, *t_ex = -3e38.
+__device__ __forceinline__ void gate_span(const float* g, const float* box,
+                                          float* t_lo, float* t_ex) {
+  float lo_all = 0.0f, hi_all = kBig;
+  for (int ax = 0; ax < 3; ++ax) {
+    const float* ga = g + 5 * ax;
+    const float bmin = __ldg(box + ax), bmax = __ldg(box + 3 + ax);
+    float lo = kBig, hi = -kBig;
+    for (int pi = 0; pi < 2; ++pi) {
+      const float pl = pi == 0 ? bmin : bmax;
+      for (int oi = 0; oi < 2; ++oi) {
+        const float num = pl - ga[oi];
+        const float va = num * ga[2], vb = num * ga[3];
+        lo = fminf(lo, fminf(va, vb));
+        hi = fmaxf(hi, fmaxf(va, vb));
+      }
+    }
+    if (ga[4] != 0.0f) {
+      lo_all = fmaxf(lo_all, lo);
+      hi_all = fminf(hi_all, hi);
+    }
+  }
+  const bool live = __ldg(box) <= __ldg(box + 3);
+  *t_lo = live ? lo_all : kBig;
+  *t_ex = live ? hi_all : -kBig;
+}
+
+// The entry distance of the rays of gate g into `box` within the gate's far
+// end, or 3e38 where none can enter it: a sorted list's key.
+__device__ __forceinline__ float gate_key(const float* g, const float* box) {
+  float lo, ex;
+  gate_span(g, box, &lo, &ex);
+  return lo <= fminf(ex, g[15]) ? lo : kBig;
+}
+
+// A list entry: the key's bits (sign cleared: keys are >= 0, and -0 sorts
+// as +0, as in PyTorch's sort) above the item index, so that the entries
+// order as (key, item).
+__device__ __forceinline__ u64e list_entry(float key, int item) {
+  return ((u64e)(__float_as_uint(key) & 0x7FFFFFFFu) << 32) | (unsigned)item;
+}
+__device__ __forceinline__ float list_key(u64e e) {
+  return __uint_as_float((unsigned)(e >> 32));
+}
+__device__ __forceinline__ int list_item(u64e e) {
+  return (int)(unsigned)(e & 0xFFFFFFFFull);
+}
+
+// Ascending sort of s[0, n) with a bitonic network whose comparators all
+// put the smaller entry at the lower index, so entries past n behave as +inf
+// and need no storage. Starts and ends with the CTA in step.
+__device__ inline void list_sort(u64e* s, int n) {
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int k = 2; k <= n2; k <<= 1) {
+    const int half = k >> 1;
+    for (int i = threadIdx.x; i < (n2 >> 1); i += kBlock) {
+      int blk = i / half, off = i - blk * half;
+      int a = blk * k + off, b = blk * k + k - 1 - off;
+      if (b < n) {
+        u64e x = s[a], y = s[b];
+        if (y < x) { s[a] = y; s[b] = x; }
+      }
+    }
+    __syncthreads();
+    for (int j = k >> 2; j >= 1; j >>= 1) {
+      for (int i = threadIdx.x; i < (n2 >> 1); i += kBlock) {
+        int blk = i / j, off = i - blk * j;
+        int a = blk * 2 * j + off, b = a + j;
+        if (b < n) {
+          u64e x = s[a], y = s[b];
+          if (y < x) { s[a] = y; s[b] = x; }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+// One round of a CTA's sorted list into s_list: the (up to cap) smallest
+// entries above `last` (all entries in the first round), sorted; item i of
+// n_items enters with key(i) where that is below 3e38. Items are keyed cap
+// at a time; whenever more than cap entries are held, they are sorted and
+// the largest dropped, and *s_more is set. s_list holds
+// n_items <= cap ? n_items : 2 * cap entries. Returns the round's length,
+// the same on every thread. The CTA must be in step when it starts (the
+// previous round's list read by every thread).
+template <typename KeyFn>
+__device__ int list_round(int n_items, int cap, KeyFn key, bool has_last,
+                          u64e last, u64e* s_list, int* s_n, int* s_more) {
+  if (threadIdx.x == 0) {
+    *s_n = 0;
+    *s_more = 0;
+  }
+  __syncthreads();
+  for (int u0 = 0; u0 < n_items; u0 += cap) {
+    const int u1 = min(u0 + cap, n_items);
+    for (int u = u0 + threadIdx.x; u < u1; u += kBlock) {
+      const float k = key(u);
+      if (k < kBig) {
+        const u64e e = list_entry(k, u);
+        if (!has_last || e > last) s_list[atomicAdd(s_n, 1)] = e;
+      }
+    }
+    __syncthreads();
+    const int n = *s_n;
+    if (n > cap) {
+      list_sort(s_list, n);
+      if (threadIdx.x == 0) {
+        *s_n = cap;
+        *s_more = 1;
+      }
+      __syncthreads();
+    }
+  }
+  const int n = *s_n;
+  list_sort(s_list, n);
+  return n;
+}
+
+// Dynamic shared memory of a round's list of n_items with capacity cap;
+// raises the kernel's limit above the default 48 KB where needed.
+template <typename K>
+int list_bytes(K kernel, int n_items, int cap, size_t* bytes) {
+  *bytes = (size_t)(n_items <= cap ? n_items : 2 * cap) * sizeof(u64e);
+  if (*bytes > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  return 0;
+}
+
 }  // namespace mi

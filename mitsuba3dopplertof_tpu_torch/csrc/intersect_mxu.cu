@@ -134,18 +134,6 @@ struct WarpSmem {
                                   // 1 / d min, 1 / d max, d of one sign
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -280,10 +268,10 @@ __global__ void __launch_bounds__(kBlock) mxu_kernel(Params p) {
 
   // the live lanes' ray bounds for the slab test of a chunk's boxes
   for (int a = 0; a < 3; ++a) {
-    const float lo_o = warp_min(live ? wr[a] : INFINITY);
-    const float hi_o = warp_max(live ? wr[a] : -INFINITY);
-    const float lo_d = warp_min(live ? wr[3 + a] : INFINITY);
-    const float hi_d = warp_max(live ? wr[3 + a] : -INFINITY);
+    const float lo_o = lanes_min(live ? wr[a] : INFINITY);
+    const float hi_o = lanes_max(live ? wr[a] : -INFINITY);
+    const float lo_d = lanes_min(live ? wr[3 + a] : INFINITY);
+    const float hi_d = lanes_max(live ? wr[3 + a] : -INFINITY);
     if (lane == 0) {
       const bool same = (lo_d > 1e-12f) || (hi_d < -1e-12f);
       sw.gate[5 * a] = lo_o;
@@ -302,7 +290,7 @@ __global__ void __launch_bounds__(kBlock) mxu_kernel(Params p) {
   int cur_ci = -2;                 // transform group of the features (none)
   uint32_t bf[4][2];               // B fragments: 4 ray tiles
   float m_o = 0.0f, m_d = 0.0f;    // the warp's largest |o| (or 1), |d|
-  float t_hi = warp_max(lane_term<kAnyHit>(best_t, best_p, maxt));
+  float t_hi = lanes_max(lane_term<kAnyHit>(best_t, best_p, maxt));
 
   // The walk, 32 / kSubs list entries at a time: lane 4e + s tests box s
   // of entry v0 + e with the bound as it stands; an entry runs if one of
@@ -340,10 +328,10 @@ __global__ void __launch_bounds__(kBlock) mxu_kernel(Params p) {
         cur_ci = ci;
         __syncwarp();
         for (int a = 0; a < 6; ++a) sw.ray[lane][a] = r[a];
-        m_o = warp_max(live ? fmaxf(fmaxf(fabsf(r[0]), fabsf(r[1])),
+        m_o = lanes_max(live ? fmaxf(fmaxf(fabsf(r[0]), fabsf(r[1])),
                                     fmaxf(fabsf(r[2]), 1.0f))
                             : 0.0f);
-        m_d = warp_max(live ? fmaxf(fmaxf(fabsf(r[3]), fabsf(r[4])),
+        m_d = lanes_max(live ? fmaxf(fmaxf(fabsf(r[3]), fabsf(r[4])),
                                     fabsf(r[5]))
                             : 0.0f);
         __syncwarp();
@@ -417,7 +405,7 @@ __global__ void __launch_bounds__(kBlock) mxu_kernel(Params p) {
       const unsigned long long key = sw.key[lane];
       best_t = __uint_as_float((unsigned int)(key >> 32));
       best_p = (int)(unsigned int)key;
-      t_hi = fminf(warp_max(lane_term<kAnyHit>(best_t, best_p, maxt)), kBig);
+      t_hi = fminf(lanes_max(lane_term<kAnyHit>(best_t, best_p, maxt)), kBig);
     }
   }
   p.t_out[id] = best_t;

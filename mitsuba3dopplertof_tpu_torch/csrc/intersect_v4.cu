@@ -24,7 +24,9 @@
 //    (`scene_box_exit`'s order of operations), reduces the block's ray
 //    bounds, slab-tests every unit box against them (`_slab_visit_order`'s
 //    algebra) and sorts the reachable units by (t_lo, unit) in shared
-//    memory with a bitonic network: the order of a stable argsort.
+//    memory with a bitonic network: the order of a stable argsort (the
+//    network and its rounds are intersect_common.cuh's list_sort and
+//    list_round, shared with B3).
 //  * Capacity: the sorted list holds at most `cap` entries (a launch
 //    argument up to kMaxCap). Where more units are reachable the kernel
 //    works in rounds: each round takes the next <= cap keys after the last
@@ -51,9 +53,7 @@
 // bit; degenerate and pad triangles have zero rows, t = -0/0 is NaN, and
 // every comparison rejects it.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "intersect_common.cuh"
 
 namespace {
 
@@ -284,94 +284,10 @@ __device__ __forceinline__ float unit_key(const float* s_bb,
   return (t_lo <= t_hi && live) ? t_lo : kBig;
 }
 
-// A list entry: the key's bits (sign cleared: t_lo >= 0, and -0 sorts as
-// +0, as in PyTorch's sort) above the unit index, so that the entries
-// order as (t_lo, unit).
-__device__ __forceinline__ u64 pack_entry(float key, int unit) {
-  return ((u64)(__float_as_uint(key) & 0x7FFFFFFFu) << 32) | (unsigned)unit;
-}
-__device__ __forceinline__ float entry_key(u64 e) {
-  return __uint_as_float((unsigned)(e >> 32));
-}
-__device__ __forceinline__ int entry_unit(u64 e) {
-  return (int)(unsigned)(e & 0xFFFFFFFFull);
-}
-
 // A lane's best hit as (float bits of t) << 32 | prim: the smaller value is
 // the nearer hit, or at equal t the smaller prim.
 __device__ __forceinline__ u64 pack_hit(float t, int prim) {
   return ((u64)__float_as_uint(t) << 32) | (unsigned)prim;
-}
-
-// Ascending sort of s[0, n) with a bitonic network whose comparators all
-// put the smaller entry at the lower index, so entries past n behave as +inf
-// and need no storage. Starts and ends with the CTA in step.
-__device__ void bitonic_sort(u64* s, int n) {
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  for (int k = 2; k <= n2; k <<= 1) {
-    const int half = k >> 1;
-    for (int i = threadIdx.x; i < (n2 >> 1); i += kBlock) {
-      int blk = i / half, off = i - blk * half;
-      int a = blk * k + off, b = blk * k + k - 1 - off;
-      if (b < n) {
-        u64 x = s[a], y = s[b];
-        if (y < x) { s[a] = y; s[b] = x; }
-      }
-    }
-    __syncthreads();
-    for (int j = k >> 2; j >= 1; j >>= 1) {
-      for (int i = threadIdx.x; i < (n2 >> 1); i += kBlock) {
-        int blk = i / j, off = i - blk * j;
-        int a = blk * 2 * j + off, b = a + j;
-        if (b < n) {
-          u64 x = s[a], y = s[b];
-          if (y < x) { s[a] = y; s[b] = x; }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-}
-
-// One round of the block's visit list into s_list: the (up to cap)
-// smallest entries above `last` (all entries in the first round), sorted.
-// Units are scanned cap at a time; whenever more than cap entries are
-// held, they are sorted and the largest dropped, and *s_more is set.
-// s_list holds n_units <= cap ? n_units : 2 * cap entries. Returns the
-// round's length, the same on every thread.
-__device__ int build_round(const Scene& sc, const float* s_bb, bool has_last,
-                           u64 last, u64* s_list, int* s_n, int* s_more) {
-  const int cap = sc.cap;
-  if (threadIdx.x == 0) {
-    *s_n = 0;
-    *s_more = 0;
-  }
-  __syncthreads();
-  for (int u0 = 0; u0 < sc.n_units; u0 += cap) {
-    const int u1 = min(u0 + cap, sc.n_units);
-    for (int u = u0 + threadIdx.x; u < u1; u += kBlock) {
-      float key = unit_key(s_bb, sc.box + 6LL * u);
-      if (key < kBig) {
-        u64 e = pack_entry(key, u);
-        if (!has_last || e > last) s_list[atomicAdd(s_n, 1)] = e;
-      }
-    }
-    __syncthreads();
-    const int n = *s_n;
-    if (n > cap) {
-      bitonic_sort(s_list, n);
-      if (threadIdx.x == 0) {
-        *s_n = cap;
-        *s_more = 1;
-      }
-      __syncthreads();
-    }
-  }
-  const int n = *s_n;
-  bitonic_sort(s_list, n);
-  return n;
 }
 
 // Largest term of the warp's lanes, capped: the far end of its walk.
@@ -492,8 +408,10 @@ __global__ void __launch_bounds__(kBlock)
   bool has_last = false;
   u64 last = 0;
   for (;;) {
-    const int m = build_round(sc, s_bb, has_last, last, s_list, &s_n,
-                              &s_more);
+    const int m = mi::list_round(
+        sc.n_units, sc.cap,
+        [&](int u) { return unit_key(s_bb, sc.box + 6LL * u); }, has_last,
+        last, s_list, &s_n, &s_more);
     const bool more = s_more != 0;
     // entry p of warp a's walk goes to warp p mod kWarps, which holds warp
     // a's 32 rays; a walk ends at the first entry past its warp's bound
@@ -513,8 +431,8 @@ __global__ void __launch_bounds__(kBlock)
         int bp = (int)(unsigned)(cb & 0xFFFFFFFFull);
         const float bound = warp_bound<kAnyHit>(bt, bp, maxt_a);
         const u64 e = s_list[p];
-        if (entry_key(e) > bound) break;
-        const int unit = entry_unit(e);
+        if (mi::list_key(e) > bound) break;
+        const int unit = mi::list_item(e);
         if (!warp_gate(s_gate + a * kGate, sc.box + 6LL * unit, bound))
           continue;
         const int bp0 = bp;
@@ -561,11 +479,13 @@ __global__ void __launch_bounds__(kBlock)
   bool has_last = false;
   u64 last = 0;
   for (;;) {
-    const int m = build_round(sc, s_bb, has_last, last, s_list, &s_n,
-                              &s_more);
+    const int m = mi::list_round(
+        sc.n_units, sc.cap,
+        [&](int u) { return unit_key(s_bb, sc.box + 6LL * u); }, has_last,
+        last, s_list, &s_n, &s_more);
     const bool more = s_more != 0;
     for (int i = tid; i < m; i += kBlock) {
-      const int unit = entry_unit(s_list[i]);
+      const int unit = mi::list_item(s_list[i]);
       order[written + i] = unit;
       tlo[written + i] = unit_key(s_bb, sc.box + 6LL * unit);
     }
@@ -630,17 +550,6 @@ Rays make_rays(const void* ox, const void* oy, const void* oz,
   return r;
 }
 
-// Dynamic shared memory of a round's list; raises the kernel's limit above
-// the default 48 KB where needed.
-template <typename K>
-int list_bytes(K kernel, int n_units, int cap, size_t* bytes) {
-  *bytes = (size_t)(n_units <= cap ? n_units : 2 * cap) * sizeof(u64);
-  if (*bytes > 48 * 1024)
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int mi_intersect_v4_block() { return kBlock; }
@@ -665,13 +574,15 @@ extern "C" int mi_intersect_v4(
   size_t bytes;
   int err;
   if (any_hit) {
-    if ((err = list_bytes(v4_walk_kernel<true>, n_units, cap, &bytes)))
+    if ((err = mi::list_bytes(v4_walk_kernel<true>, n_units, cap,
+                              &bytes)))
       return err;
     v4_walk_kernel<true><<<blocks, kBlock, bytes, s>>>(
         sc, ry, static_cast<float*>(t_out),
         static_cast<int*>(prim_out));
   } else {
-    if ((err = list_bytes(v4_walk_kernel<false>, n_units, cap, &bytes)))
+    if ((err = mi::list_bytes(v4_walk_kernel<false>, n_units, cap,
+                              &bytes)))
       return err;
     v4_walk_kernel<false><<<blocks, kBlock, bytes, s>>>(
         sc, ry, static_cast<float*>(t_out),
@@ -696,7 +607,8 @@ extern "C" int mi_intersect_v4_lists(
   unsigned int blocks = (unsigned int)((n + kBlock - 1) / kBlock);
   size_t bytes;
   int err;
-  if ((err = list_bytes(v4_lists_kernel, n_units, cap, &bytes))) return err;
+  if ((err = mi::list_bytes(v4_lists_kernel, n_units, cap, &bytes)))
+    return err;
   v4_lists_kernel<<<blocks, kBlock, bytes,
                     static_cast<cudaStream_t>(stream)>>>(
       sc, ry, static_cast<int*>(order_out), static_cast<float*>(tlo_out),

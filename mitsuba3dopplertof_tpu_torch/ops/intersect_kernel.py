@@ -124,10 +124,15 @@ def _moller(o: Vec3, d: Vec3, maxt, cols, c0: int, c1: int):
     kernels' order of operations: (hit, t), (N, c1 - c0) each; a hit is
     any t in (0, maxt). ``o``, ``d``, ``maxt``: (N, 1) columns; ``cols``:
     per-column (T,) tensors."""
+    return _moller_geom(o, d, maxt, [cols[c][None, c0:c1] for c in _GEOM])
+
+
+def _moller_geom(o: Vec3, d: Vec3, maxt, geom):
+    """``_moller`` on the nine columns ``geom`` (v0 e1 e2), any tensors
+    that broadcast against ``o``, ``d`` and ``maxt``."""
     ox, oy, oz = o
     dx, dy, dz = d
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        cols[c][None, c0:c1] for c in _GEOM)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = geom
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x

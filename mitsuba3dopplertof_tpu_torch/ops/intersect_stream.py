@@ -10,21 +10,28 @@ static triangles, then each animated range) is padded to a multiple of
 animated-range index (-1 static) and the global slot of its first
 triangle.
 
-B3 (``MI_STREAM_KERNEL=v1``) is the streamed query: no ordering and no
-scene-box clamp. A block of ``BLOCK`` lanes goes through the chunks in
-table order, eight at a time: a conservative slab test of the block's ray
-bounds against the group's box, then against each chunk's box, with
-``t_hi = min(largest maxt, largest best t)`` of the block as the far end,
-decides which chunks run Möller-Trumbore. Closest-hit returns the full
-``HitRecord`` (no ``payload_from_prim`` on this route; missed lanes carry
-zeros, as the TPU kernel leaves them), any-hit (t, prim).
+B3 (``MI_STREAM_KERNEL=v1``) is the streamed query, with no scene-box
+clamp. Each block of ``BLOCK`` lanes sorts the group boxes (the union of
+``CPG`` chunk boxes) that its live lanes (maxt > 0) can enter by entry
+distance, and each 32-lane warp walks that list alone, on its own live
+lanes' ray bounds and far end, slab-testing each chunk box of an entry
+before it runs Möller-Trumbore over the chunk's 32 triangles; a lane takes
+a hit at a lower t, or at an equal t from a lower table row. Closest-hit
+returns the full ``HitRecord`` (no ``payload_from_prim`` on this route;
+missed lanes carry zeros, as the TPU kernel leaves them), any-hit (t,
+prim).
 
   * ``intersect_stream(sa, ray, any_hit)`` — the CUDA kernel
     ``csrc/intersect_stream.cu`` for CUDA tensors, the plain version for
     CPU tensors;
   * ``intersect_stream_reference(sa, ray, any_hit)`` — the plain version:
     the dense Möller test of every lane against every padded triangle
-    (first table row on ties), then the winner's record interpolated.
+    (first table row on ties), then the winner's record interpolated;
+  * ``group_keys``, ``group_rounds``, ``stream_walk_reference`` and
+    ``stream_chunk_hits`` — the kernel's walk in plain PyTorch, step by
+    step (its block lists in rounds, its warps' gates, far ends and chunk
+    tests, the tie rule), for the tests and chip_smoke.py's bound; never
+    on the main path.
 
 ``LAUNCHES`` / ``LAUNCHES_BY_FORM`` count kernel launches.
 """
@@ -32,7 +39,7 @@ zeros, as the TPU kernel leaves them), any-hit (t, prim).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +48,7 @@ from ..core.vec import Vec3
 from ..render.types import Ray
 from .cuda_build import CudaLibrary
 from .intersect_kernel import (_GEOM, _TRI_NAMES, HitRecord, _check_rays,
-                               _inv_lerped, _scan)
+                               _inv_lerped, _moller, _moller_geom, _scan)
 
 CHUNK = 32          # triangles per culling unit (one conservative AABB)
 PAD_TO = 128        # each transform group pads to this boundary
@@ -317,6 +324,7 @@ def _assemble_tri_table(sa, segments) -> torch.Tensor:
 
 class StreamTables(NamedTuple):
     tri: torch.Tensor       # (n_chunks * 32, 25) f32
+    geom: torch.Tensor      # (n_chunks * 32, 12) f32: v0 e1 e2, 0 0 0
     meta: torch.Tensor      # (n_chunks, 2) int32: anim range | -1, slot0
     aabb: torch.Tensor      # (n_chunks, 6) f32 chunk boxes
     grp: torch.Tensor       # (n_chunks / CPG, 6) f32 group boxes
@@ -331,7 +339,9 @@ def stream_tables(sa) -> StreamTables:
     """B3's per-scene tables (JAX ``intersect_stream`` :440-468), cached on
     the SceneArrays. The chunk tables are padded to a multiple of ``CPG``
     with never-visited chunks (zero triangles, inverted boxes); a group's
-    box is the union of its ``CPG`` chunks' boxes."""
+    box is the union of its ``CPG`` chunks' boxes. ``geom`` repeats the
+    records' first nine columns triangle-major in 16-byte rows, which the
+    kernel stages a chunk at a time."""
     if "stream" in sa._cache:
         return sa._cache["stream"]
     dev = sa.device
@@ -354,7 +364,10 @@ def stream_tables(sa) -> StreamTables:
     meta_t = torch.as_tensor(meta, device=dev).contiguous()
     slots = (meta_t[:, 1:2] + torch.arange(CHUNK, dtype=torch.int32,
                                            device=dev)).reshape(-1)
-    tables = StreamTables(tri.contiguous(), meta_t, aabb.contiguous(),
+    geom = torch.cat([tri[:, :9], torch.zeros((tri.shape[0], 3),
+                                              device=dev)], dim=1)
+    tables = StreamTables(tri.contiguous(), geom.contiguous(), meta_t,
+                          aabb.contiguous(),
                           grp.contiguous(), _inst_table(sa),
                           bool(sa.anim_ranges), n_chunks,
                           _runs(meta, CHUNK), slots)
@@ -435,14 +448,238 @@ def intersect_stream_reference(sa, ray: Ray, any_hit: bool = False):
           for x in (u, v, gx, gy, gz, nx, ny, nz, uv_u, uv_v)))
 
 
+# ---------------------------------------------------------------------------
+# B3's walk in plain PyTorch (tests and chip_smoke.py; not the main path)
+# ---------------------------------------------------------------------------
+
+class StreamWalk(NamedTuple):
+    t: torch.Tensor         # (N,) best t, +inf on a miss
+    prim: torch.Tensor      # (N,) int32 slot of the winner, -1 on a miss
+    tested: torch.Tensor    # (N / 32, n_chunks) bool: the chunks each warp
+                            # tests
+    rounds: int             # list rounds of the blocks that take the most
+
+
+def _gates(o, d, maxt, lanes: int):
+    """The kernel's gate of each group of ``lanes`` consecutive lanes (a
+    block's: ``BLOCK``, a warp's: 32; csrc/intersect_common.cuh
+    ``live_gates``): the bounds of its live lanes' rays (maxt > 0), per axis
+    the reciprocals of the d bounds (1 where d does not keep one sign) and
+    whether it does, and the far end: the largest live maxt capped at 3e38,
+    -3e38 where no lane is live. Returns ((ol, oh, ia, ib, same) each
+    (groups, 3), far (groups,))."""
+    live = (maxt > 0.0).reshape(-1, lanes)
+    lv = live[:, :, None]
+    inf = float("inf")
+    oo = torch.stack(o, dim=1).reshape(-1, lanes, 3)
+    dd = torch.stack(d, dim=1).reshape(-1, lanes, 3)
+    ol = torch.where(lv, oo, inf).amin(dim=1)
+    oh = torch.where(lv, oo, -inf).amax(dim=1)
+    dl = torch.where(lv, dd, inf).amin(dim=1)
+    dh = torch.where(lv, dd, -inf).amax(dim=1)
+    same = (dl > 1e-12) | (dh < -1e-12)
+    ia = 1.0 / torch.where(same, dl, 1.0)
+    ib = 1.0 / torch.where(same, dh, 1.0)
+    m = torch.where(live, maxt.reshape(-1, lanes), -inf).amax(dim=1)
+    far = torch.where(m > 0.0, torch.clamp(m, max=_BIG), -_BIG)
+    return (ol, oh, ia, ib, same), far
+
+
+def _spans(gate, boxes):
+    """(t_lo, t_ex), (groups, n_boxes) each: the slab test of each gate's
+    rays against each box (``gate_span``): per axis whose d keeps one sign
+    the plane parameters (p - o) / d over both planes and both ends of the
+    o and d intervals span [lo, hi]; t_lo is the largest lo (at least 0),
+    t_ex the smallest hi (at most 3e38). Some ray may enter a box within a
+    far end f if t_lo <= min(t_ex, f). Inverted boxes give 3e38, -3e38."""
+    ol, oh, ia, ib, same = gate
+    g = ol.shape[0]
+    t_lo = torch.zeros((g, boxes.shape[0]), device=boxes.device)
+    t_ex = torch.full_like(t_lo, _BIG)
+    for ax in range(3):
+        lo = torch.full_like(t_lo, _BIG)
+        hi = torch.full_like(t_lo, -_BIG)
+        for p in (boxes[None, :, ax], boxes[None, :, 3 + ax]):
+            for oa in (ol[:, ax:ax + 1], oh[:, ax:ax + 1]):
+                num = p - oa
+                for iv in (ia[:, ax:ax + 1], ib[:, ax:ax + 1]):
+                    val = num * iv
+                    lo = torch.minimum(lo, val)
+                    hi = torch.maximum(hi, val)
+        s = same[:, ax:ax + 1]
+        t_lo = torch.where(s, torch.maximum(t_lo, lo), t_lo)
+        t_ex = torch.where(s, torch.minimum(t_ex, hi), t_ex)
+    live = (boxes[:, 0] <= boxes[:, 3])[None, :]
+    return torch.where(live, t_lo, _BIG), torch.where(live, t_ex, -_BIG)
+
+
+def group_keys(tables: StreamTables, prep) -> torch.Tensor:
+    """(n_blocks, n_groups): the entry distance of each block's live rays
+    into each group box within their largest maxt, 3e38 where they cannot
+    enter it (the keys of the kernel's block lists, ``gate_key``).
+    ``prep``: ``prepare``'s padded columns."""
+    o, d, _, maxt = prep
+    gate, far = _gates(o, d, maxt, BLOCK)
+    t_lo, t_ex = _spans(gate, tables.grp)
+    return torch.where(t_lo <= torch.minimum(t_ex, far[:, None]), t_lo,
+                       _BIG)
+
+
+def group_rounds(keys: torch.Tensor, cap: int):
+    """The kernel's block lists round by round (``list_round`` of
+    csrc/intersect_common.cuh): each round holds, per block, the (up to)
+    ``cap`` smallest entries (key bits << 32 | group) above the last entry
+    of the round before, sorted; the groups are keyed ``cap`` at a time,
+    and whenever more than ``cap`` entries are held the largest are
+    dropped. Returns a list of (n_blocks, <= cap) int64 entries, -1 past a
+    block's length in that round."""
+    nb, n_items = keys.shape
+    none = torch.iinfo(torch.int64).max
+    bits = keys.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    item = torch.arange(n_items, dtype=torch.int64, device=keys.device)
+    ent = torch.where(keys < _BIG, (bits << 32) | item, none)
+    last = torch.full((nb, 1), -1, dtype=torch.int64, device=keys.device)
+    rounds = []
+    while True:
+        held = ent[:, :0]
+        more = torch.zeros((nb,), dtype=torch.bool, device=keys.device)
+        for u0 in range(0, n_items, cap):
+            cand = ent[:, u0:u0 + cap]
+            held = torch.cat([held, torch.where(cand > last, cand, none)],
+                             dim=1)
+            more |= (held != none).sum(dim=1) > cap
+            held = held.sort(dim=1).values[:, :cap]
+        held = held.sort(dim=1).values
+        rounds.append(torch.where(held != none, held, -1))
+        if not bool(more.any()):
+            return rounds
+        last = torch.where(more, held[:, -1], none)[:, None]
+
+
+def stream_walk_reference(tables: StreamTables, prep, any_hit: bool,
+                          cap: Optional[int] = None, far=None) -> StreamWalk:
+    """csrc/intersect_stream.cu's walk, step by step, for every warp at
+    once: the block lists in rounds of ``cap`` (default: every group), each
+    warp's gate over its live lanes, its far end (closest-hit the largest
+    over its live lanes of min(best t, maxt), any-hit the largest maxt of
+    its live lanes with no hit yet; capped at 3e38), its stop at the first
+    entry whose key exceeds the far end (any-hit also once every live lane
+    has a hit), the slab test of each chunk of an entry with the far end as
+    it stands, Möller-Trumbore over the chunk in its transform group's hit
+    space, and the tie rule: a lower t, or an equal t from a lower row.
+    ``far``: (N / 32, n_groups) far ends to use in place of the warp's own,
+    by the rank of the entry in its block's list (no any-hit stop then):
+    the walk that chip_smoke.py's ``WalkWork.b3_warps`` counts. ``prep``:
+    ``prepare``'s padded columns."""
+    o, d, time, maxt = prep
+    n = maxt.shape[0]
+    dev = maxt.device
+    nw = n // 32
+    n_groups = tables.n_chunks // CPG
+    rounds = group_rounds(group_keys(tables, prep), cap or n_groups)
+    gate, walk_far = _gates(o, d, maxt, 32)
+    c_lo, c_ex = _spans(gate, tables.aabb)
+    live = maxt > 0.0
+    # each lane's ray in each transform group's hit space
+    cis = sorted({ci for ci, _, _ in tables.runs})
+    rays = torch.stack([torch.stack(_unit_ray(tables, ci, o, d, time))
+                        for ci in cis])
+    ci_index = torch.as_tensor([cis.index(int(ci)) for ci in
+                                tables.meta[:, 0].tolist()], device=dev)
+    geom = tables.geom.reshape(tables.n_chunks, CHUNK, 12)
+    best_t = torch.full((n,), float("inf"), device=dev)
+    no_row = torch.iinfo(torch.int64).max
+    best_row = torch.full((n,), no_row, dtype=torch.int64, device=dev)
+    tested = torch.zeros((nw, tables.n_chunks), dtype=torch.bool, device=dev)
+    done = ~(walk_far >= 0.0)
+    block = torch.arange(nw, device=dev) // (BLOCK // 32)
+    rank = 0
+    for ents in rounds:
+        for pos in range(ents.shape[1]):
+            e = ents[block, pos]
+            valid = e >= 0
+            key = (e >> 32).to(torch.int32).view(torch.float32)
+            f = walk_far if far is None else far[:, rank]
+            done |= valid & (key > f)
+            reach = valid & ~done
+            for c in range(CPG):
+                k = torch.where(valid, e & 0xFFFFFFFF, 0) * CPG + c
+                f = walk_far if far is None else far[:, rank]
+                lo = c_lo.gather(1, k[:, None])[:, 0]
+                ex = c_ex.gather(1, k[:, None])[:, 0]
+                run = reach & ~done & (lo <= torch.minimum(ex, f))
+                if not bool(run.any()):
+                    continue
+                tested[run, k[run]] = True
+                lanes = run.repeat_interleave(32).nonzero()[:, 0]
+                kl = k.repeat_interleave(32)[lanes]
+                r = rays[ci_index[kl], :, lanes]
+                g = geom[kl]
+                hit, t = _moller_geom(
+                    Vec3(*(r[:, a:a + 1] for a in range(3))),
+                    Vec3(*(r[:, a:a + 1] for a in range(3, 6))),
+                    maxt[lanes, None], [g[:, :, i] for i in range(9)])
+                tm = torch.where(hit, t, float("inf"))
+                jm = torch.argmin(tm, dim=1)
+                tc = tm.gather(1, jm[:, None])[:, 0]
+                rc = kl * CHUNK + jm
+                bt, br = best_t[lanes], best_row[lanes]
+                take = torch.isfinite(tc) & ((tc < bt) | ((tc == bt)
+                                                          & (rc < br)))
+                best_t[lanes] = torch.where(take, tc, bt)
+                best_row[lanes] = torch.where(take, rc, br)
+                if far is None:
+                    hit_any = best_row != no_row
+                    term = (torch.where(hit_any, -_BIG, maxt) if any_hit
+                            else torch.minimum(best_t, maxt))
+                    walk_far = torch.clamp(torch.where(
+                        live, term, -_BIG).reshape(nw, 32).amax(dim=1),
+                        max=_BIG)
+                    if any_hit:
+                        done |= ~(live & ~hit_any).reshape(nw, 32).any(
+                            dim=1)
+            rank += 1
+    found = best_row != no_row
+    prim = torch.where(found, tables.slots[torch.where(found, best_row, 0)],
+                       -1)
+    return StreamWalk(best_t, prim, tested, len(rounds))
+
+
+def stream_chunk_hits(tables: StreamTables, prep) -> torch.Tensor:
+    """(N, n_chunks) bool: whether each lane's ray hits a triangle of each
+    chunk within (0, maxt), by the plain version's Möller test; the first
+    hit of an any-hit walk is in the first such chunk it reaches.
+    ``prep``: ``prepare``'s padded columns."""
+    o, d, time, maxt = prep
+    cols = {c: tables.tri[:, i] for i, c in enumerate(_GEOM)}
+    out = torch.zeros((maxt.shape[0], tables.n_chunks), dtype=torch.bool,
+                      device=maxt.device)
+    step = max(1, (1 << 24) // (max(maxt.shape[0], 1) * CHUNK))
+    for ci, r0, r1 in tables.runs:
+        r = _unit_ray(tables, ci, o, d, time)
+        oc = Vec3(*(x[:, None] for x in r[:3]))
+        dc = Vec3(*(x[:, None] for x in r[3:]))
+        for a in range(r0, r1, step * CHUNK):
+            b = min(a + step * CHUNK, r1)
+            hit, _ = _moller(oc, dc, maxt[:, None], cols, a, b)
+            out[:, a // CHUNK:b // CHUNK] = hit.reshape(
+                hit.shape[0], -1, CHUNK).any(dim=2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel: build, load, launch
+# ---------------------------------------------------------------------------
+
 def _bind(lib):
     fn = lib.mi_intersect_stream
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_void_p] * 3)
-    lib.mi_intersect_stream_block.restype = ctypes.c_int
-    lib.mi_intersect_stream_block.argtypes = []
+    for name in ("mi_intersect_stream_block", "mi_intersect_stream_max_cap"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
     if lib.mi_intersect_stream_block() != BLOCK:
         raise RuntimeError("csrc/intersect_stream.cu was built for another "
                            "block size than ops/intersect_stream.py BLOCK")
@@ -458,14 +695,22 @@ def prepare(tables: StreamTables, ray: Ray):
     return _padded_cols(ray, ray.maxt, BLOCK)
 
 
-def launch(tables: StreamTables, prep, any_hit: bool):
-    """One launch over prepared inputs (``prepare``). Returns, at the
-    padded length, the ``HitRecord`` or, with ``any_hit``, (t, prim)."""
+def launch(tables: StreamTables, prep, any_hit: bool,
+           cap: Optional[int] = None):
+    """One launch over prepared inputs (``prepare``): the kernel builds its
+    block lists (``cap`` groups a round; default every group, up to the
+    compiled maximum) and walks them. Returns, at the padded length, the
+    ``HitRecord`` or, with ``any_hit``, (t, prim)."""
     global LAUNCHES
     o, d, time, maxt = prep
     cols = (*o, *d, time, maxt)
     n_pad, dev = _check_launch("intersect_stream", tables.tri, cols, BLOCK)
     lib = LIBRARY.load()
+    max_cap = lib.mi_intersect_stream_max_cap()
+    cap = min(tables.n_chunks // CPG, max_cap) if cap is None else cap
+    if not 1 <= cap <= max_cap:
+        raise ValueError(f"intersect_stream kernel: list capacity {cap} "
+                         f"outside [1, {max_cap}]")
     outf = torch.empty((1 if any_hit else 11, n_pad), device=dev)
     outi = torch.empty((1 if any_hit else 2, n_pad), dtype=torch.int32,
                        device=dev)
@@ -473,11 +718,12 @@ def launch(tables: StreamTables, prep, any_hit: bool):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.mi_intersect_stream(
-                tables.tri.data_ptr(), tables.meta.data_ptr(),
-                tables.aabb.data_ptr(), tables.grp.data_ptr(),
-                tables.inst.data_ptr(), tables.n_chunks,
-                int(tables.has_anim), *(c.data_ptr() for c in cols), n_pad,
-                int(any_hit), outf.data_ptr(), outi.data_ptr(), stream)
+                tables.tri.data_ptr(), tables.geom.data_ptr(),
+                tables.meta.data_ptr(), tables.aabb.data_ptr(),
+                tables.grp.data_ptr(), tables.inst.data_ptr(),
+                tables.n_chunks, int(tables.has_anim), cap,
+                *(c.data_ptr() for c in cols), n_pad, int(any_hit),
+                outf.data_ptr(), outi.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"intersect_stream kernel launch failed: "
                                f"CUDA error {err}")
@@ -507,5 +753,6 @@ def intersect_stream(sa, ray: Ray, any_hit: bool = False):
 
 __all__ = ["CHUNK", "PAD_TO", "CPG", "BLOCK", "chunk_aabbs",
            "intersect_stream", "intersect_stream_reference",
-           "stream_tables", "prepare", "launch", "LIBRARY", "LAUNCHES",
-           "LAUNCHES_BY_FORM"]
+           "stream_tables", "group_keys", "group_rounds",
+           "stream_walk_reference", "stream_chunk_hits", "prepare",
+           "launch", "LIBRARY", "LAUNCHES", "LAUNCHES_BY_FORM"]

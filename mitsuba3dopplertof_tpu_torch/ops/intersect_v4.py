@@ -208,7 +208,8 @@ def _bind(lib):
                            "block size than ops/intersect_v4.py BLOCK")
 
 
-LIBRARY = CudaLibrary("intersect_v4", _bind)
+LIBRARY = CudaLibrary("intersect_v4", _bind,
+                      headers=("intersect_common.cuh",))
 
 
 def _columns(tables: V4Tables, ray: Ray, cap: Optional[int]):

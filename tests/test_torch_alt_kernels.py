@@ -6,11 +6,15 @@ the oracle ``_hit_reference`` and against the Pallas kernel run in
 interpret mode (as tests/test_v3_kernel.py, test_v2_kernel.py,
 test_mxu_kernel.py and test_pallas_parity.py run them), and each route as a
 whole: the 2k animated-mesh scene rendered by the port with the route
-selected against the JAX package's render. Inputs are made with numpy from
-a seed; each tolerance is stated where it is used. The CUDA kernels run
-only on the card (tests/test_torch_cuda.py)."""
+selected against the JAX package's render; and B3's walk, simulated step by
+step in plain PyTorch, against B3's plain version and against the work
+that chip_smoke.py's bound counts (no JAX call). Inputs are made with numpy
+from a seed; each tolerance is stated where it is used. The CUDA kernels
+run only on the card (tests/test_torch_cuda.py)."""
 
+import importlib.util
 import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +38,7 @@ from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as tv4
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
     animated_mesh_scene
 
-from torch_adversarial_rays import adversarial_rays
+from torch_adversarial_rays import adversarial_rays, equal_t_tables
 from torch_port_helpers import (F32_ULP, assert_t_prim, both_rays,
                                 build_mixed_scene, jax_mesh_render,
                                 shell_rays)
@@ -47,6 +51,7 @@ ROUTES = {
     "mxu": ("B6", tmxu, "intersect_mxu", "intersect_mxu_reference"),
 }
 N_RAYS = 2048
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -530,3 +535,161 @@ def test_mxu_fragment_table_is_tf32_woop_table(scene):
     ref[dead, 2] = ref[dead, 5] = -1.0
     assert np.allclose(s[:, :, :6], ref, rtol=1e-6, atol=0.0)
     assert not s[:, :, 6:].any()
+
+
+# ---------------------------------------------------------------------------
+# (f) B3's walk: block lists by entry distance, warps alone on their live
+#     lanes, the (t, row) tie rule
+# ---------------------------------------------------------------------------
+
+N_COHERENT = 1024
+
+
+def _coherent_rays(n, seed):
+    """``n`` rays from the mixed scene's camera position (0, 0, -6), 32 a
+    pixel of a 6 x 6 unit window at z = 0 in pixel order, as a camera
+    wavefront lays them out; times in [0, 1]. Made with numpy."""
+    rng = np.random.default_rng(seed)
+    pix = np.arange(n) // 32
+    side = int(np.ceil(np.sqrt(n / 32)))
+    tgt = np.stack([((pix % side) + rng.uniform(0.0, 1.0, n)) / side,
+                    ((pix // side) + rng.uniform(0.0, 1.0, n)) / side],
+                   axis=1) * 6.0 - 3.0
+    d = np.concatenate([tgt, np.full((n, 1), 6.0)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.tile([0.0, 0.0, -6.0], (n, 1))
+    return o, d, rng.uniform(0.0, 1.0, n), np.full(n, np.inf)
+
+
+@pytest.fixture(scope="module")
+def walk_case(scene, rays):
+    """B3's tables of the mixed scene and 4,096 rays: the shell rays, 1,024
+    coherent rays (``_coherent_rays``, whose warps' gates cull) and 1,024
+    ``adversarial_rays``, with every seventh lane, the lanes of one warp
+    and those of one 256-lane block dead (maxt -1, as the lanes whose
+    camera ray missed): (tables, rays, the plain version's record)."""
+    sa_t = scene[1]
+    coh = both_rays(*_coherent_rays(N_COHERENT, 14))[1]
+    adv = adversarial_rays(sa_t, N_ADVERSARIAL, 13, "cpu")
+    parts = (rays[1], coh, adv)
+    cat = lambda f: torch.cat([f(r) for r in parts])
+    lane = torch.arange(N_RAYS + N_COHERENT + N_ADVERSARIAL)
+    dead = (lane % 7 == 3) | ((lane >= 64) & (lane < 96)) \
+        | ((lane >= 512) & (lane < 768))
+    tr = rays[1]
+    ray = type(tr)(type(tr.o)(*(cat(lambda r: r.o[i]) for i in range(3))),
+                   type(tr.d)(*(cat(lambda r: r.d[i]) for i in range(3))),
+                   cat(lambda r: r.time),
+                   torch.where(dead, -1.0, cat(lambda r: r.maxt)))
+    return (tstream.stream_tables(sa_t), ray,
+            tstream.intersect_stream_reference(sa_t, ray))
+
+
+def _head(ray, n):
+    """The first ``n`` lanes of ``ray``."""
+    return type(ray)(type(ray.o)(*(c[:n] for c in ray.o)),
+                     type(ray.d)(*(c[:n] for c in ray.d)), ray.time[:n],
+                     ray.maxt[:n])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_walk_matches_plain(scene, walk_case, monkeypatch, any_hit):
+    """The walk (``stream_walk_reference``) on 4,000 of the rays (the last
+    block padded with dead lanes): closest-hit t bit for bit and prim
+    equal to the plain version's on every lane, any-hit occlusion exact;
+    then with the triangles of one chunk copied into a pad chunk of another
+    group whose box is the scene's (``equal_t_tables``: equal t in two
+    groups, the copy's group first in many blocks' lists), where the
+    first row must still win; a tie rule of strict t < best would return
+    the copy's slot on those lanes."""
+    tb, ray, ref = walk_case
+    n = 4000
+    ray = _head(ray, n)
+    walk = tstream.stream_walk_reference(tb, tstream.prepare(tb, ray),
+                                         any_hit)
+    hit = ref.prim[:n] >= 0
+    assert int(hit.sum()) > 700
+    assert torch.equal(walk.prim[:n] >= 0, hit)
+    assert not bool((walk.prim[n:] >= 0).any())
+    if not any_hit:
+        assert torch.equal(walk.t[:n][hit], ref.t[:n][hit])
+        assert torch.equal(walk.prim[:n], ref.prim[:n])
+
+    tb2, k, p = equal_t_tables(tb, ref.prim, tstream.group_keys(
+        tb, tstream.prepare(tb, ray)))
+    monkeypatch.setitem(scene[1]._cache, "stream", tb2)
+    ref2 = tstream.intersect_stream_reference(scene[1], ray)
+    prep = tstream.prepare(tb2, ray)
+    walk = tstream.stream_walk_reference(tb2, prep, any_hit)
+    hit = ref2.prim >= 0
+    copied = torch.isin(ref2.prim, tb2.slots[32 * k:32 * k + 32]) & hit
+    keys = tstream.group_keys(tb2, prep)
+    first = (keys[:, p // 8] < keys[:, k // 8]).repeat_interleave(
+        tstream.BLOCK)[:n]
+    assert int((copied & first).sum()) > 10
+    assert torch.equal(walk.prim[:n] >= 0, hit)
+    if not any_hit:
+        assert torch.equal(walk.t[:n][hit], ref2.t[hit])
+        assert torch.equal(walk.prim[:n], ref2.prim)
+
+
+def test_stream_group_lists_in_rounds(walk_case):
+    """The block lists (``group_keys``, ``group_rounds``): the reachable
+    groups of each block in the order of a stable ``torch.argsort`` of the
+    keys, whatever the capacity; capacities of 1 and 2 groups force rounds,
+    and the walk over them tests the same chunks and finds the same hits
+    as over one round."""
+    tb, ray, _ = walk_case
+    prep = tstream.prepare(tb, ray)
+    keys = tstream.group_keys(tb, prep)
+    n_groups = tb.n_chunks // tstream.CPG
+    assert keys.shape == (ray.maxt.shape[0] // tstream.BLOCK, n_groups)
+    reach = keys < 3e38
+    assert bool(reach.any()) and not bool(reach.all())
+    assert not bool(reach[2].any())          # the block whose lanes are dead
+    order = torch.argsort(keys, dim=1, stable=True)
+    one = tstream.stream_walk_reference(tb, prep, False)
+    assert one.rounds == 1
+    for cap in (1, 2, n_groups):
+        rounds = tstream.group_rounds(keys, cap)
+        assert len(rounds) == -(-int(reach.sum(dim=1).max()) // cap)
+        ent = torch.cat(rounds, dim=1)
+        for b in range(keys.shape[0]):
+            got = ent[b][ent[b] >= 0] & 0xFFFFFFFF
+            assert torch.equal(got, order[b, :int(reach[b].sum())]), (cap, b)
+        if cap < n_groups:
+            walk = tstream.stream_walk_reference(tb, prep, False, cap=cap)
+            assert walk.rounds == len(rounds) > 1
+            assert torch.equal(walk.tested, one.tested)
+            assert torch.equal(walk.t, one.t)
+            assert torch.equal(walk.prim, one.prim)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_walk_counts_match_chip_smoke(scene, walk_case, any_hit):
+    """chip_smoke.py's count of the chunks B3's warps must test
+    (``WalkWork.b3_warps``, vectorised) equals the step-by-step walk's with
+    the same far ends, chunk for chunk and warp by warp, and that walk
+    finds the plain version's hits. The walk on its own far ends tests
+    those chunks and more closest-hit (its far end only shrinks to the
+    final one), and no others any-hit (it stops inside an entry once every
+    live lane is occluded)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    tb, ray, ref = walk_case
+    per_warp, tested, far, _, _ = chip_smoke.WalkWork(
+        scene[1], ray, ref.t, any_hit).b3_warps()
+    prep = tstream.prepare(tb, ray)
+    walk = tstream.stream_walk_reference(tb, prep, any_hit, far=far)
+    assert torch.equal(walk.tested, tested)
+    assert torch.equal(walk.tested.sum(dim=1), per_warp)
+    coherent = slice(N_RAYS // 32, (N_RAYS + N_COHERENT) // 32)
+    assert 0 < int(per_warp[coherent].sum()) < tested[coherent].numel() // 2
+    hit = ref.prim >= 0
+    assert torch.equal(walk.prim >= 0, hit)
+    if not any_hit:
+        assert torch.equal(walk.t[hit], ref.t[hit])
+    own = tstream.stream_walk_reference(tb, prep, any_hit).tested
+    assert torch.equal(own | tested, tested if any_hit else own)

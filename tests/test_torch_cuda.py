@@ -31,7 +31,7 @@ from mitsuba3dopplertof_tpu_torch.render.types import Ray
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
     animated_mesh_scene, static_mesh_scene, write_uv_sphere_obj)
 
-from torch_adversarial_rays import adversarial_rays
+from torch_adversarial_rays import adversarial_rays, equal_t_tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
@@ -411,3 +411,62 @@ def test_mxu_kernel_matches_plain_on_adversarial_rays(cuda, tmp_path,
     gate = mxu.mxu_gate_reference(tables, prep[0], prep[1], 0,
                                   tables.n_chunks)
     assert 0 < int(gate.sum()) < gate.numel()
+
+
+@pytest.mark.parametrize("case", ["adversarial", "dead", "equal_t",
+                                  "rounds"])
+@pytest.mark.parametrize("animated", [True, False])
+def test_stream_kernel_matches_plain(cuda, tmp_path, monkeypatch, animated,
+                                     case):
+    """B3 (block lists built in the kernel, warps walking alone on their
+    live lanes' bounds) against its plain version on 3,072 triangles:
+    65,536 ``adversarial_rays``; a ragged wavefront (65,436 lanes, the last
+    block padded with dead lanes) with every seventh lane, one whole warp
+    and one whole block dead (maxt -1); the triangles of one chunk copied
+    into a pad chunk of another group that the walks of rays from outside
+    the mesh reach first (``equal_t_tables``: equal t in two groups, the
+    first row must win; adversarial rays start too close to the mesh for
+    any block to order the two groups apart); and lists of 3 groups a
+    round (the scene's 13 groups in 5 rounds).
+    Closest-hit: t bit for bit, prim and the whole record equal on every
+    lane; any-hit: occlusion exact."""
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    tmax = 0.0015 if animated else 0.0
+    if case == "equal_t":
+        ray = _rays(1 << 16, 10, cuda, -4.0, tmax)
+    elif case == "dead":
+        ray = _rays((1 << 16) - 100, 9, cuda, -4.0, tmax)
+        lane = torch.arange(ray.maxt.shape[0], device=cuda)
+        dead = (lane % 7 == 3) | ((lane >= 64) & (lane < 96)) \
+            | ((lane >= 512) & (lane < 768))
+        ray = ray._replace(maxt=torch.where(dead, -1.0, ray.maxt))
+    else:
+        ray = adversarial_rays(sa, 1 << 16, 12, cuda)
+    tables = stream.stream_tables(sa)
+    if case == "equal_t":
+        tables, k, p = equal_t_tables(
+            tables, stream.intersect_stream_reference(sa, ray).prim,
+            stream.group_keys(tables, stream.prepare(tables, ray)))
+        monkeypatch.setitem(sa._cache, "stream", tables)
+    cap = 3 if case == "rounds" else None
+    prep = stream.prepare(tables, ray)
+    stream.reset_launch_counts()
+    out_k = stream.launch(tables, prep, False, cap=cap)
+    _, p_any = stream.launch(tables, prep, True, cap=cap)
+    torch.cuda.synchronize()
+    assert stream.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    n = ray.maxt.shape[0]
+    out_r = stream.intersect_stream_reference(sa, ray)
+    hit = out_r.prim >= 0
+    assert int(hit.sum()) > 5000
+    for f, a, b in zip(ik.HitRecord._fields, out_k, out_r):
+        assert torch.equal(a[:n], b), f
+    assert torch.equal(p_any[:n] >= 0, hit)
+    assert not bool((out_k.prim[n:] >= 0).any())
+    if case == "equal_t":
+        copied = torch.isin(out_r.prim, tables.slots[32 * k:32 * k + 32])
+        assert int((copied & hit).sum()) > 100
+        keys = stream.group_keys(tables, prep)
+        assert bool((keys[:, p // 8] < keys[:, k // 8]).any())
+    if case == "rounds":
+        assert -(-tables.n_chunks // 8 // cap) > 1

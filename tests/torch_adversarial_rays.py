@@ -1,5 +1,6 @@
 """Rays that stress a conservative ray-triangle gate
-(``adversarial_rays``), for the port's tests of B6 on the CPU
+(``adversarial_rays``), and B3's tables with equal-t hits in two groups of
+chunks (``equal_t_tables``), for the port's tests of B6 and B3 on the CPU
 (tests/test_torch_alt_kernels.py) and on the card
 (tests/test_torch_cuda.py). Imports only the port (no jax)."""
 
@@ -75,3 +76,45 @@ def adversarial_rays(sa, n, seed, device):
     return Ray(Vec3(*(f(o[:, i]) for i in range(3))),
                Vec3(*(f(d[:, i]) for i in range(3))), f(tri_time[pick]),
                f(maxt))
+
+
+def equal_t_tables(tb, prim, keys):
+    """B3's tables (``intersect_stream.StreamTables``) with the triangles of
+    one chunk copied into a pad chunk of the same transform group in
+    another group of eight chunks, whose box is made the scene's widened
+    by 1 on every side: a ray that hits a copied triangle hits its copy at
+    the same t, from a higher table row, and a block whose key for the
+    original's group is above 0 reaches the copy's group first. The chunk
+    is, among those that have such a pad chunk, the one that holds the
+    most winners ``prim`` (slots of each lane; -1 for a miss) in blocks
+    whose key (``keys``: ``group_keys`` of the tables, (n_blocks,
+    n_groups)) for its group is above 0. Returns (tables, chunk, copy)."""
+    n = tb.n_chunks
+    dev = tb.aabb.device
+    pad = tb.aabb[:, 0] > tb.aabb[:, 3]
+    real = tb.geom[:, 3:9].abs().sum(dim=1) > 0.0
+    row_of = torch.full((int(tb.slots.max()) + 1,), -1, dtype=torch.int64,
+                        device=dev)
+    row_of[tb.slots[real].long()] = real.nonzero()[:, 0]
+    lane = (prim >= 0).nonzero()[:, 0]
+    chunk = row_of[prim[lane].long()] // 32
+    ok = (chunk >= 0) & (keys[lane // 256, chunk.clamp(min=0) // 8] > 0.0)
+    wins = torch.bincount(chunk[ok], minlength=n)
+    ci = tb.meta[:, 0]
+    group = torch.arange(n, device=dev) // 8
+    for k in wins.argsort(descending=True).tolist():
+        cand = (pad & (ci == ci[k]) & (group != k // 8)).nonzero()[:, 0]
+        if len(cand):
+            p = int(cand[0])
+            break
+    rec = slice(32 * k, 32 * k + 32)
+    tri, geom, aabb = tb.tri.clone(), tb.geom.clone(), tb.aabb.clone()
+    tri[32 * p:32 * p + 32] = tri[rec]
+    geom[32 * p:32 * p + 32] = geom[rec]
+    aabb[p, :3] = tb.aabb[~pad, :3].amin(dim=0) - 1.0
+    aabb[p, 3:] = tb.aabb[~pad, 3:].amax(dim=0) + 1.0
+    ga = aabb.reshape(-1, 8, 6)
+    grp = torch.cat([ga[:, :, :3].amin(dim=1), ga[:, :, 3:].amax(dim=1)],
+                    dim=1)
+    return (tb._replace(tri=tri, geom=geom, aabb=aabb, grp=grp.contiguous()),
+            k, p)
