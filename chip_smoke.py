@@ -5,6 +5,7 @@
     python3 chip_smoke.py --b1-walk CHECKOUT
     python3 chip_smoke.py --b6-walk CHECKOUT
     python3 chip_smoke.py --b3-walk CHECKOUT
+    python3 chip_smoke.py --b4-walk CHECKOUT
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
@@ -16,7 +17,9 @@ four canonical wavefronts, and ``--b6-walk CHECKOUT`` its B6 on the 40k
 scene's binned camera, bounce and shadow wavefronts (kernel and query)
 and its 40k render through MI_STREAM_KERNEL=mxu; ``--b3-walk CHECKOUT``
 its B3 on those wavefronts and on those of the lower strip (phase 4a)
-and its 40k render through MI_STREAM_KERNEL=v1. Every phase raises on
+and its 40k render through MI_STREAM_KERNEL=v1, and ``--b4-walk
+CHECKOUT`` its B4 (kernel, query and lists) on the same six wavefronts and
+its 40k render through MI_STREAM_KERNEL=v2. Every phase raises on
 failure:
 
   1. the card: name and power limit (nvidia-smi);
@@ -44,15 +47,18 @@ failure:
      shadow rays toward the point light and diffuse bounce rays from the
      camera hits; closest-hit and any-hit, over binned rays (B2 unbinned
      too). t bitwise equal on hit lanes, prim different only at ties in t,
-     occlusion exact, and for B3 the whole hit record equal where prim is;
+     occlusion exact, for B4 prim equal on every lane, and for B3 the
+     whole hit record equal where prim is;
      then times on the binned camera (closest-hit) and shadow (any-hit)
-     wavefronts, and B2's on the binned bounce wavefront too: kernel,
-     visit lists in PyTorch (prepare) and query; for B2 the units a walk
+     wavefronts, and B2's and B4's on the binned bounce wavefront too:
+     kernel, visit lists in PyTorch (prepare) or the kernel's own lists
+     alone (B2, B4) and query; for B2 the units a walk
      needs per 256-lane block and per 32-lane warp (mean, p99, max, share
      of the tests in the slowest 1%); bounds from the work a plain walk
-     needs (WalkWork); B2's in-kernel visit lists against
-     _unit_visit_order, bit for bit, also with a capacity that forces
-     rounds (and B2's walk with it against the plain version); for B6
+     needs (WalkWork); B2's and B4's in-kernel visit lists against
+     _unit_visit_order and _visit_order, bit for bit, also with a
+     capacity that forces rounds (and each walk with it against its plain
+     version); for B4 the quarters its warps' walks test; for B6
      also its bounce wavefront, the chunks its warps' walks test per
      32-lane warp, and the share of those pairs that its gate passes to
      the exact test, by the gate's plain version (mxu_gate_reference) on
@@ -63,9 +69,9 @@ failure:
   4a. the lower strip of the 40k frame (pixel rows 192-207: camera rays
      that pass under the sphere's lower half to the floor, the render's
      longest walks), its camera, bounce and shadow wavefronts, binned: B3
-     against its plain version (t bitwise, prim and the record equal,
-     occlusion exact), its times and bound; B2's times and walk there as
-     a measurement;
+     and B4 against their plain versions (t bitwise, prim equal, B3's
+     record equal, occlusion exact), their times and bounds; B2's times
+     and walk there as a measurement;
   4b. B2 on a 65,536-lane slice of the 100k animated scene's camera
      wavefront and its bounce and shadow rays: the in-kernel lists (one
      round and rounds of 1,024) and the walk against the plain version;
@@ -93,12 +99,14 @@ float32 rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s outside
 the tensor cores). For B2-B6 the operations count the units, quarters or
 chunks that a walk of the timed wavefront's visit lists must test, computed
 in PyTorch from the lists and the plain versions' results (``WalkWork``),
-not from counters in the kernels: per 256-lane block for B4 and B5, per
-32-lane warp for B2, B3 and B6 (whose warps stop on their own bounds; B6's
-and B3's each with its own slab test of a chunk's boxes over its live
-lanes), plus B2's and B3's lists (a slab test per block and unit or
-group, n log2 n compares to sort) and B3's chunk gates. B1's count the slots,
-instances and boxes that each warp's gate makes it test (``b1_work``, from
+not from counters in the kernels: per 256-lane block for B5, per 32-lane
+warp for B2, B3, B4 and B6 (whose warps stop on their own bounds; B6's,
+B4's and B3's each with its own slab test of a chunk's or quarter's boxes
+over its live lanes), plus B2's, B3's and B4's lists (a slab test per
+block and unit, group or chunk, n log2 n compares to sort) and B3's chunk
+and B4's quarter gates; B4's per-block bound is printed beside its own.
+B1's count the slots, instances and boxes that each warp's gate makes it
+test (``b1_work``, from
 the gate's plain version ``b1_warp_masks``); the dense count (every lane
 tests every slot) is printed beside it. B6 has a second bound, for its
 tensor cores: the larger of the bytes over the memory rate, the product's
@@ -470,6 +478,65 @@ def b3_bound(walk, ray_ops):
     return bound(n_bytes, n_ops), summary
 
 
+def b4_times(v2, sa, ray_s, any_hit):
+    """(kernel, query, lists) ms of B4 on one binned wavefront: the query
+    is ``intersect_v2`` as the route calls it. A B4 that builds its lists
+    itself (``v2.lists`` exists) launches on the rays, and ``lists`` times
+    the same list code alone (with the lists' write to device memory); an
+    earlier one launches on ``prepare``'s lists, and ``lists`` times
+    ``prepare``."""
+    tables = v2.v2_tables(sa)
+    q_ms = cuda_time_ms(lambda: v2.intersect_v2(sa, ray_s, any_hit=any_hit))
+    if hasattr(v2, "lists"):
+        k_ms = cuda_time_ms(lambda: v2.launch(tables, ray_s, any_hit))
+        l_ms = cuda_time_ms(lambda: v2.lists(tables, ray_s), reps=5)
+    else:
+        prep = v2.prepare(tables, ray_s)
+        k_ms = cuda_time_ms(lambda: v2.launch(tables, prep, any_hit))
+        l_ms = cuda_time_ms(lambda: v2.prepare(tables, ray_s), reps=5)
+    return k_ms, q_ms, l_ms
+
+
+def b4_bound(walk, ray_ops):
+    """B4's bound on a walk's wavefront (``WalkWork.b4_warps``): the
+    Möller tests of the quarters its warps' walks test, the scene-box
+    clamp of each lane, the block lists (a slab test per block and chunk,
+    n log2 n compares to sort) and the warps' quarter gates (a slab test
+    per quarter of each entry they reach) over the float32 rate; the rays,
+    the results, the geometry of each quarter tested once (36 bytes a
+    triangle) and the boxes over the memory rate. Returns ((bound_ms,
+    bound_by), a summary of the walk)."""
+    import torch
+    per_warp, tested, _, reach = walk.b4_warps()
+    n_chunks = walk.tb2.n_chunks
+    m = (walk.tlo128 < walk.BIG).sum(dim=1).double()
+    sort_ops = float((m * torch.log2(torch.clamp(m, min=2.0))).sum())
+    need = int(per_warp.sum())
+    distinct = int(tested.any(dim=0).sum())
+    n_ops = (need * 32 * 32 * MOLLER_OPS + ray_ops + walk.n * EXIT_OPS
+             + walk.nb * n_chunks * SLAB_OPS + sort_ops
+             + int(reach.sum()) * 4 * SLAB_OPS)
+    n_bytes = (walk.n * (32 + 8) + distinct * 32 * 36
+               + n_chunks * (5 * 24 + 8))
+    pw = per_warp.double()
+    summary = (f"a plain walk tests {need} quarters over {walk.n // 32} "
+               f"warps (per warp mean {float(pw.mean()):.2f}, p99 "
+               f"{float(torch.quantile(pw, 0.99)):.0f}, max "
+               f"{int(per_warp.max())}; {distinct} distinct), reaching "
+               f"{float(reach.double().mean()):.2f} of a mean "
+               f"{float(m.mean()):.2f} list entries per warp")
+    return bound(n_bytes, n_ops), summary
+
+
+def b4_line(tag, wname, any_hit, times, n_lanes, card, extra=""):
+    """One line of B4's times on a binned 40k wavefront (``b4_times``)."""
+    k_ms, q_ms, l_ms = times
+    return (f"{tag} {wname} wavefront "
+            f"({'any-hit' if any_hit else 'closest-hit'}, binned, {n_lanes} "
+            f"lanes, 40k animated): kernel {k_ms:.4f} ms, query {q_ms:.4f} "
+            f"ms, lists {l_ms:.4f} ms{extra} ({card})")
+
+
 def render_40k(mi, obj, route, reset, read):
     """The 40k animated scene at 256x256 x 256 spp through
     MI_STREAM_KERNEL=``route``, twice, with ``reset()`` just before the
@@ -547,6 +614,33 @@ def b3_walk_main(root: str) -> int:
     if not bool(torch.isfinite(img).all()) or min(counts.values()) <= 0:
         fail(f"{tag}: the 40k render did not run through B3")
     print(f"{tag} render 40k animated 256x256x256 (MI_STREAM_KERNEL=v1): "
+          f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{256 ** 3 / warm_s / 1e6:.3f} Msamples/s; launches "
+          f"{counts} ({card})", flush=True)
+    return 0
+
+
+def b4_walk_main(root: str) -> int:
+    """``--b4-walk DIR``: B4's times alone, on the package of the checkout
+    at DIR: kernel, query and lists (the kernel's lists alone, or an
+    earlier B4's ``prepare``) on the 40k animated scene's binned camera,
+    bounce and shadow wavefronts of the middle and the lower strip, then
+    the 40k render through MI_STREAM_KERNEL=v2."""
+    import torch
+    card, mi, v2, obj, sa, waves = checkout_40k(root, "intersect_v2",
+                                                lower=True)
+    tag = f"B4 at {os.path.basename(os.path.abspath(root).rstrip(os.sep))}"
+    for wname, any_hit, ray in waves:
+        ray_s, _ = sort_wavefront(sa, ray)
+        print(b4_line(tag, wname, any_hit, b4_times(v2, sa, ray_s, any_hit),
+                      ray_s.o.x.shape[0], card), flush=True)
+        del ray_s
+    img, _, first_s, warm_s, counts = render_40k(
+        mi, obj, "v2", v2.reset_launch_counts,
+        lambda: dict(v2.LAUNCHES_BY_FORM))
+    if not bool(torch.isfinite(img).all()) or min(counts.values()) <= 0:
+        fail(f"{tag}: the 40k render did not run through B4")
+    print(f"{tag} render 40k animated 256x256x256 (MI_STREAM_KERNEL=v2): "
           f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
           f"{256 ** 3 / warm_s / 1e6:.3f} Msamples/s; launches "
           f"{counts} ({card})", flush=True)
@@ -821,29 +915,29 @@ def b1_walk_main(root: str) -> int:
     return 0
 
 
-def check_lists(v4, tag, sa, ray, cap=None):
-    """The kernel's visit lists (``v4.lists``) against
-    ``_unit_visit_order`` on ``prepare``'s inputs: order and t_lo bit for
-    bit, and the count of reachable units per block. Returns the largest
-    count and the most rounds a block took."""
+def check_lists(mod, tables, n_items, tag, ray, cap=None, what="units"):
+    """A kernel's visit lists (``mod.lists``: B2's over its units, B4's
+    over its chunks) against those of ``mod.prepare`` (``_unit_visit_order``,
+    ``_visit_order``) on the same rays: order and t_lo bit for bit, and the
+    count of reachable items per block. Returns the largest count and the
+    most rounds a block took."""
     import torch
-    tables = v4.v4_tables(sa)
-    order_k, tlo_k, len_k = v4.lists(tables, ray, cap)
-    order_r, tlo_r = v4.prepare(tables, ray)[4:]
+    order_k, tlo_k, len_k = mod.lists(tables, ray, cap)
+    order_r, tlo_r = mod.prepare(tables, ray)[4:]
     len_r = (tlo_r < 3.0e38).sum(dim=1, dtype=torch.int32)
     n_ord = int((order_k != order_r).sum())
     n_tlo = int((tlo_k.view(torch.int32) != tlo_r.view(torch.int32)).sum())
     n_len = int((len_k != len_r).sum())
     top = int(len_r.max())
-    c = cap or min(tables.n_units, 4096)
-    print(f"lists {tag}: {order_r.shape[0]} blocks x {tables.n_units} units, "
+    c = cap or min(n_items, 4096)
+    print(f"lists {tag}: {order_r.shape[0]} blocks x {n_items} {what}, "
           f"capacity {c}: reachable per block mean "
           f"{float(len_r.float().mean()):.1f}, max {top} "
           f"({-(-top // c)} rounds); order differs on {n_ord}, t_lo bits "
           f"on {n_tlo}, length on {n_len} blocks", flush=True)
     if n_ord or n_tlo or n_len:
         fail(f"lists {tag}: the kernel's visit lists differ from "
-             f"_unit_visit_order")
+             f"{mod.prepare.__module__.split('.')[-1]}.prepare's")
     return top, -(-top // c)
 
 
@@ -868,7 +962,7 @@ class WalkWork:
     BIG = 3.0e38
     CAP = 1.0e37
 
-    def __init__(self, sa, ray_s, t_ref, any_hit, t_b3=None):
+    def __init__(self, sa, ray_s, t_ref, any_hit, t_b3=None, t_b4=None):
         import torch
         from mitsuba3dopplertof_tpu_torch.ops import intersect_mxu as mxu
         from mitsuba3dopplertof_tpu_torch.ops import intersect_stream as st
@@ -876,7 +970,7 @@ class WalkWork:
         from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
         self.torch = torch
         self.any_hit = any_hit
-        self._b2 = self._b3 = self._b6 = None
+        self._b2 = self._b3 = self._b4 = self._b6 = None
         n = ray_s.o.x.shape[0]
         if n % self.BLOCK:
             raise ValueError("WalkWork: whole blocks only")
@@ -885,8 +979,9 @@ class WalkWork:
         self.n_units = tb4.n_units
         _, _, _, maxtp, self.order32, self.tlo32 = v4.prepare(tb4, ray_s)
         self.key32 = self._unsort(self.order32, self.tlo32)
-        tb2 = v2.v2_tables(sa)
-        self.order128, self.tlo128 = v2.prepare(tb2, ray_s)[4:]
+        self.tb2 = v2.v2_tables(sa)
+        self.prep2 = v2.prepare(self.tb2, ray_s)
+        self.order128, self.tlo128 = self.prep2[4:]
         tb6 = mxu.mxu_tables(sa)
         x, _, self.order128r, self.tlo128r = mxu.prepare(tb6, ray_s)
         self.sub6 = tb6.sub
@@ -894,6 +989,7 @@ class WalkWork:
         self.st, self.tb3 = st, st.stream_tables(sa)
         self.prep3 = st.prepare(self.tb3, ray_s)
         self.t_b3 = t_ref if t_b3 is None else t_b3
+        self.t_b4 = t_ref if t_b4 is None else t_b4
         if any_hit:
             hits = torch.zeros((n, tb4.n_units), dtype=torch.bool,
                                device=maxtp.device)
@@ -968,16 +1064,18 @@ class WalkWork:
             1, order.long()[:, :, None].expand(-1, -1, 4))
         return (k <= g[:, :, None]) & (k < self.BIG)
 
-    def _slab_lohi(self, blk, box=None, live_only=False):
+    def _slab_lohi(self, blk, box=None, live_only=False, x=None):
         """(t_lo, t_hi), (groups, boxes): the slab test of each group of
         ``blk`` lanes' ray bounds against each box of ``box`` (default: the
         unit boxes) with no far end (``_slab_visit_order``'s algebra;
         csrc/intersect_v4.cu's warp gate with blk = 32). ``live_only``: the
         bounds of the live lanes (maxt > 0) alone, as
-        csrc/intersect_mxu.cu takes them."""
+        csrc/intersect_mxu.cu takes them. ``x``: (8, N) ray rows in place
+        of B6's (``self.x``, whose maxt is not clamped)."""
         torch = self.torch
         box = self.box if box is None else box
-        x, blo, bhi = self.x, box[:, :3], box[:, 3:]
+        x = self.x if x is None else x
+        blo, bhi = box[:, :3], box[:, 3:]
         ng = x.shape[1] // blk
         xb = x.reshape(8, ng, blk)
         if live_only:
@@ -1157,6 +1255,65 @@ class WalkWork:
                                  1, idx, run.reshape(nw, -1))
         return (run.sum(dim=(1, 2)), tested, g, reach.sum(dim=1),
                 (tlo < self.BIG).sum(dim=1))
+
+    def b4_warps(self):
+        if self._b4 is None:
+            self._b4 = self._b4_warps()
+        return self._b4
+
+    def _b4_warps(self):
+        """The quarters csrc/intersect_v2.cu's walks must test per 32-lane
+        warp: the entries of its block's chunk list (``prepare``'s, which
+        the kernel's rounds take in the same order) up to the first whose
+        t_lo exceeds the warp's far end, then the quarters of those
+        entries whose boxes the warp's live rays can enter within it.
+        Far ends: closest-hit the largest over the warp's live lanes of
+        min(final t, clamped maxt) (``t_b4``, B4's plain t, or else
+        ``t_ref``), any-hit the largest clamped maxt of its
+        live lanes that no earlier entry occludes (B4's own Möller hit
+        sets, ``stream_chunk_hits`` over the same rows with the clamped
+        maxt), capped at 1e37 (-3e38 where none). The slab tests are the
+        kernel's (``_slab_lohi`` of the live lanes, inverted boxes never
+        entered). Returns (quarters per warp, (warps, 4 n_chunks) tested,
+        (warps, n_chunks) far end before each rank, (warps,) entries each
+        warp reaches)."""
+        torch = self.torch
+        tb = self.tb2
+        wl = 32
+        k = self.BLOCK // wl
+        nw = self.n // wl
+        o, d, time, maxt = self.prep2[:4]
+        order, n_list = self.order128, self.tb2.n_chunks
+        live = maxt > 0.0
+        if self.any_hit:
+            hits = self.st.stream_chunk_hits(
+                self.tb3, (o, d, time, maxt))[:, :4 * n_list]
+            first = self._first_rank(order, True, hits)
+            del hits
+            a = torch.full((nw, n_list + 1), -self.BIG, device=maxt.device)
+            a.scatter_reduce_(1, first.reshape(nw, wl), torch.where(
+                live, maxt, -self.BIG).reshape(nw, wl), reduce="amax")
+            g = torch.clamp(a.flip(1).cummax(dim=1).values.flip(1)
+                            [:, :n_list], max=self.CAP)
+        else:
+            g = torch.clamp(torch.where(
+                live, torch.minimum(self.t_b4, maxt), -self.BIG).reshape(
+                    nw, wl).amax(dim=1), max=self.CAP)[:, None].expand(
+                        nw, n_list)
+        reach = self._prefix(self.tlo128.repeat_interleave(k, dim=0), g)
+        x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [maxt])
+        lo_w, hi_w = self._slab_lohi(wl, tb.sub, live_only=True, x=x)
+        idx = (order.long().repeat_interleave(k, dim=0)[:, :, None] * 4
+               + torch.arange(4, device=maxt.device)).reshape(nw, -1)
+        qlo = lo_w.gather(1, idx).reshape(nw, n_list, 4)
+        qhi = hi_w.gather(1, idx).reshape(nw, n_list, 4)
+        del lo_w, hi_w
+        run = (reach[:, :, None] & (qlo <= torch.minimum(qhi, g[:, :, None]))
+               & (tb.sub[:, 0] <= tb.sub[:, 3])[idx].reshape(nw, n_list, 4))
+        tested = torch.zeros((nw, 4 * n_list), dtype=torch.bool,
+                             device=maxt.device).scatter_(
+                                 1, idx, run.reshape(nw, -1))
+        return run.sum(dim=(1, 2)), tested, g, reach.sum(dim=1)
 
     def b2_work(self):
         """(units tested over all warps, distinct units, operations of the
@@ -1487,10 +1644,12 @@ def main() -> int:
         print(f"{tag}: all 13 fields equal on {int(same.sum())} lanes",
               flush=True)
 
-    def check_t_prim(tag, t_k, p_k, t_r, p_r, any_hit, errs_k, skip=None):
+    def check_t_prim(tag, t_k, p_k, t_r, p_r, any_hit, errs_k, skip=None,
+                     exact_prim=False):
         """Occlusion exact on every lane; closest-hit: t bitwise equal on
-        hit lanes, prim different only at ties in t. ``skip``: lanes left
-        out (``zero_area_winner``), at most one in 100,000."""
+        hit lanes, prim different only at ties in t (with ``exact_prim``
+        on no lane). ``skip``: lanes left out (``zero_area_winner``), at
+        most one in 100,000."""
         if skip is not None and bool(skip.any()):
             n_skip = int(skip.sum())
             print(f"{tag}: {n_skip} lanes left out, the plain version's "
@@ -1519,7 +1678,7 @@ def main() -> int:
               flush=True)
         if n_tdiff:
             fail(f"{tag}: t not bitwise equal on {n_tdiff} lanes")
-        if n_pdiff > max(20, int(hit.sum()) // 10000):
+        if n_pdiff > (0 if exact_prim else max(20, int(hit.sum()) // 10000)):
             fail(f"{tag}: prim differs on {n_pdiff} lanes")
 
     rows = ["B2"] + [row for row, *_ in ALTERNATES]
@@ -1528,6 +1687,7 @@ def main() -> int:
     b2_rays = {}
     refs40 = {}
     refs40_b3 = {}
+    refs40_b4 = {}
     for label, (obj, sc, sab) in big.items():
         waves, n_valid = strip_waves(sc, sab, MIDDLE_ROW, seed=1)
         (_, _, cam), (_, _, bounce), (_, _, shadow) = waves
@@ -1580,11 +1740,14 @@ def main() -> int:
                     tag = (f"{row} {label} {wname} binned "
                            f"{'any-hit' if any_hit else 'closest-hit'}")
                     check_t_prim(tag, out[0], out[1], ref[0], ref[1],
-                                 any_hit, errs_l[row], skip)
+                                 any_hit, errs_l[row], skip,
+                                 exact_prim=row == "B4")
                     if row == "B3" and not any_hit:
                         check_record(tag, out, ref, skip)
                 if row == "B3" and label == "40k animated":
                     refs40_b3[wname] = (ref.t, ref.prim)
+                if row == "B4" and label == "40k animated":
+                    refs40_b4[wname] = (ref[0], ref[1], skip)
                 del out, ref
 
     # times at the main path's shapes: the binned camera wavefront of the
@@ -1610,7 +1773,9 @@ def main() -> int:
         t_ref[pos], p_ref[pos] = refs40[wname]
         t_b3, p_b3 = (torch.empty_like(r) for r in refs40_b3[wname])
         t_b3[pos], p_b3[pos] = refs40_b3[wname]
-        walk = WalkWork(sa40, ray_s, t_ref, any_hit, t_b3)
+        t_b4, p_b4, skip4 = (torch.empty_like(r) for r in refs40_b4[wname])
+        t_b4[pos], p_b4[pos], skip4[pos] = refs40_b4[wname]
+        walk = WalkWork(sa40, ray_s, t_ref, any_hit, t_b3, t_b4)
         n_lanes = ray_s.o.x.shape[0]
         ray_ops = n_lanes * n_anim * INV_LERP_OPS
         b2_t = b2_times(v4, sa40, ray_s, any_hit)
@@ -1627,7 +1792,8 @@ def main() -> int:
               f"warp, {distinct} distinct), its lists {list_ops:.4g} "
               f"operations; bound {b2_bound[0]:.4f} ms ({b2_bound[1]}) "
               f"({card})", flush=True)
-        check_lists(v4, f"40k {wname}", sa40, ray_s)
+        check_lists(v4, v4.v4_tables(sa40), n_units40, f"B2 40k {wname}",
+                    ray_s)
         # B6: the chunks its warps' walks test, and the share of those
         # pairs that its gate passes (plain version, on a slice)
         need6, distinct6, _ = walk.work("B6")
@@ -1645,6 +1811,24 @@ def main() -> int:
         b3_b, b3_walk = b3_bound(walk, ray_ops)
         print(f"B3 walk {wname} ({'any-hit' if any_hit else 'closest-hit'}):"
               f" {b3_walk}", flush=True)
+        # B4: its in-kernel lists against _visit_order; its times beside
+        # its bound per warp (WalkWork.b4_warps) and the earlier per-block
+        # one (WalkWork.work)
+        tb2 = alt_mod["B4"].v2_tables(sa40)
+        check_lists(alt_mod["B4"], tb2, tb2.n_chunks, f"B4 40k {wname}",
+                    ray_s, what="chunks")
+        b4_t = b4_times(alt_mod["B4"], sa40, ray_s, any_hit)
+        b4_b, b4_walk = b4_bound(walk, ray_ops)
+        need4, distinct4, _ = walk.work("B4")
+        b4_block = bound(n_lanes * (32 + 8) + distinct4 * 9 * 128 * 4
+                         + need4 * (8 + 8 + 24),
+                         need4 * walk.BLOCK * 32 * MOLLER_OPS + ray_ops)
+        plain4 = ("" if wname == "bounce" else
+                  f", plain {plain_ms['B4'][form]:.3f} ms")
+        print(b4_line("B4 time", wname, any_hit, b4_t, n_lanes, card,
+                      f"{plain4}; {b4_walk}; bound per warp {b4_b[0]:.4f} ms "
+                      f"({b4_b[1]}); per 256-lane block {b4_block[0]:.4f} ms "
+                      f"({need4} quarters)"), flush=True)
         if wname == "bounce":
             k_ms, q_ms = b3_times(alt_mod["B3"], sa40, ray_s, False)
             print(f"B3 time bounce (closest-hit) at {n_lanes} lanes (binned),"
@@ -1668,16 +1852,27 @@ def main() -> int:
                   f"ms; bound {b_cc[0]:.4f} ms ({b_cc[1]}) on the CUDA "
                   f"cores, {b_tc[0]:.4f} ms ({b_tc[1]}) with the tensor "
                   f"cores ({card})", flush=True)
+            # rounds: B4's lists and walk with a capacity of 16 chunks
+            check_lists(alt_mod["B4"], tb2, tb2.n_chunks, f"B4 40k {wname}",
+                        ray_s, cap=16, what="chunks")
+            t_k, p_k = alt_mod["B4"].launch(tb2, ray_s, False, cap=16)
+            torch.cuda.synchronize()
+            check_t_prim("B4 40k bounce binned closest-hit, capacity 16",
+                         t_k, p_k, t_b4, p_b4, False, errs_l["B4"], skip4,
+                         exact_prim=True)
             # rounds: lists and walk with a capacity of 100 entries
-            check_lists(v4, f"40k {wname}", sa40, ray_s, cap=100)
+            check_lists(v4, v4.v4_tables(sa40), n_units40,
+                        f"B2 40k {wname}", ray_s, cap=100)
             t_k, p_k = v4.launch(v4.v4_tables(sa40), ray_s, False, cap=100)
             torch.cuda.synchronize()
             check_t_prim("B2 40k bounce binned closest-hit, capacity 100",
                          t_k, p_k, t_ref, p_ref, False, errs_l["B2"])
-            del walk, ray_s, t_ref, p_ref, t_b3, p_b3, t_k, p_k
+            del walk, ray_s, t_ref, p_ref, t_b3, p_b3, t_b4, p_b4, skip4
+            del t_k, p_k
             continue
         times_l["B2"][form] = (b2_t[0], plain_ms["B2"][form], b2_bound)
-        for row in rows[1:]:
+        times_l["B4"][form] = (b4_t[0], plain_ms["B4"][form], b4_b)
+        for row in ("B5", "B3", "B6"):
             tables, prepare, isect, _ = alt_fn[row]
             tables = tables(sa40)
             mod = alt_mod[row]
@@ -1694,10 +1889,6 @@ def main() -> int:
                 n_ops = need * walk.BLOCK * 32 * WOOP_OPS + ray_ops
                 n_bytes = (n_lanes * (32 + 8) + distinct * UNIT_REC * 4
                            + need * (8 + 8))
-            elif row == "B4":
-                n_ops = need * walk.BLOCK * 32 * MOLLER_OPS + ray_ops
-                n_bytes = (n_lanes * (32 + 8) + distinct * 9 * 128 * 4
-                           + need * (8 + 8 + 24))
             else:
                 n_bytes = b6_n_bytes
                 n_ops = b6_pairs * WOOP_OPS + ray_ops
@@ -1722,7 +1913,7 @@ def main() -> int:
                   f"{distinct} distinct records); "
                   f"bound {b_ms:.4f} ms ({b_by}){extra} ({card})",
                   flush=True)
-        del walk, ray_s, t_ref, p_ref, t_b3, p_b3
+        del walk, ray_s, t_ref, p_ref, t_b3, p_b3, t_b4, p_b4, skip4
     # what binning saves: the units a closest-hit walk of the bounce
     # wavefront needs per 256-lane block, in the wavefront's own order and
     # binned
@@ -1736,16 +1927,16 @@ def main() -> int:
     print(f"bounce wavefront, units a walk needs per block: unbinned "
           f"{per_block[0]:.1f}, binned {per_block[1]:.1f}", flush=True)
     del bounce_s, t_ref
-    del b2_rays, cam40, shadow40, bounce40, refs40, refs40_b3
+    del b2_rays, cam40, shadow40, bounce40, refs40, refs40_b3, refs40_b4
 
     # ---- 4a. the lower strip of the 40k frame -----------------------------
     # camera rays of pixel rows LOWER_ROW.. that pass under the sphere's
     # lower half to the floor, and their bounce and shadow rays, binned: B3
-    # against its plain version (t bitwise, prim equal, the record equal
-    # where prim is, occlusion exact), its kernel and query times and its
-    # bound; B2's times and walk as a measurement (its far ends from B3's
-    # plain t, which differs from B2's in the last bits)
-    st3 = alt_mod["B3"]
+    # and B4 against their plain versions (t bitwise, prim equal, B3's
+    # record equal where prim is, occlusion exact), their kernel and query
+    # times and their bounds; B2's times and walk as a measurement (its far
+    # ends from B3's plain t, which differs from B2's in the last bits)
+    st3, v2m = alt_mod["B3"], alt_mod["B4"]
     waves_lo, n_valid = strip_waves(big["40k animated"][1], sa40, LOWER_ROW,
                                     seed=5)
     print(f"40k lower strip, pixel rows {LOWER_ROW}-{LOWER_ROW + 15}: "
@@ -1765,9 +1956,25 @@ def main() -> int:
             if not ah:
                 check_record(tag, out, ref, skip)
         del out
-        walk = WalkWork(sa40, ray_s, ref.t, any_hit)
+        ref4, p4_ms = timed_ms(lambda: v2m.intersect_v2_reference(sa40,
+                                                                 ray_s))
+        skip4 = zero_area_winner(sa40, ref4[1])
+        for ah in (False, True):
+            out = v2m.intersect_v2(sa40, ray_s, any_hit=ah)
+            torch.cuda.synchronize()
+            check_t_prim(f"B4 40k lower {wname} binned "
+                         f"{'any-hit' if ah else 'closest-hit'}", out[0],
+                         out[1], ref4[0], ref4[1], ah, errs_l["B4"], skip4,
+                         exact_prim=True)
+        del out
+        walk = WalkWork(sa40, ray_s, ref.t, any_hit, t_b4=ref4[0])
         n_lanes = ray_s.o.x.shape[0]
         ray_ops = n_lanes * n_anim * INV_LERP_OPS
+        b4_b, b4_walk = b4_bound(walk, ray_ops)
+        print(b4_line("B4 time", f"lower {wname}", any_hit,
+                      b4_times(v2m, sa40, ray_s, any_hit), n_lanes, card,
+                      f", plain {p4_ms:.3f} ms; {b4_walk}; bound per warp "
+                      f"{b4_b[0]:.4f} ms ({b4_b[1]})"), flush=True)
         b3_b, b3_walk = b3_bound(walk, ray_ops)
         k_ms, q_ms = b3_times(st3, sa40, ray_s, any_hit)
         print(f"B3 time lower {wname} "
@@ -1778,7 +1985,7 @@ def main() -> int:
         print(walk_line("B2", f"lower {wname}", any_hit,
                         b2_times(v4, sa40, ray_s, any_hit),
                         walk.b2_distribution(), card), flush=True)
-        del walk, ray_s, ref, skip
+        del walk, ray_s, ref, skip, ref4, skip4
     del waves_lo
 
     # ---- 4b. B2 on the 100k animated scene: a 65,536-lane slice -------------
@@ -1802,8 +2009,10 @@ def main() -> int:
     for wname, ray in (("camera", cam100), ("bounce", bounce100),
                        ("shadow", shadow100)):
         ray_s, _ = sort_wavefront(sa100, ray)
-        check_lists(v4, f"100k {wname}", sa100, ray_s)
-        check_lists(v4, f"100k {wname}", sa100, ray_s, cap=1024)
+        tb100 = v4.v4_tables(sa100)
+        check_lists(v4, tb100, tb100.n_units, f"B2 100k {wname}", ray_s)
+        check_lists(v4, tb100, tb100.n_units, f"B2 100k {wname}", ray_s,
+                    cap=1024)
         t_r, p_r = v4.intersect_v4_reference(sa100, ray_s)
         for any_hit in (False, True):
             t_k, p_k = v4.intersect_v4(sa100, ray_s, any_hit=any_hit)
@@ -1997,7 +2206,10 @@ if __name__ == "__main__":
         sys.exit(b6_walk_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--b3-walk":
         sys.exit(b3_walk_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--b4-walk":
+        sys.exit(b4_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
         fail("usage: chip_smoke.py [--b2-walk CHECKOUT | --b1-walk "
-             "CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT]")
+             "CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT | "
+             "--b4-walk CHECKOUT]")
     sys.exit(main())

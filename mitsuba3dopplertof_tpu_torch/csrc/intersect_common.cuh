@@ -1,11 +1,12 @@
-// Shared device code of the alternate large-scene kernels B3-B6
-// (intersect_stream.cu, intersect_v2.cu, intersect_v3.cu, intersect_mxu.cu):
+// Shared device code of the large-scene kernels B2-B6 (intersect_v4.cu,
+// intersect_stream.cu, intersect_v2.cu, intersect_v3.cu, intersect_mxu.cu):
 // the ray in a transform group's hit space, the block's ray bounds and its
-// conservative slab test against a box, block-wide reductions, and the two
-// ray-triangle tests. Every function keeps the order of operations of the
-// plain PyTorch versions (and of the TPU kernels they come from); the files
-// that include it are built with --fmad=false, so each product and sum
-// rounds on its own.
+// conservative slab test against a box, block-wide reductions, the two
+// ray-triangle tests, the scene-box clamp of maxt, and the sorted lists of
+// the boxes a group of rays can enter. Every function keeps the order of
+// operations of the plain PyTorch versions (and of the TPU kernels they
+// come from); the files that include it are built with --fmad=false, so
+// each product and sum rounds on its own.
 
 #pragma once
 
@@ -244,6 +245,44 @@ __device__ __forceinline__ bool woop_hit(const float* g, const float* r,
     return true;
   }
   return false;
+}
+
+// torch.minimum / torch.maximum: NaN if either is NaN, else the same
+// instruction PyTorch's CUDA kernels issue
+__device__ __forceinline__ float tmin(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+// torch.clamp(x, max=3e38): NaN stays NaN
+__device__ __forceinline__ float clamp_big(float x) {
+  return x > kBig ? kBig : x;
+}
+
+// Exit distance of the scene box, as intersect_v2.scene_box_exit (B2 and B4
+// clamp each lane's maxt by it): a ray hits nothing past the point where it
+// leaves the box; -1 if it misses it.
+__device__ __forceinline__ float scene_exit(const float* sb, const float* w) {
+  float t_en = -kBig, t_ex = kBig;
+  for (int ax = 0; ax < 3; ++ax) {
+    float oa = w[ax], da = w[3 + ax];
+    float lo = __ldg(sb + ax), hi = __ldg(sb + 3 + ax);
+    bool ok = fabsf(da) > 1e-20f;
+    float inv = 1.0f / (ok ? da : 1.0f);
+    float ta = (lo - oa) * inv;
+    float tb = (hi - oa) * inv;
+    float alo = tmin(ta, tb), ahi = tmax(ta, tb);
+    bool inside = (oa >= lo) && (oa <= hi);
+    alo = ok ? alo : (inside ? -kBig : kBig);
+    ahi = ok ? ahi : (inside ? kBig : -kBig);
+    t_en = tmax(t_en, alo);
+    t_ex = tmin(t_ex, ahi);
+  }
+  bool hit_box = (t_en <= t_ex) && (t_ex > 0.0f);
+  float ex = clamp_big(t_ex) * 1.001f;
+  ex = ex + 1e-4f;
+  return hit_box ? ex : -1.0f;
 }
 
 // A lane's term of the ordered walks' bound: min(t, maxt) for closest-hit;

@@ -88,42 +88,10 @@ struct Rays {
   long long n;
 };
 
-// torch.minimum / torch.maximum: NaN if either is NaN, else the same
-// instruction PyTorch's CUDA kernels issue
-__device__ __forceinline__ float tmin(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-__device__ __forceinline__ float tmax(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-// torch.clamp(x, max=3e38): NaN stays NaN
-__device__ __forceinline__ float clamp_big(float x) {
-  return x > kBig ? kBig : x;
-}
-
-// Exit distance of the scene box, as intersect_v2.scene_box_exit: a ray
-// hits nothing past the point where it leaves the box; -1 if it misses it.
-__device__ __forceinline__ float scene_exit(const float* sb, const float* w) {
-  float t_en = -kBig, t_ex = kBig;
-  for (int ax = 0; ax < 3; ++ax) {
-    float oa = w[ax], da = w[3 + ax];
-    float lo = __ldg(sb + ax), hi = __ldg(sb + 3 + ax);
-    bool ok = fabsf(da) > 1e-20f;
-    float inv = 1.0f / (ok ? da : 1.0f);
-    float ta = (lo - oa) * inv;
-    float tb = (hi - oa) * inv;
-    float alo = tmin(ta, tb), ahi = tmax(ta, tb);
-    bool inside = (oa >= lo) && (oa <= hi);
-    alo = ok ? alo : (inside ? -kBig : kBig);
-    ahi = ok ? ahi : (inside ? kBig : -kBig);
-    t_en = tmax(t_en, alo);
-    t_ex = tmin(t_ex, ahi);
-  }
-  bool hit_box = (t_en <= t_ex) && (t_ex > 0.0f);
-  float ex = clamp_big(t_ex) * 1.001f;
-  ex = ex + 1e-4f;
-  return hit_box ? ex : -1.0f;
-}
+using mi::clamp_big;
+using mi::scene_exit;
+using mi::tmax;
+using mi::tmin;
 
 // Lane `lane` of the rays: the world ray w (o, d), its time and its maxt
 // clamped to 3e38 and to the scene-box exit. Lanes past n repeat the last

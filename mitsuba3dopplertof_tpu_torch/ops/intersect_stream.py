@@ -219,9 +219,10 @@ def _chunk_boxes(sa, n_chunks: int) -> torch.Tensor:
 
 def _launch_walk(name: str, library: CudaLibrary, records, boxes, tables,
                  n_list: int, prep, any_hit: bool):
-    """One launch of an ordered (t, prim) walk with the C interface that
-    B5 and B4 share: ``mi_<name>(records, meta, inst, boxes, order, tlo,
-    n_list, has_anim, 8 ray columns, n, any_hit, t, prim, stream)`` of ``library``, built and loaded once the inputs pass.
+    """One launch of an ordered (t, prim) walk over visit lists built in
+    PyTorch (B5's C interface): ``mi_<name>(records, meta, inst, boxes,
+    order, tlo, n_list, has_anim, 8 ray columns, n, any_hit, t, prim,
+    stream)`` of ``library``, built and loaded once the inputs pass.
     ``prep``: (o, d, time, maxt, order, tlo), one visit list of ``n_list``
     entries per block of ``BLOCK`` lanes. Returns (t, prim) at the padded
     length; raises if the launch fails."""

@@ -82,14 +82,13 @@ def _woop_records(sa, segments, n_units: int) -> torch.Tensor:
         n_units, UNIT_REC).contiguous()
 
 
-def _slab_visit_order(blo, bhi, x, blk: int):
-    """Per-block front-to-back visit lists over boxes (``blo``, ``bhi``:
-    (n, 3) corners; an inverted box is never visited). ``x``: (8, N) rows
+def _slab_keys(blo, bhi, x, blk: int):
+    """(N / blk, n) entry distances of each block of ``blk`` lanes into
+    each box (``blo``, ``bhi``: (n, 3) corners; an inverted box is never
+    entered), 3e38 where the block cannot enter it. ``x``: (8, N) rows
     ox oy oz 1 dx dy dz maxt, N a multiple of ``blk``. A conservative slab
-    test of each block's ray bounds against each box gives its entry
-    distance t_lo; unreachable boxes are keyed to 3e38. Returns (order,
-    t_lo sorted), both (N / blk, n); the sort is stable, as
-    ``jnp.argsort``."""
+    test of each block's ray bounds against each box within the block's
+    largest maxt gives its entry distance t_lo."""
     n_units = blo.shape[0]
     nb = x.shape[1] // blk
     xb = x.reshape(8, nb, blk)
@@ -122,7 +121,14 @@ def _slab_visit_order(blo, bhi, x, blk: int):
         t_lo = torch.maximum(t_lo, lo)
         t_hi = torch.minimum(t_hi, hi)
     possible = (t_lo <= t_hi) & live[None, :]
-    key = torch.where(possible, t_lo, _BIG)
+    return torch.where(possible, t_lo, _BIG)
+
+
+def _slab_visit_order(blo, bhi, x, blk: int):
+    """Per-block front-to-back visit lists over boxes: the boxes sorted by
+    ``_slab_keys``, unreachable ones (3e38) last. Returns (order, t_lo
+    sorted), both (N / blk, n); the sort is stable, as ``jnp.argsort``."""
+    key = _slab_keys(blo, bhi, x, blk)
     order = torch.argsort(key, dim=1, stable=True)
     return (order.to(torch.int32).contiguous(),
             torch.gather(key, 1, order).contiguous())

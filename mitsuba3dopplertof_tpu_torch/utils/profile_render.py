@@ -9,9 +9,10 @@ scene: one first render and three warm renders timed on
 the host clock (each ends in ``torch.cuda.synchronize()``), then one warm
 render under ``torch.profiler`` (CPU and CUDA activities) with its device
 kernel time summed by group: the six ray-query kernels B1-B6 by their
-kernel names (B2: ``v4_walk_kernel``, which builds its visit lists
-itself), the visit lists that B5, B4 and B6 build in PyTorch (every
-kernel that runs inside their ``prepare``, marked by a profiler range),
+kernel names (B2: ``v4_walk_kernel``, B4: ``v2_walk_kernel``, which
+build their visit lists themselves), the visit lists that B5 and B6 build
+in PyTorch (every kernel that runs inside their ``prepare``, marked by a
+profiler range),
 sorts, gathers and scatters, and the rest. The device
 busy share is the kernel time over the median unprofiled wall time; the
 rest of the wall the card idles. The phases of ``core/logger.profile_phase``
@@ -43,24 +44,23 @@ import torch
 # kernel-name fragments of each group, first match wins
 _GROUPS = (("B1 intersect_bruteforce", ("intersect_kernel",)),
            ("B5 intersect_v3", ("v3_walk_kernel",)),
-           ("B4 intersect_v2", ("v2_walk_kernel",)),
+           ("B4 intersect_v2", ("v2_walk_kernel", "v2_lists_kernel")),
            ("B3 intersect_stream", ("stream_kernel",)),
            ("B6 intersect_mxu", ("mxu_kernel",)),
            ("B2 intersect_v4", ("v4_walk_kernel", "v4_lists_kernel")),
            ("sort", ("sort", "Sort", "radix")),
            ("gather/scatter", ("index", "gather", "scatter")))
 _LISTS = "visit lists"
-_LISTS_GROUP = "visit lists (PyTorch prepare of B5, B4, B6)"
+_LISTS_GROUP = "visit lists (PyTorch prepare of B5, B6)"
 
 
 @contextlib.contextmanager
 def _marked_lists():
-    """Every route's visit lists built in PyTorch (``prepare`` of B5, B4
-    and B6; B2 builds its own in the kernel, B3 has none) under one
-    profiler range."""
-    from ..ops import intersect_mxu, intersect_v2, intersect_v4
-    saved = [(m, m.prepare) for m in (intersect_v4, intersect_v2,
-                                      intersect_mxu)]
+    """Every route's visit lists built in PyTorch (``prepare`` of B5 and
+    B6; B2, B3 and B4 build their own in the kernel) under one profiler
+    range."""
+    from ..ops import intersect_mxu, intersect_v4
+    saved = [(m, m.prepare) for m in (intersect_v4, intersect_mxu)]
 
     def marked(fn):
         def prepare(*args, **kwargs):

@@ -6,9 +6,10 @@ the oracle ``_hit_reference`` and against the Pallas kernel run in
 interpret mode (as tests/test_v3_kernel.py, test_v2_kernel.py,
 test_mxu_kernel.py and test_pallas_parity.py run them), and each route as a
 whole: the 2k animated-mesh scene rendered by the port with the route
-selected against the JAX package's render; and B3's walk, simulated step by
-step in plain PyTorch, against B3's plain version and against the work
-that chip_smoke.py's bound counts (no JAX call). Inputs are made with numpy
+selected against the JAX package's render; and B3's and B4's walks (B4's
+chunk lists too), simulated step by step in plain PyTorch, against their
+plain versions and against the work that chip_smoke.py's bounds count (no
+JAX call). Inputs are made with numpy
 from a seed; each tolerance is stated where it is used. The CUDA kernels
 run only on the card (tests/test_torch_cuda.py)."""
 
@@ -38,7 +39,8 @@ from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as tv4
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
     animated_mesh_scene
 
-from torch_adversarial_rays import adversarial_rays, equal_t_tables
+from torch_adversarial_rays import (adversarial_rays, equal_t_tables,
+                                    equal_t_v2_tables)
 from torch_port_helpers import (F32_ULP, assert_t_prim, both_rays,
                                 build_mixed_scene, jax_mesh_render,
                                 shell_rays)
@@ -665,8 +667,33 @@ def test_stream_group_lists_in_rounds(walk_case):
             assert torch.equal(walk.prim, one.prim)
 
 
+@pytest.fixture(scope="module")
+def v2_case(scene, walk_case):
+    """B4's tables of the mixed scene, ``walk_case``'s 4,096 rays (shell,
+    coherent and adversarial, with dead lanes) and B4's plain (t, prim) on
+    them."""
+    ray = walk_case[1]
+    return (tv2.v2_tables(scene[1]), ray,
+            tv2.intersect_v2_reference(scene[1], ray))
+
+
+@pytest.fixture(scope="module")
+def walk_work(scene, walk_case, v2_case):
+    """chip_smoke.py's ``WalkWork`` on ``walk_case``'s rays, one for each
+    form (any_hit False, True), with B3's plain t and B4's: built once
+    for the B3 and B4 count tests."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ray, ref = walk_case[1:]
+    t_b4 = v2_case[2][0]
+    return {a: chip_smoke.WalkWork(scene[1], ray, ref.t, a, t_b4=t_b4)
+            for a in (False, True)}
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_stream_walk_counts_match_chip_smoke(scene, walk_case, any_hit):
+def test_stream_walk_counts_match_chip_smoke(walk_case, walk_work, any_hit):
     """chip_smoke.py's count of the chunks B3's warps must test
     (``WalkWork.b3_warps``, vectorised) equals the step-by-step walk's with
     the same far ends, chunk for chunk and warp by warp, and that walk
@@ -674,13 +701,8 @@ def test_stream_walk_counts_match_chip_smoke(scene, walk_case, any_hit):
     those chunks and more closest-hit (its far end only shrinks to the
     final one), and no others any-hit (it stops inside an entry once every
     live lane is occluded)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     tb, ray, ref = walk_case
-    per_warp, tested, far, _, _ = chip_smoke.WalkWork(
-        scene[1], ray, ref.t, any_hit).b3_warps()
+    per_warp, tested, far, _, _ = walk_work[any_hit].b3_warps()
     prep = tstream.prepare(tb, ray)
     walk = tstream.stream_walk_reference(tb, prep, any_hit, far=far)
     assert torch.equal(walk.tested, tested)
@@ -692,4 +714,93 @@ def test_stream_walk_counts_match_chip_smoke(scene, walk_case, any_hit):
     if not any_hit:
         assert torch.equal(walk.t[hit], ref.t[hit])
     own = tstream.stream_walk_reference(tb, prep, any_hit).tested
+    assert torch.equal(own | tested, tested if any_hit else own)
+
+
+# ---------------------------------------------------------------------------
+# (g) B4's lists and walk: chunk lists by entry distance in rounds, warps
+#     on their own far ends and live-lane quarter gates, the (t, slot) tie
+#     rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [None, 1, 3])
+def test_v2_lists_match_visit_order(v2_case, cap):
+    """B4's in-kernel lists in plain PyTorch (``v2_lists_reference``)
+    equal ``_visit_order`` on ``prepare``'s inputs bit for bit: the same
+    order and bitwise-equal t_lo, in one round and in rounds of 1 and 3
+    chunks; the reachable count per block, with some blocks reaching every
+    chunk and the block of dead lanes none."""
+    tb, ray, _ = v2_case
+    order_r, tlo_r = tv2.prepare(tb, ray)[4:]
+    order, tlo, length = tv2.v2_lists_reference(tb, ray, cap)
+    assert torch.equal(order, order_r)
+    assert torch.equal(tlo.view(torch.int32), tlo_r.view(torch.int32))
+    assert torch.equal(length, (tlo_r < 3e38).sum(dim=1, dtype=torch.int32))
+    assert int(length[2]) == 0 and int(length.max()) == tb.n_chunks
+    assert torch.equal(tv2.lists(tb, ray, cap)[0], order)
+    keys = tv2.chunk_keys(tb, ray)
+    rounds = tstream.group_rounds(keys, cap or tb.n_chunks)
+    assert len(rounds) == -(-tb.n_chunks // (cap or tb.n_chunks))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_v2_walk_matches_plain(scene, v2_case, monkeypatch, any_hit):
+    """B4's walk (``v2_walk_reference``) on 4,000 of the rays (the last
+    block padded with dead lanes): closest-hit t bit for bit and prim
+    equal to ``intersect_v2_reference`` on every lane, any-hit occlusion
+    exact; then with one quarter's triangles copied into a new chunk whose
+    box is the scene's (``equal_t_v2_tables``: equal t at a higher slot,
+    the copy's chunk first in many blocks' lists), where the smaller slot
+    must still win; a tie rule of strict t < best would return the copy's
+    slot on those lanes."""
+    tb, ray, (t_ref, p_ref) = v2_case
+    n = 4000
+    ray = _head(ray, n)
+    walk = tv2.v2_walk_reference(tb, tv2.prepare(tb, ray), any_hit)
+    hit = p_ref[:n] >= 0
+    assert int(hit.sum()) > 700
+    assert torch.equal(walk.prim[:n] >= 0, hit)
+    assert not bool((walk.prim[n:] >= 0).any())
+    if not any_hit:
+        assert torch.equal(walk.t[:n][hit], t_ref[:n][hit])
+        assert torch.equal(walk.prim[:n], p_ref[:n])
+
+    tb2, k, c = equal_t_v2_tables(tb, p_ref[:n], tv2.chunk_keys(tb, ray))
+    monkeypatch.setitem(scene[1]._cache, "v2", tb2)
+    t2, p2 = tv2.intersect_v2_reference(scene[1], ray)
+    walk = tv2.v2_walk_reference(tb2, tv2.prepare(tb2, ray), any_hit)
+    hit = p2 >= 0
+    copied = torch.isin(p2, tb2.slots[32 * k:32 * k + 32]) & hit
+    keys = tv2.chunk_keys(tb2, ray)
+    first = (keys[:, c] < keys[:, k // 4]).repeat_interleave(tv2.BLOCK)[:n]
+    assert int((copied & first).sum()) > 10
+    assert torch.equal(walk.prim[:n] >= 0, hit)
+    if not any_hit:
+        assert torch.equal(walk.t[:n][hit], t2[hit])
+        assert torch.equal(walk.prim[:n], p2)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_v2_walk_counts_match_chip_smoke(v2_case, walk_work, any_hit):
+    """chip_smoke.py's count of the quarters B4's warps must test
+    (``WalkWork.b4_warps``, vectorised) equals the step-by-step walk's with
+    the same far ends, quarter for quarter and warp by warp, and that walk
+    finds the plain version's hits. The walk on its own far ends tests
+    those quarters and more closest-hit (its far end only shrinks to the
+    final one), and no others any-hit (it stops once every live lane is
+    occluded)."""
+    tb, ray, (t_ref, p_ref) = v2_case
+    per_warp, tested, far, reach = walk_work[any_hit].b4_warps()
+    prep = tv2.prepare(tb, ray)
+    walk = tv2.v2_walk_reference(tb, prep, any_hit, far=far)
+    assert torch.equal(walk.tested, tested)
+    assert torch.equal(walk.tested.sum(dim=1), per_warp)
+    coherent = slice(N_RAYS // 32, (N_RAYS + N_COHERENT) // 32)
+    assert 0 < int(per_warp[coherent].sum()) < tested[coherent].numel() // 2
+    assert int(reach.max()) <= tb.n_chunks
+    hit = p_ref >= 0
+    assert torch.equal(walk.prim >= 0, hit)
+    if not any_hit:
+        assert torch.equal(walk.t[hit], t_ref[hit])
+    own = tv2.v2_walk_reference(tb, prep, any_hit).tested
     assert torch.equal(own | tested, tested if any_hit else own)

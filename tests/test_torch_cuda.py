@@ -31,7 +31,8 @@ from mitsuba3dopplertof_tpu_torch.render.types import Ray
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
     animated_mesh_scene, static_mesh_scene, write_uv_sphere_obj)
 
-from torch_adversarial_rays import adversarial_rays, equal_t_tables
+from torch_adversarial_rays import (adversarial_rays, equal_t_tables,
+                                    equal_t_v2_tables)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
@@ -243,6 +244,136 @@ def test_v4_query_builds_no_lists(cuda, tmp_path, monkeypatch):
     ik.ray_test(sa, ray)
     torch.cuda.synchronize()
     assert v4.LAUNCHES_BY_FORM == {"closest_hit": 2, "any_hit": 2}
+
+
+@pytest.mark.parametrize("animated", [True, False])
+def test_v4_kernel_matches_plain_on_adversarial_rays(cuda, tmp_path,
+                                                     animated):
+    """B2, whose scene-box clamp of maxt (``scene_exit``) lives in
+    csrc/intersect_common.cuh, which B4 shares, against its plain version
+    on 65,536 ``adversarial_rays``: a quarter of them end within 0.1% of
+    their target, and a fifth start about 1e3 away, far outside the scene
+    box. The same lanes hit in both forms, t bit for bit on every hit
+    lane, a different prim only where t ties."""
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    ray = adversarial_rays(sa, 1 << 16, 8, cuda)
+    t_k, p_k = v4.intersect_v4(sa, ray)
+    _, p_any = v4.intersect_v4(sa, ray, any_hit=True)
+    torch.cuda.synchronize()
+    t_r, p_r = v4.intersect_v4_reference(sa, ray)
+    hit = p_r >= 0
+    assert int(hit.sum()) > 5000
+    assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
+    assert torch.equal(t_k[hit], t_r[hit])
+    assert int((p_k != p_r).sum()) <= 20
+
+
+# B4's card cases: adversarial rays, dead lanes, an equal-t copy of a
+# quarter in a chunk that the walks reach first (made in a chunk of its
+# own, so in either scene), lists of 3 chunks a round
+V2_CASES = ["adversarial", "dead", "equal_t", "rounds"]
+
+
+@pytest.mark.parametrize("case", V2_CASES)
+@pytest.mark.parametrize("animated", [True, False])
+def test_v2_kernel_matches_plain(cuda, tmp_path, monkeypatch, animated,
+                                 case):
+    """B4 (chunk lists built in the kernel, warps walking on their own
+    bounds, each walk shared by the CTA's warps a quarter at a time)
+    against its plain version on 3,072 triangles: 65,536
+    ``adversarial_rays``; a ragged wavefront (65,436 lanes) with every
+    seventh lane, one whole warp and one whole block dead (maxt -1); the
+    triangles of one quarter copied into a new chunk whose box is the
+    scene's (``equal_t_v2_tables``: equal t in two chunks, the smaller
+    slot must win wherever the walks reach the copy first); and lists of 3
+    chunks a round (25 chunks: 9 rounds). Closest-hit: t bit for bit and
+    prim equal on every lane; any-hit: occlusion exact."""
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    tmax = 0.0015 if animated else 0.0
+    if case == "equal_t":
+        ray = _rays(1 << 16, 10, cuda, -4.0, tmax)
+    elif case == "dead":
+        ray = _rays((1 << 16) - 100, 9, cuda, -4.0, tmax)
+        lane = torch.arange(ray.maxt.shape[0], device=cuda)
+        dead = (lane % 7 == 3) | ((lane >= 64) & (lane < 96)) \
+            | ((lane >= 512) & (lane < 768))
+        ray = ray._replace(maxt=torch.where(dead, -1.0, ray.maxt))
+    else:
+        ray = adversarial_rays(sa, 1 << 16, 12, cuda)
+    tables = v2.v2_tables(sa)
+    if case == "equal_t":
+        tables, k, c = equal_t_v2_tables(
+            tables, v2.intersect_v2_reference(sa, ray)[1],
+            v2.chunk_keys(tables, ray))
+        monkeypatch.setitem(sa._cache, "v2", tables)
+    cap = 3 if case == "rounds" else None
+    v2.reset_launch_counts()
+    t_k, p_k = v2.launch(tables, ray, False, cap=cap)
+    _, p_any = v2.launch(tables, ray, True, cap=cap)
+    torch.cuda.synchronize()
+    assert v2.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    t_r, p_r = v2.intersect_v2_reference(sa, ray)
+    hit = p_r >= 0
+    assert int(hit.sum()) > 5000
+    assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
+    assert torch.equal(t_k[hit], t_r[hit])
+    assert torch.equal(p_k, p_r)
+    if case == "equal_t":
+        q = tables.slots[32 * k:32 * k + 32]
+        copied = torch.isin(p_r, q) & hit
+        keys = v2.chunk_keys(tables, ray)
+        first = (keys[:, c] < keys[:, k // 4]).repeat_interleave(
+            v2.BLOCK)[:ray.maxt.shape[0]]
+        assert int((copied & first).sum()) > 100
+    if case == "rounds":
+        assert -(-tables.n_chunks // cap) > 1
+
+
+@pytest.mark.parametrize("cap", [None, 2])
+def test_v2_lists_match_visit_order(cuda, tmp_path, cap):
+    """B4's in-kernel visit lists (``intersect_v2.lists``, built by the
+    same device code as the walk's) against ``_visit_order`` on
+    ``prepare``'s inputs and against their plain version
+    (``v2_lists_reference``): order and t_lo bit for bit, the reachable
+    count per block; with a capacity of 2 chunks every block takes
+    rounds, and a block of dead lanes reaches none."""
+    sa = _mesh_scene(cuda, tmp_path, True).compile()
+    tables = v2.v2_tables(sa)
+    ray = _rays((1 << 14) + 100, 5, cuda, -4.0, 0.0015)   # a ragged block
+    lane = torch.arange(ray.maxt.shape[0], device=cuda)
+    ray = ray._replace(maxt=torch.where((lane >= 256) & (lane < 512), -1.0,
+                                        ray.maxt))
+    order_k, tlo_k, len_k = v2.lists(tables, ray, cap)
+    order_r, tlo_r = v2.prepare(tables, ray)[4:]
+    assert torch.equal(order_k, order_r)
+    assert torch.equal(tlo_k.view(torch.int32), tlo_r.view(torch.int32))
+    assert torch.equal(len_k, (tlo_r < 3.0e38).sum(dim=1, dtype=torch.int32))
+    assert int(len_k.max()) > 2 and int(len_k[1]) == 0
+    order_p, tlo_p, len_p = v2.v2_lists_reference(tables, ray, cap)
+    assert torch.equal(order_p, order_k) and torch.equal(len_p, len_k)
+    assert torch.equal(tlo_p.view(torch.int32), tlo_k.view(torch.int32))
+
+
+def test_v2_query_builds_no_lists(cuda, tmp_path, monkeypatch):
+    """On the card ``intersect_v2`` and the ``v2`` route launch B4 once a
+    query and build no visit lists in PyTorch: ``prepare`` and
+    ``_visit_order`` are never called."""
+    sa = _mesh_scene(cuda, tmp_path, True).compile()
+    ray = _rays(1 << 14, 6, cuda, -4.0, 0.0015)
+
+    def spy(*args, **kwargs):
+        raise AssertionError("B4 built its visit lists in PyTorch")
+    monkeypatch.setattr(v2, "prepare", spy)
+    monkeypatch.setattr(v2, "_visit_order", spy)
+    monkeypatch.setattr(mxu, "_visit_order", spy)
+    monkeypatch.setenv("MI_STREAM_KERNEL", "v2")
+    v2.reset_launch_counts()
+    v2.intersect_v2(sa, ray)
+    v2.intersect_v2(sa, ray, any_hit=True)
+    ik.intersect(sa, ray)
+    ik.ray_test(sa, ray)
+    torch.cuda.synchronize()
+    assert v2.LAUNCHES_BY_FORM == {"closest_hit": 2, "any_hit": 2}
 
 
 def test_large_scene_route_matches_plain(cuda, tmp_path):

@@ -1,6 +1,7 @@
 """Rays that stress a conservative ray-triangle gate
-(``adversarial_rays``), and B3's tables with equal-t hits in two groups of
-chunks (``equal_t_tables``), for the port's tests of B6 and B3 on the CPU
+(``adversarial_rays``), and B3's and B4's tables with equal-t hits in two
+groups of chunks or two chunks (``equal_t_tables``,
+``equal_t_v2_tables``), for the port's tests of B6, B3 and B4 on the CPU
 (tests/test_torch_alt_kernels.py) and on the card
 (tests/test_torch_cuda.py). Imports only the port (no jax)."""
 
@@ -118,3 +119,46 @@ def equal_t_tables(tb, prim, keys):
                     dim=1)
     return (tb._replace(tri=tri, geom=geom, aabb=aabb, grp=grp.contiguous()),
             k, p)
+
+
+def equal_t_v2_tables(tb, prim, keys):
+    """B4's tables (``intersect_v2.V2Tables``) with one more chunk, in the
+    transform group of a chosen 32-triangle quarter, whose first quarter
+    is a copy of that quarter and whose box is the scene's widened by 1 on
+    every side (its other quarters are pad, with inverted boxes): a ray
+    that hits a copied triangle hits its copy at the same t, at a higher
+    row and a higher slot, and a block whose key for the original's chunk
+    is above 0 may reach the copy's chunk first. The quarter is the one
+    that holds the most winners ``prim`` (slots of each lane; -1 for a
+    miss) in blocks whose key (``keys``: ``intersect_v2.chunk_keys`` of
+    the tables, (n_blocks, n_chunks)) for its chunk is above 0. Returns
+    (tables, quarter, the new chunk's index)."""
+    n = tb.n_chunks
+    dev = tb.tri.device
+    real = tb.tri[:, 3:9].abs().sum(dim=1).reshape(-1) > 0.0
+    row_of = torch.full((int(tb.slots.max()) + 1,), -1, dtype=torch.int64,
+                        device=dev)
+    row_of[tb.slots[real].long()] = real.nonzero()[:, 0]
+    lane = (prim >= 0).nonzero()[:, 0]
+    row = row_of[prim[lane].long()]
+    ok = (row >= 0) & (keys[lane // 256, row.clamp(min=0) // 128] > 0.0)
+    k = int(torch.bincount(row[ok] // 32, minlength=4 * n).argmax())
+    tri = torch.zeros((1, 9, 128), device=dev)
+    tri[0, :, :32] = tb.tri[k // 4, :, 32 * (k % 4):32 * (k % 4) + 32]
+    live = tb.sub[:, 0] <= tb.sub[:, 3]
+    sub = torch.cat([torch.full((4, 3), 3e38, device=dev),
+                     torch.full((4, 3), -3e38, device=dev)], dim=1)
+    sub[0, :3] = tb.sub[live, :3].amin(dim=0) - 1.0
+    sub[0, 3:] = tb.sub[live, 3:].amax(dim=0) + 1.0
+    ci = int(tb.meta[k // 4, 0])
+    slot0 = int(tb.slots.max()) + 1
+    meta = torch.tensor([[ci, slot0]], dtype=torch.int32, device=dev)
+    sub_all = torch.cat([tb.sub, sub]).contiguous()
+    return (tb._replace(
+        meta=torch.cat([tb.meta, meta]).contiguous(),
+        tri=torch.cat([tb.tri, tri]).contiguous(), sub=sub_all,
+        n_chunks=n + 1, runs=tb.runs + ((ci, 128 * n, 128 * (n + 1)),),
+        slots=torch.cat([tb.slots, slot0 + torch.arange(
+            128, dtype=torch.int32, device=dev)]),
+        box=torch.cat([tb.box, sub[:1]]).contiguous(),
+        scene_box=torch.cat([sub[0, :3], sub[0, 3:]])), k, n)
