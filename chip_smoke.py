@@ -6,6 +6,7 @@
     python3 chip_smoke.py --b6-walk CHECKOUT
     python3 chip_smoke.py --b3-walk CHECKOUT
     python3 chip_smoke.py --b4-walk CHECKOUT
+    python3 chip_smoke.py --b5-walk CHECKOUT
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
@@ -19,8 +20,10 @@ and its 40k render through MI_STREAM_KERNEL=mxu; ``--b3-walk CHECKOUT``
 its B3 on those wavefronts and on those of the lower strip (phase 4a)
 and its 40k render through MI_STREAM_KERNEL=v1, and ``--b4-walk
 CHECKOUT`` its B4 (kernel, query and lists) on the same six wavefronts and
-its 40k render through MI_STREAM_KERNEL=v2. Every phase raises on
-failure:
+its 40k render through MI_STREAM_KERNEL=v2, and ``--b5-walk CHECKOUT`` its
+B5 (kernel, query, and an earlier B5's PyTorch lists) and its B2 kernel on
+those six wavefronts and its 40k render through MI_STREAM_KERNEL=v3. Every
+phase raises on failure:
 
   1. the card: name and power limit (nvidia-smi);
   2. build all six kernels from the checkout, one nvcc each, started
@@ -47,12 +50,15 @@ failure:
      shadow rays toward the point light and diffuse bounce rays from the
      camera hits; closest-hit and any-hit, over binned rays (B2 unbinned
      too). t bitwise equal on hit lanes, prim different only at ties in t,
-     occlusion exact, for B4 prim equal on every lane, and for B3 the
-     whole hit record equal where prim is;
+     occlusion exact, for B4 and B5 prim equal on every lane, and for B3
+     the whole hit record equal where prim is;
      then times on the binned camera (closest-hit) and shadow (any-hit)
-     wavefronts, and B2's and B4's on the binned bounce wavefront too:
-     kernel, visit lists in PyTorch (prepare) or the kernel's own lists
-     alone (B2, B4) and query; for B2 the units a walk
+     wavefronts, and B2's, B4's and B5's on the binned bounce wavefront
+     too: kernel, visit lists in PyTorch (prepare) or the kernel's own
+     lists alone (B2, B4) and query; for B5 the units its warps' walks
+     test behind its per-lane box test beside those B2's warp gate leaves
+     on the same lists, and its walk with lists of 16 units a round
+     (rounds) against the plain version; for B2 the units a walk
      needs per 256-lane block and per 32-lane warp (mean, p99, max, share
      of the tests in the slowest 1%); bounds from the work a plain walk
      needs (WalkWork); B2's and B4's in-kernel visit lists against
@@ -68,10 +74,10 @@ failure:
      groups a round (rounds) against the plain version;
   4a. the lower strip of the 40k frame (pixel rows 192-207: camera rays
      that pass under the sphere's lower half to the floor, the render's
-     longest walks), its camera, bounce and shadow wavefronts, binned: B3
-     and B4 against their plain versions (t bitwise, prim equal, B3's
-     record equal, occlusion exact), their times and bounds; B2's times
-     and walk there as a measurement;
+     longest walks), its camera, bounce and shadow wavefronts, binned: B3,
+     B4 and B5 against their plain versions (t bitwise, prim equal, B3's
+     record equal, occlusion exact), their times and bounds (B5's beside
+     B2's); B2's times and walk there as a measurement;
   4b. B2 on a 65,536-lane slice of the 100k animated scene's camera
      wavefront and its bounce and shadow rays: the in-kernel lists (one
      round and rounds of 1,024) and the walk against the plain version;
@@ -99,12 +105,14 @@ float32 rate (NVIDIA's H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s outside
 the tensor cores). For B2-B6 the operations count the units, quarters or
 chunks that a walk of the timed wavefront's visit lists must test, computed
 in PyTorch from the lists and the plain versions' results (``WalkWork``),
-not from counters in the kernels: per 256-lane block for B5, per 32-lane
-warp for B2, B3, B4 and B6 (whose warps stop on their own bounds; B6's,
-B4's and B3's each with its own slab test of a chunk's or quarter's boxes
-over its live lanes), plus B2's, B3's and B4's lists (a slab test per
-block and unit, group or chunk, n log2 n compares to sort) and B3's chunk
-and B4's quarter gates; B4's per-block bound is printed beside its own.
+not from counters in the kernels: per 32-lane warp for B2-B6 (whose warps
+stop on their own bounds; B6's, B4's and B3's each with its own slab test
+of a chunk's or quarter's boxes over its live lanes, B5's with each
+lane's own ray against a unit's box), plus B2's, B3's, B4's and B5's
+lists (a slab test per block and unit, group or chunk, n log2 n compares
+to sort), B3's chunk and B4's quarter gates and B5's per-lane tests (one
+per lane and unit of its warp's list prefix); B4's per-block bound is
+printed beside its own, B2's per-warp bound beside B5's.
 B1's count the slots, instances and boxes that each warp's gate makes it
 test (``b1_work``, from
 the gate's plain version ``b1_warp_masks``); the dense count (every lane
@@ -176,6 +184,11 @@ B1_SLAB_OPS = 91
 # exit of one lane
 SLAB_OPS = 92
 EXIT_OPS = 40
+# B5's per-lane test of a lane's ray against a unit box (lane_box): per
+# axis two differences, two products, a minimum, a maximum and two
+# compares; the far end, the scale and the final compare
+BALLOT_OPS = 27
+UNIT_BYTES = 12 * 32 * 4        # a unit's Woop record: 12 floats a triangle
 WAVEFRONT = 1 << 20             # lanes of one strip pass
 # first pixel rows of the two strips of the 40k frame (256 x 256, 256 lanes
 # a pixel: a strip pass is 16 rows) whose wavefronts are timed: the middle
@@ -535,6 +548,120 @@ def b4_line(tag, wname, any_hit, times, n_lanes, card, extra=""):
             f"({'any-hit' if any_hit else 'closest-hit'}, binned, {n_lanes} "
             f"lanes, 40k animated): kernel {k_ms:.4f} ms, query {q_ms:.4f} "
             f"ms, lists {l_ms:.4f} ms{extra} ({card})")
+
+
+def b2_walk_bound(walk, ray_ops):
+    """B2's bound on a walk's wavefront (``WalkWork.b2_work``): the Woop
+    tests of the units its warps' walks test, the scene-box clamp of each
+    lane and the lists over the float32 rate; the rays, the results, the
+    records of the units tested once and the boxes over the memory rate.
+    Returns ((bound_ms, bound_by), units tested, distinct units, the
+    lists' operations)."""
+    need, distinct, list_ops = walk.b2_work()
+    n_ops = (need * 32 * 32 * WOOP_OPS + ray_ops + walk.n * EXIT_OPS
+             + list_ops)
+    n_bytes = (walk.n * (32 + 8) + distinct * UNIT_BYTES
+               + walk.n_units * (24 + 8))
+    return bound(n_bytes, n_ops), need, distinct, list_ops
+
+
+def b5_times(v3, v4, sa, ray_s, any_hit):
+    """(kernel, query, lists) ms of B5 on one binned wavefront: the query
+    is ``intersect_v3`` as the route calls it. A B5 that builds its lists
+    itself (``v3.v3_walk_reference`` exists) launches on the rays, and
+    ``lists`` is None (its lists are B2's, timed alone with B2); an
+    earlier one launches on ``v4.prepare``'s lists, and ``lists`` times
+    ``prepare``."""
+    tables = v4.v4_tables(sa)
+    q_ms = cuda_time_ms(lambda: v3.intersect_v3(sa, ray_s, any_hit=any_hit))
+    if hasattr(v3, "v3_walk_reference"):
+        k_ms = cuda_time_ms(lambda: v3.launch(tables, ray_s, any_hit))
+        return k_ms, q_ms, None
+    prep = v4.prepare(tables, ray_s)
+    k_ms = cuda_time_ms(lambda: v3.launch(tables, prep, any_hit))
+    return k_ms, q_ms, cuda_time_ms(lambda: v4.prepare(tables, ray_s),
+                                    reps=5)
+
+
+def b5_line(tag, wname, any_hit, times, n_lanes, card, extra=""):
+    """One line of B5's times on a binned 40k wavefront (``b5_times``)."""
+    k_ms, q_ms, l_ms = times
+    lists = "" if l_ms is None else f", prepare {l_ms:.4f} ms"
+    return (f"{tag} {wname} wavefront "
+            f"({'any-hit' if any_hit else 'closest-hit'}, binned, {n_lanes} "
+            f"lanes, 40k animated): kernel {k_ms:.4f} ms, query {q_ms:.4f} "
+            f"ms{lists}{extra} ({card})")
+
+
+def b5_bound(walk, ray_ops, b2_bound):
+    """B5's bound on a walk's wavefront (``WalkWork.b5_warps``): the Woop
+    tests of the units its warps' walks test, one per-lane box test per
+    lane for every unit of each warp's list prefix, the scene-box clamp of
+    each lane and the lists (``list_ops``) over the float32 rate; the rays,
+    the results, the records of the units tested once and the boxes over
+    the memory rate. Returns ((bound_ms, bound_by), a summary of the walk
+    beside B2's on the same lists: the units a warp tests under the
+    per-lane test and under B2's warp gate, B2's bound ``b2_bound``)."""
+    import torch
+    per_warp, tested, _, reach = walk.b5_warps()
+    need = int(per_warp.sum())
+    distinct = int(tested.any(dim=0).sum())
+    n_ops = (need * 32 * 32 * WOOP_OPS + int(reach.sum()) * 32 * BALLOT_OPS
+             + ray_ops + walk.n * EXIT_OPS + walk.list_ops())
+    n_bytes = (walk.n * (32 + 8) + distinct * UNIT_BYTES
+               + walk.n_units * (24 + 8))
+    b2 = walk.b2_warps()[0]
+
+    def dist(v):
+        v = v.double()
+        return (f"mean {float(v.mean()):.2f}, p99 "
+                f"{float(torch.quantile(v, 0.99)):.0f}, max "
+                f"{int(v.max())}")
+    summary = (f"a plain walk tests {need} units over {walk.n // 32} warps "
+               f"(per warp {dist(per_warp)}; {distinct} distinct), reaching "
+               f"{float(reach.double().mean()):.2f} list entries per warp; "
+               f"B2's warp gate leaves {int(b2.sum())} (per warp "
+               f"{dist(b2)}): the per-lane test "
+               f"{100 * need / max(int(b2.sum()), 1):.1f}% of them; B2's "
+               f"bound per warp {b2_bound[0]:.4f} ms")
+    return bound(n_bytes, n_ops), summary
+
+
+def b5_walk_main(root: str) -> int:
+    """``--b5-walk DIR``: B5's times alone, on the package of the checkout
+    at DIR: kernel, query and (an earlier B5's) ``prepare`` on the 40k
+    animated scene's binned camera, bounce and shadow wavefronts of the
+    middle and the lower strip, with that checkout's B2 kernel beside them,
+    then the 40k render through MI_STREAM_KERNEL=v3."""
+    import torch
+    card, mi, v3, obj, sa, waves = checkout_40k(root, "intersect_v3",
+                                                lower=True)
+    v4 = importlib.import_module("mitsuba3dopplertof_tpu_torch.ops."
+                                 "intersect_v4")
+    v4.LIBRARY.load()
+    for line in v4.LIBRARY.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas {v4.LIBRARY.name}: {line.strip()}", flush=True)
+    tag = f"B5 at {os.path.basename(os.path.abspath(root).rstrip(os.sep))}"
+    tables = v4.v4_tables(sa)
+    for wname, any_hit, ray in waves:
+        ray_s, _ = sort_wavefront(sa, ray)
+        b2_ms = cuda_time_ms(lambda: v4.launch(tables, ray_s, any_hit))
+        print(b5_line(tag, wname, any_hit,
+                      b5_times(v3, v4, sa, ray_s, any_hit),
+                      ray_s.o.x.shape[0], card,
+                      f"; B2's kernel {b2_ms:.4f} ms"), flush=True)
+        del ray_s
+    img, _, first_s, warm_s, counts = render_40k(
+        mi, obj, "v3", v3.reset_launch_counts,
+        lambda: dict(v3.LAUNCHES_BY_FORM))
+    if not bool(torch.isfinite(img).all()) or min(counts.values()) <= 0:
+        fail(f"{tag}: the 40k render did not run through B5")
+    print(f"{tag} render 40k animated 256x256x256 (MI_STREAM_KERNEL=v3): "
+          f"first {first_s:.3f} s, warm {warm_s:.3f} s = "
+          f"{256 ** 3 / warm_s / 1e6:.3f} Msamples/s; launches "
+          f"{counts} ({card})", flush=True)
+    return 0
 
 
 def render_40k(mi, obj, route, reset, read):
@@ -970,14 +1097,15 @@ class WalkWork:
         from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
         self.torch = torch
         self.any_hit = any_hit
-        self._b2 = self._b3 = self._b4 = self._b6 = None
+        self._b2 = self._b3 = self._b4 = self._b5 = self._b6 = None
         n = ray_s.o.x.shape[0]
         if n % self.BLOCK:
             raise ValueError("WalkWork: whole blocks only")
         self.n, self.nb = n, n // self.BLOCK
         tb4 = v4.v4_tables(sa)
         self.n_units = tb4.n_units
-        _, _, _, maxtp, self.order32, self.tlo32 = v4.prepare(tb4, ray_s)
+        self.o4, self.d4, _, maxtp, self.order32, self.tlo32 = v4.prepare(
+            tb4, ray_s)
         self.key32 = self._unsort(self.order32, self.tlo32)
         self.tb2 = v2.v2_tables(sa)
         self.prep2 = v2.prepare(self.tb2, ray_s)
@@ -1030,8 +1158,9 @@ class WalkWork:
         return out
 
     def far_ends(self, order, per_chunk):
-        """(n_blocks, n_list) far end of the gate before each rank: the
-        unoccluded lanes' own (clamped) maxt (B5, B4)."""
+        """(n_blocks, n_list) far end of a whole block's walk before each
+        rank: the unoccluded lanes' own (clamped) maxt (the per-block walks
+        of ``block_units`` and of B4's per-block bound)."""
         torch = self.torch
         n_list = order.shape[1]
         if not self.any_hit:
@@ -1315,19 +1444,92 @@ class WalkWork:
                                  1, idx, run.reshape(nw, -1))
         return run.sum(dim=(1, 2)), tested, g, reach.sum(dim=1)
 
+    def b5_warps(self):
+        if self._b5 is None:
+            self._b5 = self._b5_warps()
+        return self._b5
+
+    def _b5_warps(self):
+        """The units csrc/intersect_v3.cu's walks must test per 32-lane
+        warp: the entries of its block's unit list (``prepare``'s, the
+        kernel's order) up to the first whose t_lo exceeds the warp's far
+        end, less those whose box no live lane's own ray can enter within
+        the lane's own far end (the kernel's per-lane test,
+        ``intersect_v3.lane_box_test``). Lane far ends: closest-hit
+        min(final t, clamped maxt) (``t_ref``, B2's plain t; torch.fmin, as
+        the kernel's fminf), any-hit the clamped maxt up to the rank of the
+        lane's first hit (B2's dense hit sets) and none after; a warp's far
+        end before a rank is the largest of its lanes' there, capped at
+        1e37 (-3e38 where none). Returns (units per warp, (warps, n_units)
+        tested, (f, last): the lanes' far ends as ``v3_walk_reference``
+        takes them, (warps,) list entries each warp reaches)."""
+        torch = self.torch
+        from mitsuba3dopplertof_tpu_torch.ops.intersect_v3 import \
+            lane_box_test
+        wl = 32
+        k = self.BLOCK // wl
+        nw = self.n // wl
+        n_list = self.n_units
+        maxt = self.maxtp
+        dev = maxt.device
+        if self.any_hit:
+            f = maxt
+            last = self._first_rank(self.order32, False)
+        else:
+            f = torch.fmin(self.t_ref, maxt)
+            last = torch.full((self.n,), n_list, dtype=torch.int64,
+                              device=dev)
+        term = torch.where(torch.isnan(f), -float("inf"), f)
+        a = torch.full((nw, n_list + 1), -self.BIG, device=dev)
+        a.scatter_reduce_(1, last.reshape(nw, wl), term.reshape(nw, wl),
+                          reduce="amax")
+        g = torch.clamp(a.flip(1).cummax(dim=1).values.flip(1)[:, :n_list],
+                        max=self.CAP)
+        reach = self._prefix(self.tlo32.repeat_interleave(k, dim=0), g)
+        live = maxt > 0.0
+        inv = tuple(1.0 / c for c in self.d4)
+        tested_r = torch.zeros_like(reach)
+        step = 64                    # blocks at a time
+        for b0 in range(0, self.nb, step):
+            b1 = min(b0 + step, self.nb)
+            nbk = b1 - b0
+            r_max = int(reach[b0 * k:b1 * k].sum(dim=1).max())
+            if r_max == 0:
+                continue
+            sl = slice(b0 * self.BLOCK, b1 * self.BLOCK)
+            lane = lambda v: v[sl].reshape(nbk, self.BLOCK, 1)
+            box = self.box[self.order32[b0:b1, :r_max].long()][:, None]
+            rank = torch.arange(r_max, device=dev)
+            far = torch.where(rank <= lane(last), lane(f), -float("inf"))
+            ok = lane(live) & lane_box_test(
+                tuple(lane(c) for c in self.o4), tuple(lane(c) for c in inv),
+                box, far)
+            tested_r[b0 * k:b1 * k, :r_max] = ok.reshape(
+                nbk, k, wl, r_max).any(dim=2).reshape(nbk * k, r_max)
+        tested_r &= reach
+        ow = self.order32.long().repeat_interleave(k, dim=0)
+        tested = torch.zeros((nw, n_list), dtype=torch.bool,
+                             device=dev).scatter_(1, ow, tested_r)
+        return tested_r.sum(dim=1), tested, (f, last), reach.sum(dim=1)
+
+    def list_ops(self):
+        """Operations of B2's and B5's lists: a slab test per block and
+        unit, and n log2 n compares to sort each block's reachable
+        units."""
+        torch = self.torch
+        m = (self.tlo32 < self.BIG).sum(dim=1).double()
+        sort_ops = float((m * torch.log2(torch.clamp(m, min=2.0))).sum())
+        return self.nb * self.n_units * SLAB_OPS + sort_ops
+
     def b2_work(self):
         """(units tested over all warps, distinct units, operations of the
-        lists: a slab test per block and unit, and n log2 n compares to
-        sort each block's reachable units)."""
+        lists: ``list_ops``)."""
         torch = self.torch
         per_warp, tested, ow = self.b2_warps()
         seen = torch.zeros((self.n_units,), dtype=torch.bool,
                            device=tested.device)
         seen[ow[tested]] = True
-        m = (self.tlo32 < self.BIG).sum(dim=1).double()
-        sort_ops = float((m * torch.log2(torch.clamp(m, min=2.0))).sum())
-        return (int(per_warp.sum()), int(seen.sum()),
-                self.nb * self.n_units * SLAB_OPS + sort_ops)
+        return int(per_warp.sum()), int(seen.sum()), self.list_ops()
 
     def b2_distribution(self):
         """Units a walk needs per 256-lane block (the parent kernel's
@@ -1347,16 +1549,17 @@ class WalkWork:
                             v.sum()), 1.0))))
         return out
 
+    def block_units(self):
+        """Units that walks of whole 256-lane blocks' lists need (each
+        block on its own final far end, no gate): summed over the blocks."""
+        return int(self._prefix(self.tlo32, self.far_ends(self.order32,
+                                                          False)).sum())
+
     def work(self, row):
-        """(entries tested over all blocks, distinct records read, label of
-        an entry) for kernel ``row`` (B2's: ``b2_work``)."""
+        """(entries tested over all blocks or warps, distinct records read,
+        label of an entry) for kernel ``row`` (B2's: ``b2_work``, B5's:
+        ``b5_warps``)."""
         torch = self.torch
-        if row == "B5":
-            g = self.far_ends(self.order32, False)
-            vis = self._prefix(self.tlo32, g)
-            return (int(vis.sum()),
-                    self._distinct(self.order32, vis, self.n_units),
-                    "units")
         if row == "B4":
             g = self.far_ends(self.order128, True)
             vis = self._prefix(self.tlo128, g)
@@ -1405,7 +1608,6 @@ def main() -> int:
     from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
     from mitsuba3dopplertof_tpu_torch.ops.cuda_build import (BUILD_DIR,
                                                              build_all)
-    from mitsuba3dopplertof_tpu_torch.ops.intersect_v3 import UNIT_REC
     alt_mod = {row: importlib.import_module(
         f"mitsuba3dopplertof_tpu_torch.ops.{name}")
         for row, _, name, _ in ALTERNATES}
@@ -1741,7 +1943,7 @@ def main() -> int:
                            f"{'any-hit' if any_hit else 'closest-hit'}")
                     check_t_prim(tag, out[0], out[1], ref[0], ref[1],
                                  any_hit, errs_l[row], skip,
-                                 exact_prim=row == "B4")
+                                 exact_prim=row in ("B4", "B5"))
                     if row == "B3" and not any_hit:
                         check_record(tag, out, ref, skip)
                 if row == "B3" and label == "40k animated":
@@ -1781,12 +1983,7 @@ def main() -> int:
         b2_t = b2_times(v4, sa40, ray_s, any_hit)
         print(walk_line("B2", wname, any_hit, b2_t, walk.b2_distribution(),
                         card), flush=True)
-        need, distinct, list_ops = walk.b2_work()
-        n_ops = (need * 32 * 32 * WOOP_OPS + ray_ops + n_lanes * EXIT_OPS
-                 + list_ops)
-        n_bytes = (n_lanes * (32 + 8) + distinct * UNIT_REC * 4
-                   + n_units40 * (24 + 8))
-        b2_bound = bound(n_bytes, n_ops)
+        b2_bound, need, distinct, list_ops = b2_walk_bound(walk, ray_ops)
         print(f"B2 bound {wname}: a walk needs {need} units over "
               f"{n_lanes // 32} warps ({need / (n_lanes // 32):.2f} per "
               f"warp, {distinct} distinct), its lists {list_ops:.4g} "
@@ -1829,6 +2026,17 @@ def main() -> int:
                       f"{plain4}; {b4_walk}; bound per warp {b4_b[0]:.4f} ms "
                       f"({b4_b[1]}); per 256-lane block {b4_block[0]:.4f} ms "
                       f"({need4} quarters)"), flush=True)
+        # B5: its times beside its bound per warp (WalkWork.b5_warps), the
+        # units its per-lane test leaves beside those of B2's warp gate on
+        # the same lists, and B2's bound
+        v3m = alt_mod["B5"]
+        b5_t = b5_times(v3m, v4, sa40, ray_s, any_hit)
+        b5_b, b5_walk = b5_bound(walk, ray_ops, b2_bound)
+        plain5 = ("" if wname == "bounce" else
+                  f", plain {plain_ms['B5'][form]:.3f} ms")
+        print(b5_line("B5 time", wname, any_hit, b5_t, n_lanes, card,
+                      f"{plain5}; {b5_walk}; bound per warp {b5_b[0]:.4f} "
+                      f"ms ({b5_b[1]})"), flush=True)
         if wname == "bounce":
             k_ms, q_ms = b3_times(alt_mod["B3"], sa40, ray_s, False)
             print(f"B3 time bounce (closest-hit) at {n_lanes} lanes (binned),"
@@ -1867,12 +2075,22 @@ def main() -> int:
             torch.cuda.synchronize()
             check_t_prim("B2 40k bounce binned closest-hit, capacity 100",
                          t_k, p_k, t_ref, p_ref, False, errs_l["B2"])
+            # rounds: B5's walk with lists of 16 units a round
+            for ah in (False, True):
+                t_k, p_k = v3m.launch(v4.v4_tables(sa40), ray_s, ah, cap=16)
+                torch.cuda.synchronize()
+                check_t_prim(f"B5 40k bounce binned "
+                             f"{'any-hit' if ah else 'closest-hit'}, "
+                             f"capacity 16 ({-(-n_units40 // 16)} rounds at "
+                             f"most)", t_k, p_k, t_ref, p_ref, ah,
+                             errs_l["B5"], exact_prim=True)
             del walk, ray_s, t_ref, p_ref, t_b3, p_b3, t_b4, p_b4, skip4
             del t_k, p_k
             continue
         times_l["B2"][form] = (b2_t[0], plain_ms["B2"][form], b2_bound)
         times_l["B4"][form] = (b4_t[0], plain_ms["B4"][form], b4_b)
-        for row in ("B5", "B3", "B6"):
+        times_l["B5"][form] = (b5_t[0], plain_ms["B5"][form], b5_b)
+        for row in ("B3", "B6"):
             tables, prepare, isect, _ = alt_fn[row]
             tables = tables(sa40)
             mod = alt_mod[row]
@@ -1883,15 +2101,8 @@ def main() -> int:
                                 reps=5)
             del prep
             need, distinct, what = walk.work(row)
-            grp, gname = ((32, "warps") if row in ("B6", "B3")
-                          else (walk.BLOCK, "blocks"))
-            if row == "B5":
-                n_ops = need * walk.BLOCK * 32 * WOOP_OPS + ray_ops
-                n_bytes = (n_lanes * (32 + 8) + distinct * UNIT_REC * 4
-                           + need * (8 + 8))
-            else:
-                n_bytes = b6_n_bytes
-                n_ops = b6_pairs * WOOP_OPS + ray_ops
+            n_bytes = b6_n_bytes
+            n_ops = b6_pairs * WOOP_OPS + ray_ops
             times_l[row][form] = (k_ms, plain_ms[row][form],
                                   b3_b if row == "B3" else
                                   bound(n_bytes, n_ops))
@@ -1908,8 +2119,8 @@ def main() -> int:
                   f"({prepare.__module__.split('.')[-1]}.prepare) "
                   f"{prep_ms:.3f} ms, query {q_ms:.4f} ms, plain "
                   f"{plain_ms[row][form]:.3f} ms; a plain walk needs {need} "
-                  f"{what} over {n_lanes // grp} {gname} "
-                  f"({need / (n_lanes // grp):.1f} per {gname[:-1]}, "
+                  f"{what} over {n_lanes // 32} warps "
+                  f"({need / (n_lanes // 32):.1f} per warp, "
                   f"{distinct} distinct records); "
                   f"bound {b_ms:.4f} ms ({b_by}){extra} ({card})",
                   flush=True)
@@ -1920,7 +2131,7 @@ def main() -> int:
     bounce_s, pos = sort_wavefront(sa40, bounce40)
     t_ref = torch.empty_like(refs40["bounce"][0])
     t_ref[pos] = refs40["bounce"][0]
-    per_block = [WalkWork(sa40, r, t, False).work("B5")[0]
+    per_block = [WalkWork(sa40, r, t, False).block_units()
                  / (WAVEFRONT // WalkWork.BLOCK)
                  for r, t in ((bounce40, refs40["bounce"][0]),
                               (bounce_s, t_ref))]
@@ -1931,12 +2142,11 @@ def main() -> int:
 
     # ---- 4a. the lower strip of the 40k frame -----------------------------
     # camera rays of pixel rows LOWER_ROW.. that pass under the sphere's
-    # lower half to the floor, and their bounce and shadow rays, binned: B3
-    # and B4 against their plain versions (t bitwise, prim equal, B3's
+    # lower half to the floor, and their bounce and shadow rays, binned: B3,
+    # B4 and B5 against their plain versions (t bitwise, prim equal, B3's
     # record equal where prim is, occlusion exact), their kernel and query
-    # times and their bounds; B2's times and walk as a measurement (its far
-    # ends from B3's plain t, which differs from B2's in the last bits)
-    st3, v2m = alt_mod["B3"], alt_mod["B4"]
+    # times and their bounds; B2's times and walk as a measurement
+    st3, v2m, v3m = alt_mod["B3"], alt_mod["B4"], alt_mod["B5"]
     waves_lo, n_valid = strip_waves(big["40k animated"][1], sa40, LOWER_ROW,
                                     seed=5)
     print(f"40k lower strip, pixel rows {LOWER_ROW}-{LOWER_ROW + 15}: "
@@ -1967,9 +2177,24 @@ def main() -> int:
                          out[1], ref4[0], ref4[1], ah, errs_l["B4"], skip4,
                          exact_prim=True)
         del out
-        walk = WalkWork(sa40, ray_s, ref.t, any_hit, t_b4=ref4[0])
+        (t5, p5), p5_ms = timed_ms(lambda: v4.intersect_v4_reference(sa40,
+                                                                    ray_s))
+        for ah in (False, True):
+            out = v3m.intersect_v3(sa40, ray_s, any_hit=ah)
+            torch.cuda.synchronize()
+            check_t_prim(f"B5 40k lower {wname} binned "
+                         f"{'any-hit' if ah else 'closest-hit'}", out[0],
+                         out[1], t5, p5, ah, errs_l["B5"], exact_prim=True)
+        del out
+        walk = WalkWork(sa40, ray_s, t5, any_hit, t_b3=ref.t, t_b4=ref4[0])
         n_lanes = ray_s.o.x.shape[0]
         ray_ops = n_lanes * n_anim * INV_LERP_OPS
+        b5_b, b5_walk = b5_bound(walk, ray_ops,
+                                 b2_walk_bound(walk, ray_ops)[0])
+        print(b5_line("B5 time", f"lower {wname}", any_hit,
+                      b5_times(v3m, v4, sa40, ray_s, any_hit), n_lanes, card,
+                      f", plain {p5_ms:.3f} ms; {b5_walk}; bound per warp "
+                      f"{b5_b[0]:.4f} ms ({b5_b[1]})"), flush=True)
         b4_b, b4_walk = b4_bound(walk, ray_ops)
         print(b4_line("B4 time", f"lower {wname}", any_hit,
                       b4_times(v2m, sa40, ray_s, any_hit), n_lanes, card,
@@ -1985,7 +2210,7 @@ def main() -> int:
         print(walk_line("B2", f"lower {wname}", any_hit,
                         b2_times(v4, sa40, ray_s, any_hit),
                         walk.b2_distribution(), card), flush=True)
-        del walk, ray_s, ref, skip, ref4, skip4
+        del walk, ray_s, ref, skip, ref4, skip4, t5, p5
     del waves_lo
 
     # ---- 4b. B2 on the 100k animated scene: a 65,536-lane slice -------------
@@ -2208,8 +2433,10 @@ if __name__ == "__main__":
         sys.exit(b3_walk_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--b4-walk":
         sys.exit(b4_walk_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--b5-walk":
+        sys.exit(b5_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
         fail("usage: chip_smoke.py [--b2-walk CHECKOUT | --b1-walk "
              "CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT | "
-             "--b4-walk CHECKOUT]")
+             "--b4-walk CHECKOUT | --b5-walk CHECKOUT]")
     sys.exit(main())

@@ -217,40 +217,6 @@ def _chunk_boxes(sa, n_chunks: int) -> torch.Tensor:
                      dim=1)
 
 
-def _launch_walk(name: str, library: CudaLibrary, records, boxes, tables,
-                 n_list: int, prep, any_hit: bool):
-    """One launch of an ordered (t, prim) walk over visit lists built in
-    PyTorch (B5's C interface): ``mi_<name>(records, meta, inst, boxes,
-    order, tlo, n_list, has_anim, 8 ray columns, n, any_hit, t, prim,
-    stream)`` of ``library``, built and loaded once the inputs pass.
-    ``prep``: (o, d, time, maxt, order, tlo), one visit list of ``n_list``
-    entries per block of ``BLOCK`` lanes. Returns (t, prim) at the padded
-    length; raises if the launch fails."""
-    o, d, time, maxt, order, tlo = prep
-    cols = (*o, *d, time, maxt)
-    n_pad, dev = _check_launch(name, records, cols, BLOCK)
-    nb = n_pad // BLOCK
-    if order.shape != (nb, n_list) or tlo.shape != order.shape:
-        raise ValueError(f"{name} kernel: one visit list of {n_list} "
-                         f"entries per block of {BLOCK} lanes")
-    fn = getattr(library.load(), f"mi_{name}")
-    t = torch.empty((n_pad,), device=dev)
-    prim = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    if n_pad > 0:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(records.data_ptr(), tables.meta.data_ptr(),
-                     tables.inst.data_ptr(), boxes.data_ptr(),
-                     order.data_ptr(), tlo.data_ptr(), n_list,
-                     int(tables.has_anim), *(c.data_ptr() for c in cols),
-                     n_pad, int(any_hit), t.data_ptr(), prim.data_ptr(),
-                     stream)
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                               f"{err}")
-    return t, prim
-
-
 def _runs(meta: np.ndarray, rows: int):
     """Runs of consecutive chunks of one transform group, in table rows of
     ``rows`` triangles per chunk: ((anim range | -1, row0, row1), ...)."""

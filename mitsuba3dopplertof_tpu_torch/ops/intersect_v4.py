@@ -25,8 +25,11 @@ every unit; the nearest hit wins, and the smallest slot among equal t.
     of operations, in chunks of lanes and units;
   * ``lists(tables, ray, cap)`` — the kernel's visit lists alone, for
     checking them against ``_unit_visit_order``; no render calls it;
-  * ``prepare(tables, ray)`` — the visit lists in PyTorch, which B5
-    (``intersect_v3``) walks.
+  * ``prepare(tables, ray)`` — the visit lists in PyTorch, for the tests,
+    chip_smoke.py and B5's walk step by step (``intersect_v3``); no query
+    calls it;
+  * ``walk_units`` — one launch of B2's kernel, or of B5's, which shares
+    its C interface, its lists and its walk.
 
 Both queries return (t, prim) in the global slot convention ([0, n_static)
 static, then animated); ``ops/intersect_mxu.payload_from_prim`` rebuilds
@@ -102,12 +105,16 @@ def v4_tables(sa) -> V4Tables:
 
 def prepare(tables: V4Tables, ray: Ray):
     """The visit lists in PyTorch (JAX ``_v4_call`` up to the launch), as
-    B5 walks them: ray columns padded to whole blocks, maxt clamped by the
-    scene box (padding lanes dead), and the blocks' visit lists. Returns
-    (o, d, time, maxt, order, tlo)."""
+    the kernels of B2 and B5 build them: ray columns padded to whole
+    blocks, maxt clamped by the scene box (padding lanes dead), and the
+    blocks' visit lists; a lane whose maxt is NaN takes no part in its
+    block's largest maxt, as in the kernels (fmaxf), where JAX's amax
+    would leave the whole block nothing to reach. Returns (o, d, time,
+    maxt, order, tlo)."""
     o, d, time, maxt = _padded_cols(ray, ray.maxt, BLOCK)
     maxt = _clamped_maxt(tables.box, o, d, maxt)
-    x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [maxt])
+    x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [
+        torch.where(torch.isnan(maxt), -float("inf"), maxt)])
     order, tlo = _unit_visit_order(tables.box, tables.n_units, x, BLOCK)
     return o, d, time, maxt, order, tlo
 
@@ -212,46 +219,49 @@ LIBRARY = CudaLibrary("intersect_v4", _bind,
                       headers=("intersect_common.cuh",))
 
 
-def _columns(tables: V4Tables, ray: Ray, cap: Optional[int]):
-    """The eight ray columns as the kernel takes them (contiguous float32
-    (n,) on the scene tables' CUDA device), the list capacity (default:
-    every unit, up to the compiled maximum) and the loaded library."""
+def _columns(tables: V4Tables, ray: Ray, cap: Optional[int],
+             name: str = "intersect_v4", library: CudaLibrary = LIBRARY):
+    """The eight ray columns as the kernel ``name`` (B2's, or B5's, which
+    takes the same arguments) takes them: contiguous float32 (n,) on the
+    scene tables' CUDA device; the list capacity (default: every unit, up
+    to the compiled maximum) and the loaded ``library``."""
     cols = (ray.o.x, ray.o.y, ray.o.z, ray.d.x, ray.d.y, ray.d.z, ray.time,
             ray.maxt)
     n = cols[0].shape[0]
     dev = cols[0].device
     if dev.type != "cuda":
-        raise ValueError(f"intersect_v4 kernel: rays on {dev}, need CUDA")
+        raise ValueError(f"{name} kernel: rays on {dev}, need CUDA")
     if tables.woop.device != dev:
-        raise ValueError(f"intersect_v4 kernel: scene tables on "
+        raise ValueError(f"{name} kernel: scene tables on "
                          f"{tables.woop.device}, rays on {dev}")
     for c in cols:
         if (c.dtype != torch.float32 or not c.is_contiguous()
                 or c.shape != (n,) or c.device != dev):
-            raise ValueError("intersect_v4 kernel: ray columns must be "
+            raise ValueError(f"{name} kernel: ray columns must be "
                              f"contiguous ({n},) float32 on {dev}")
-    lib = LIBRARY.load()
-    max_cap = lib.mi_intersect_v4_max_cap()
+    lib = library.load()
+    max_cap = getattr(lib, f"mi_{name}_max_cap")()
     cap = min(tables.n_units, max_cap) if cap is None else cap
     if not 1 <= cap <= max_cap:
-        raise ValueError(f"intersect_v4 kernel: list capacity {cap} outside "
+        raise ValueError(f"{name} kernel: list capacity {cap} outside "
                          f"[1, {max_cap}]")
     return cols, n, dev, cap, lib
 
 
-def launch(tables: V4Tables, ray: Ray, any_hit: bool,
-           cap: Optional[int] = None):
-    """One launch over the ray columns and the scene tables: the kernel
-    builds its visit lists (``cap`` entries a round) and walks them.
-    Returns (t, prim) of the n lanes."""
-    global LAUNCHES
-    cols, n, dev, cap, lib = _columns(tables, ray, cap)
+def walk_units(tables: V4Tables, ray: Ray, any_hit: bool,
+               cap: Optional[int] = None, name: str = "intersect_v4",
+               library: CudaLibrary = LIBRARY):
+    """One launch of a walk over the units (``mi_<name>`` of ``library``:
+    B2's, or B5's with the same C interface): the kernel builds its visit
+    lists (``cap`` entries a round) and walks them. Returns (t, prim) of
+    the n lanes."""
+    cols, n, dev, cap, lib = _columns(tables, ray, cap, name, library)
     t = torch.empty((n,), device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     if n > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.mi_intersect_v4(
+            err = getattr(lib, f"mi_{name}")(
                 tables.woop_tri.data_ptr(), tables.meta.data_ptr(),
                 tables.inst.data_ptr(), tables.box.data_ptr(),
                 tables.scene_box.data_ptr(), tables.n_units,
@@ -259,8 +269,18 @@ def launch(tables: V4Tables, ray: Ray, any_hit: bool,
                 *(c.data_ptr() for c in cols), n, int(any_hit),
                 t.data_ptr(), prim.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(f"intersect_v4 kernel launch failed: CUDA "
-                               f"error {err}")
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+    return t, prim
+
+
+def launch(tables: V4Tables, ray: Ray, any_hit: bool,
+           cap: Optional[int] = None):
+    """One launch of B2 over the ray columns and the scene tables
+    (``walk_units``). Returns (t, prim) of the n lanes."""
+    global LAUNCHES
+    t, prim = walk_units(tables, ray, any_hit, cap)
+    if t.numel():
         LAUNCHES += 1
         LAUNCHES_BY_FORM["any_hit" if any_hit else "closest_hit"] += 1
     return t, prim
@@ -308,5 +328,5 @@ def intersect_v4(sa, ray: Ray, any_hit: bool = False):
 
 
 __all__ = ["intersect_v4", "intersect_v4_reference", "v4_tables", "prepare",
-           "launch", "lists", "LIBRARY", "BLOCK", "LAUNCHES",
+           "launch", "walk_units", "lists", "LIBRARY", "BLOCK", "LAUNCHES",
            "LAUNCHES_BY_FORM"]

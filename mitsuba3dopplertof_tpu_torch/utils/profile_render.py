@@ -9,10 +9,10 @@ scene: one first render and three warm renders timed on
 the host clock (each ends in ``torch.cuda.synchronize()``), then one warm
 render under ``torch.profiler`` (CPU and CUDA activities) with its device
 kernel time summed by group: the six ray-query kernels B1-B6 by their
-kernel names (B2: ``v4_walk_kernel``, B4: ``v2_walk_kernel``, which
-build their visit lists themselves), the visit lists that B5 and B6 build
-in PyTorch (every kernel that runs inside their ``prepare``, marked by a
-profiler range),
+kernel names (B2: ``v4_walk_kernel``, B5: ``v3_walk_kernel``, B4:
+``v2_walk_kernel``, which build their visit lists themselves), the visit
+lists that B6 builds in PyTorch (every kernel that runs inside its
+``prepare``, marked by a profiler range),
 sorts, gathers and scatters, and the rest. The device
 busy share is the kernel time over the median unprofiled wall time; the
 rest of the wall the card idles. The phases of ``core/logger.profile_phase``
@@ -51,16 +51,16 @@ _GROUPS = (("B1 intersect_bruteforce", ("intersect_kernel",)),
            ("sort", ("sort", "Sort", "radix")),
            ("gather/scatter", ("index", "gather", "scatter")))
 _LISTS = "visit lists"
-_LISTS_GROUP = "visit lists (PyTorch prepare of B5, B6)"
+_LISTS_GROUP = "visit lists (PyTorch prepare of B6)"
 
 
 @contextlib.contextmanager
 def _marked_lists():
-    """Every route's visit lists built in PyTorch (``prepare`` of B5 and
-    B6; B2, B3 and B4 build their own in the kernel) under one profiler
+    """Every route's visit lists built in PyTorch (``prepare`` of B6; B2,
+    B3, B4 and B5 build their own in the kernel) under one profiler
     range."""
-    from ..ops import intersect_mxu, intersect_v4
-    saved = [(m, m.prepare) for m in (intersect_v4, intersect_mxu)]
+    from ..ops import intersect_mxu
+    saved = [(m, m.prepare) for m in (intersect_mxu,)]
 
     def marked(fn):
         def prepare(*args, **kwargs):

@@ -6,10 +6,10 @@ the oracle ``_hit_reference`` and against the Pallas kernel run in
 interpret mode (as tests/test_v3_kernel.py, test_v2_kernel.py,
 test_mxu_kernel.py and test_pallas_parity.py run them), and each route as a
 whole: the 2k animated-mesh scene rendered by the port with the route
-selected against the JAX package's render; and B3's and B4's walks (B4's
-chunk lists too), simulated step by step in plain PyTorch, against their
-plain versions and against the work that chip_smoke.py's bounds count (no
-JAX call). Inputs are made with numpy
+selected against the JAX package's render; and B3's, B4's and B5's walks
+(B4's chunk lists and B5's per-lane box test too), simulated step by step
+in plain PyTorch, against their plain versions and against the work that
+chip_smoke.py's bounds count (no JAX call). Inputs are made with numpy
 from a seed; each tolerance is stated where it is used. The CUDA kernels
 run only on the card (tests/test_torch_cuda.py)."""
 
@@ -30,17 +30,21 @@ from mitsuba3dopplertof_tpu.ops import intersect_v3 as jv3
 from mitsuba3dopplertof_tpu.render.scene import _hit_reference
 
 import mitsuba3dopplertof_tpu_torch as mt
+from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
 from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as tik
 from mitsuba3dopplertof_tpu_torch.ops import intersect_mxu as tmxu
 from mitsuba3dopplertof_tpu_torch.ops import intersect_stream as tstream
 from mitsuba3dopplertof_tpu_torch.ops import intersect_v2 as tv2
 from mitsuba3dopplertof_tpu_torch.ops import intersect_v3 as tv3
 from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as tv4
+from mitsuba3dopplertof_tpu_torch.render.types import Ray
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
     animated_mesh_scene
 
-from torch_adversarial_rays import (adversarial_rays, equal_t_tables,
-                                    equal_t_v2_tables)
+from torch_adversarial_rays import (adversarial_rays, ballot_rays,
+                                    equal_t_tables, equal_t_v2_tables,
+                                    equal_t_v4_tables, tight_boxes,
+                                    unit_of_slot)
 from torch_port_helpers import (F32_ULP, assert_t_prim, both_rays,
                                 build_mixed_scene, jax_mesh_render,
                                 shell_rays)
@@ -678,17 +682,28 @@ def v2_case(scene, walk_case):
 
 
 @pytest.fixture(scope="module")
-def walk_work(scene, walk_case, v2_case):
+def v3_case(scene, walk_case):
+    """B2's tables of the mixed scene (which B5 walks), ``walk_case``'s
+    4,096 rays and B5's plain (t, prim) on them (B2's)."""
+    ray = walk_case[1]
+    return (tv4.v4_tables(scene[1]), ray,
+            tv3.intersect_v3_reference(scene[1], ray))
+
+
+@pytest.fixture(scope="module")
+def walk_work(scene, walk_case, v2_case, v3_case):
     """chip_smoke.py's ``WalkWork`` on ``walk_case``'s rays, one for each
-    form (any_hit False, True), with B3's plain t and B4's: built once
-    for the B3 and B4 count tests."""
+    form (any_hit False, True), with B5's (B2's) plain t as its final t,
+    B3's and B4's: built once for the B3, B4 and B5 count tests."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     ray, ref = walk_case[1:]
     t_b4 = v2_case[2][0]
-    return {a: chip_smoke.WalkWork(scene[1], ray, ref.t, a, t_b4=t_b4)
+    t_b5 = v3_case[2][0]
+    return {a: chip_smoke.WalkWork(scene[1], ray, t_b5, a, t_b3=ref.t,
+                                   t_b4=t_b4)
             for a in (False, True)}
 
 
@@ -804,3 +819,188 @@ def test_v2_walk_counts_match_chip_smoke(v2_case, walk_work, any_hit):
         assert torch.equal(walk.t[hit], t_ref[hit])
     own = tv2.v2_walk_reference(tb, prep, any_hit).tested
     assert torch.equal(own | tested, tested if any_hit else own)
+
+
+# ---------------------------------------------------------------------------
+# (h) B5's walk: B2's lists and shared walks, and a per-lane ray-box test
+#     (a ballot of the warp) ahead of each unit
+# ---------------------------------------------------------------------------
+
+def _unit_keys(tb, ray):
+    """(n_blocks, n_units): each block's entry distance into each unit box
+    (``intersect_v4.prepare``'s lists, unsorted)."""
+    order, tlo = tv4.prepare(tb, ray)[4:]
+    return torch.empty_like(tlo).scatter_(1, order.long(), tlo)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_v3_walk_matches_plain(scene, v3_case, monkeypatch, any_hit):
+    """B5's walk (``v3_walk_reference``) on 4,000 of the rays (the last
+    block padded with dead lanes): closest-hit t bit for bit and prim
+    equal to the plain version's on every lane, any-hit occlusion exact;
+    then with one unit's triangles copied into a new unit whose box is the
+    scene's (``equal_t_v4_tables``: equal t at a higher slot, the copy
+    first in many blocks' lists), where the smaller slot must still win; a
+    tie rule of strict t < best would return the copy's slot there, and a
+    far end that left out ties would skip the original."""
+    tb, ray, (t_ref, p_ref) = v3_case
+    n = 4000
+    ray = _head(ray, n)
+    walk = tv3.v3_walk_reference(tb, ray, any_hit)
+    hit = p_ref[:n] >= 0
+    assert int(hit.sum()) > 700
+    assert torch.equal(walk.prim[:n] >= 0, hit)
+    assert not bool((walk.prim[n:] >= 0).any())
+    if not any_hit:
+        assert torch.equal(walk.t[:n][hit], t_ref[:n][hit])
+        assert torch.equal(walk.prim[:n], p_ref[:n])
+
+    tb2, k, c = equal_t_v4_tables(tb, p_ref[:n], _unit_keys(tb, ray))
+    monkeypatch.setitem(scene[1]._cache, "v4", tb2)
+    t2, p2 = tv3.intersect_v3_reference(scene[1], ray)
+    walk = tv3.v3_walk_reference(tb2, ray, any_hit)
+    hit = p2 >= 0
+    copied = torch.isin(p2, tb2.meta[k, 1] + torch.arange(32)) & hit
+    keys = _unit_keys(tb2, ray)
+    first = (keys[:, c] < keys[:, k]).repeat_interleave(tv3.BLOCK)[:n]
+    assert int((copied & first).sum()) > 10
+    assert torch.equal(walk.prim[:n] >= 0, hit)
+    if not any_hit:
+        assert torch.equal(walk.t[:n][hit], t2[hit])
+        assert torch.equal(walk.prim[:n], p2)
+
+
+@pytest.mark.parametrize("cap", [1, 3])
+def test_v3_lists_in_rounds(v3_case, cap):
+    """B5's lists are B2's, built in the kernel in rounds of ``cap``
+    entries (``list_round``; ``intersect_stream.group_rounds`` in plain
+    PyTorch): rounds of 1 and 3 units take each block's reachable units in
+    ``prepare``'s order, the order ``v3_walk_reference`` walks, in as
+    many rounds as the largest block needs."""
+    tb, ray, _ = v3_case
+    keys = _unit_keys(tb, ray)
+    order, tlo = tv4.prepare(tb, ray)[4:]
+    reach = (tlo < 3e38).sum(dim=1)
+    assert int(reach.max()) > 3 and int(reach.min()) < tb.n_units
+    rounds = tstream.group_rounds(keys, cap)
+    assert len(rounds) == -(-int(reach.max()) // cap)
+    ent = torch.cat(rounds, dim=1)
+    for b in range(keys.shape[0]):
+        got = ent[b][ent[b] >= 0] & 0xFFFFFFFF
+        assert torch.equal(got, order[b, :int(reach[b])].long()), b
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_v3_walk_counts_match_chip_smoke(v3_case, walk_work, any_hit):
+    """chip_smoke.py's count of the units B5's warps must test
+    (``WalkWork.b5_warps``, vectorised) equals the step-by-step walk's with
+    the same far ends, unit for unit and warp by warp, and that walk finds
+    the plain version's hits. On the incoherent shell rays the per-lane
+    test leaves fewer units than B2's gate on the warp's ray bounds
+    (``WalkWork.b2_warps``); on the coherent rays it culls most of each
+    warp's units. The walk on its own far ends tests those units and more
+    closest-hit (its far ends only shrink to the final ones), and the same
+    any-hit (a lane takes part up to its first hit either way)."""
+    tb, ray, (t_ref, p_ref) = v3_case
+    per_warp, tested, far, reach = walk_work[any_hit].b5_warps()
+    walk = tv3.v3_walk_reference(tb, ray, any_hit, far=far)
+    assert torch.equal(walk.tested, tested)
+    assert torch.equal(tested.sum(dim=1), per_warp)
+    assert bool((per_warp <= reach).all())
+    shell = slice(0, N_RAYS // 32)
+    coherent = slice(N_RAYS // 32, (N_RAYS + N_COHERENT) // 32)
+    b2 = walk_work[any_hit].b2_warps()[0]
+    assert 0 < int(per_warp[shell].sum()) < int(b2[shell].sum())
+    assert 0 < int(per_warp[coherent].sum()) < tested[coherent].numel() // 2
+    hit = p_ref >= 0
+    assert torch.equal(walk.prim[:hit.shape[0]] >= 0, hit)
+    if not any_hit:
+        assert torch.equal(walk.t[:hit.shape[0]][hit], t_ref[hit])
+    own = tv3.v3_walk_reference(tb, ray, any_hit).tested
+    assert torch.equal(own | tested, own)
+    if any_hit:
+        assert torch.equal(own, tested)
+
+
+def test_v3_ballot_keeps_every_hit(scene):
+    """B5's per-lane box test in its plain form (``lane_box_test``) never
+    drops the unit of a plain-version hit: on 4,000 ``ballot_rays`` (zero
+    and -0 direction components through edges and vertices, origins on
+    box faces and edges, rays grazing box corners, maxt exactly at or just
+    past a hit, NaN maxt; the last block ragged), each hit lane's own ray
+    passes the test against its winner's unit with the tightest far end a
+    walk can hold there (the hit's own t), against the table's boxes and
+    against boxes shrunk to their triangles' exact bounds
+    (``tight_boxes``). There, rays with a zero direction component start
+    in a face plane of the winner's box ((b - o) / 0 = NaN): a test with
+    fminf/fmaxf, which drop the NaN, would reject them, and one without
+    the scaled far side would reject others. The walk over these rays
+    (``v3_walk_reference``) equals the plain version."""
+    sa_t = scene[1]
+    tb = tv4.v4_tables(sa_t)
+    n = 4000
+    ray = ballot_rays(sa_t, tb, n, 3, "cpu")
+    t, p = tv3.intersect_v3_reference(sa_t, ray)
+    hit = p >= 0
+    assert int(hit.sum()) > 1500 and int(torch.isnan(ray.maxt).sum()) > 500
+    unit = unit_of_slot(tb)[p[hit].long()]
+    assert bool((unit >= 0).all())
+    o = tuple(c[hit] for c in ray.o)
+    inv = tuple(1.0 / c[hit] for c in ray.d)
+    for boxes in (tb.box, tight_boxes(sa_t, tb)):
+        box = boxes[unit]
+        assert bool(tv3.lane_box_test(o, inv, box, t[hit]).all())
+        lo, hi = torch.zeros_like(t[hit]), t[hit]
+        lo_u, hi_u = lo, hi
+        nan = torch.zeros_like(hit[hit])
+        for ax in range(3):
+            t0 = (box[:, ax] - o[ax]) * inv[ax]
+            t1 = (box[:, 3 + ax] - o[ax]) * inv[ax]
+            nan |= torch.isnan(t0) | torch.isnan(t1)
+            lo = torch.fmax(lo, torch.fmin(t0, t1))
+            hi = torch.fmin(hi, torch.fmax(t0, t1))
+            en, ex = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            lo_u = torch.where(en > lo_u, en, lo_u)
+            hi_u = torch.where(ex < hi_u, ex, hi_u)
+        dropped_nan = int((lo > hi * tv3.SLAB_SLACK).sum())
+        dropped_unscaled = int((lo_u > hi_u).sum())
+        assert dropped_unscaled > 0
+        if boxes is not tb.box:
+            assert int(nan.sum()) > 20 and dropped_nan == int(nan.sum())
+    for any_hit in (False, True):
+        walk = tv3.v3_walk_reference(tb, ray, any_hit)
+        assert torch.equal(walk.prim[:n] >= 0, hit)
+        if not any_hit:
+            assert torch.equal(walk.t[:n][hit], t[hit])
+            assert torch.equal(walk.prim[:n], p)
+
+
+def test_v3_query_builds_no_lists(scene, monkeypatch):
+    """``intersect_v3`` on tensors that are not on the CPU (here "meta"
+    tensors, which carry no data) takes the card's path: one launch of the
+    kernel over B2's tables and the rays as given, with no visit list
+    built in PyTorch (``prepare`` and ``_unit_visit_order`` never
+    called)."""
+    sa_t = scene[1]
+    calls = []
+
+    def spy(*args, **kwargs):
+        raise AssertionError("B5 built its visit lists in PyTorch")
+
+    def launch(tables, ray, any_hit, cap=None):
+        calls.append((tables, ray, any_hit, cap))
+        n = ray.maxt.shape[0]
+        return (torch.empty(n, device="meta"),
+                torch.empty(n, dtype=torch.int32, device="meta"))
+    monkeypatch.setattr(tv4, "prepare", spy)
+    monkeypatch.setattr(tv4, "_unit_visit_order", spy)
+    monkeypatch.setattr(tv3, "_unit_visit_order", spy)
+    monkeypatch.setattr(tv3, "launch", launch)
+    col = lambda: torch.empty(300, device="meta")
+    r = Ray(Vec3(col(), col(), col()), Vec3(col(), col(), col()), col(),
+            col())
+    for any_hit in (False, True):
+        t, prim = tv3.intersect_v3(sa_t, r, any_hit=any_hit)
+        assert t.shape == (300,) and prim.dtype == torch.int32
+    assert [c[2:] for c in calls] == [(False, None), (True, None)]
+    assert all(c[0] is tv4.v4_tables(sa_t) and c[1] is r for c in calls)

@@ -31,8 +31,9 @@ from mitsuba3dopplertof_tpu_torch.render.types import Ray
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
     animated_mesh_scene, static_mesh_scene, write_uv_sphere_obj)
 
-from torch_adversarial_rays import (adversarial_rays, equal_t_tables,
-                                    equal_t_v2_tables)
+from torch_adversarial_rays import (adversarial_rays, ballot_rays,
+                                    equal_t_tables, equal_t_v2_tables,
+                                    equal_t_v4_tables)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
@@ -601,3 +602,94 @@ def test_stream_kernel_matches_plain(cuda, tmp_path, monkeypatch, animated,
         assert bool((keys[:, p // 8] < keys[:, k // 8]).any())
     if case == "rounds":
         assert -(-tables.n_chunks // 8 // cap) > 1
+
+
+# B5's card cases: the per-lane box test's rays (zero and -0 direction
+# components, origins on box faces and edges, grazing rays, maxt at a hit,
+# NaN maxt, a ragged last block), adversarial rays, dead lanes, an equal-t
+# copy of a unit in a unit that the walks reach first, lists of 1 and of 3
+# units a round
+V3_CASES = ["ballot", "adversarial", "dead", "equal_t", "rounds1", "rounds3"]
+
+
+@pytest.mark.parametrize("case", V3_CASES)
+@pytest.mark.parametrize("animated", [True, False])
+def test_v3_kernel_matches_plain(cuda, tmp_path, monkeypatch, animated,
+                                 case):
+    """B5 (B2's lists and shared walks, a per-lane ray-box ballot ahead of
+    each unit) against its plain version on 3,072 triangles: 65,436
+    ``ballot_rays``; 65,536 ``adversarial_rays``; a ragged wavefront
+    (65,436 lanes) with every seventh lane, one whole warp and one whole
+    block dead (maxt -1); one unit's triangles copied into a new unit whose
+    box is the scene's (``equal_t_v4_tables``: equal t in two units, the
+    smaller slot must win wherever the walks reach the copy first); and
+    lists of 1 and of 3 units a round. Closest-hit: t bit for bit and prim
+    equal on every lane; any-hit: occlusion exact; B2 never launched."""
+    sa = _mesh_scene(cuda, tmp_path, animated).compile()
+    tmax = 0.0015 if animated else 0.0
+    tables = v4.v4_tables(sa)
+    if case == "ballot":
+        ray = ballot_rays(sa, tables, (1 << 16) - 100, 4, cuda)
+    elif case == "equal_t":
+        ray = _rays(1 << 16, 10, cuda, -4.0, tmax)
+    elif case == "dead":
+        ray = _rays((1 << 16) - 100, 9, cuda, -4.0, tmax)
+        lane = torch.arange(ray.maxt.shape[0], device=cuda)
+        dead = (lane % 7 == 3) | ((lane >= 64) & (lane < 96)) \
+            | ((lane >= 512) & (lane < 768))
+        ray = ray._replace(maxt=torch.where(dead, -1.0, ray.maxt))
+    else:
+        ray = adversarial_rays(sa, 1 << 16, 12, cuda)
+
+    def keys(tb):
+        order, tlo = v4.prepare(tb, ray)[4:]
+        return torch.empty_like(tlo).scatter_(1, order.long(), tlo)
+    if case == "equal_t":
+        tables, k, c = equal_t_v4_tables(
+            tables, v3.intersect_v3_reference(sa, ray)[1], keys(tables))
+        monkeypatch.setitem(sa._cache, "v4", tables)
+    cap = {"rounds1": 1, "rounds3": 3}.get(case)
+    v3.reset_launch_counts()
+    v4.reset_launch_counts()
+    t_k, p_k = v3.launch(tables, ray, False, cap=cap)
+    _, p_any = v3.launch(tables, ray, True, cap=cap)
+    torch.cuda.synchronize()
+    assert v3.LAUNCHES_BY_FORM == {"closest_hit": 1, "any_hit": 1}
+    assert v4.LAUNCHES == 0
+    t_r, p_r = v3.intersect_v3_reference(sa, ray)
+    hit = p_r >= 0
+    assert int(hit.sum()) > 5000
+    assert torch.equal(p_k >= 0, hit) and torch.equal(p_any >= 0, hit)
+    assert torch.equal(t_k[hit], t_r[hit])
+    assert torch.equal(p_k, p_r)
+    if case == "equal_t":
+        copied = torch.isin(p_r, tables.meta[k, 1] + torch.arange(
+            32, device=cuda)) & hit
+        kk = keys(tables)
+        first = (kk[:, c] < kk[:, k]).repeat_interleave(
+            v3.BLOCK)[:ray.maxt.shape[0]]
+        assert int((copied & first).sum()) > 100
+    if case == "ballot":
+        assert bool(torch.isnan(ray.maxt).any())
+
+
+def test_v3_query_builds_no_lists(cuda, tmp_path, monkeypatch):
+    """On the card ``intersect_v3`` and the ``v3`` route launch B5 once a
+    query and build no visit lists in PyTorch: ``prepare`` and
+    ``_unit_visit_order`` are never called."""
+    sa = _mesh_scene(cuda, tmp_path, True).compile()
+    ray = _rays(1 << 14, 6, cuda, -4.0, 0.0015)
+
+    def spy(*args, **kwargs):
+        raise AssertionError("B5 built its visit lists in PyTorch")
+    monkeypatch.setattr(v4, "prepare", spy)
+    monkeypatch.setattr(v4, "_unit_visit_order", spy)
+    monkeypatch.setattr(v3, "_unit_visit_order", spy)
+    monkeypatch.setenv("MI_STREAM_KERNEL", "v3")
+    v3.reset_launch_counts()
+    v3.intersect_v3(sa, ray)
+    v3.intersect_v3(sa, ray, any_hit=True)
+    ik.intersect(sa, ray)
+    ik.ray_test(sa, ray)
+    torch.cuda.synchronize()
+    assert v3.LAUNCHES_BY_FORM == {"closest_hit": 2, "any_hit": 2}

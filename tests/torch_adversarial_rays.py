@@ -1,9 +1,10 @@
 """Rays that stress a conservative ray-triangle gate
-(``adversarial_rays``), and B3's and B4's tables with equal-t hits in two
-groups of chunks or two chunks (``equal_t_tables``,
-``equal_t_v2_tables``), for the port's tests of B6, B3 and B4 on the CPU
-(tests/test_torch_alt_kernels.py) and on the card
-(tests/test_torch_cuda.py). Imports only the port (no jax)."""
+(``adversarial_rays``) and a per-lane ray-box test (``ballot_rays``), and
+B3's, B4's and B2's (B5's) tables with equal-t hits in two groups of
+chunks, two chunks or two units (``equal_t_tables``,
+``equal_t_v2_tables``, ``equal_t_v4_tables``), for the port's tests of
+B6, B3, B4 and B5 on the CPU (tests/test_torch_alt_kernels.py) and on the
+card (tests/test_torch_cuda.py). Imports only the port (no jax)."""
 
 import numpy as np
 import torch
@@ -162,3 +163,178 @@ def equal_t_v2_tables(tb, prim, keys):
             128, dtype=torch.int32, device=dev)]),
         box=torch.cat([tb.box, sub[:1]]).contiguous(),
         scene_box=torch.cat([sub[0, :3], sub[0, 3:]])), k, n)
+
+
+def unit_of_slot(tb):
+    """(n_slots,) int64: the unit (``intersect_v4.V4Tables``) that holds
+    each slot's triangle, -1 for slots of no real triangle (pad and
+    degenerate triangles have zero Woop rows)."""
+    real = tb.woop_tri.abs().sum(dim=2) > 0.0                # (units, 32)
+    slots = tb.meta[:, 1:2].long() + torch.arange(32, device=real.device)
+    out = torch.full((int(slots[real].max()) + 1,), -1, dtype=torch.int64,
+                     device=real.device)
+    unit = torch.arange(tb.n_units, device=real.device)[:, None].expand(
+        -1, 32)
+    out[slots[real]] = unit[real]
+    return out
+
+
+def tight_boxes(sa, tb):
+    """``tb.box`` with each static unit's box shrunk to the exact bounds of
+    its triangles' float32 vertices (v0, v0 + e1, v0 + e2), no padding: a
+    triangle that attains a bound lies in that face plane of its box.
+    Animated units keep their boxes."""
+    box = tb.box.clone()
+    n = sa.n_static_tris
+    g = {c: sa.tri("s", c)[:n] for c in _GEOM}
+    v0 = torch.stack([g["v0x"], g["v0y"], g["v0z"]], dim=1)
+    verts = torch.stack([v0, v0 + torch.stack([g["e1x"], g["e1y"], g["e1z"]],
+                                              dim=1),
+                         v0 + torch.stack([g["e2x"], g["e2y"], g["e2z"]],
+                                          dim=1)], dim=1)     # (n, 3, 3)
+    for u in range(tb.n_units):
+        ci, s0 = (int(x) for x in tb.meta[u])
+        if ci >= 0 or s0 >= n or not bool(tb.woop_tri[u].any()):
+            continue
+        v = verts[s0:min(s0 + 32, n)].reshape(-1, 3)
+        box[u, :3] = v.amin(dim=0)
+        box[u, 3:] = v.amax(dim=0)
+    return box
+
+
+def ballot_rays(sa, tb, n, seed, device):
+    """``n`` rays that stress B5's per-lane ray-box test against the units
+    of ``tb`` (``intersect_v4.V4Tables``), in five equal parts: (0) through
+    a point of an edge of a static triangle, and (1) through a vertex of
+    one, with one direction component exactly +0 or -0 (alternating), the
+    edge's or the vertex's own coordinate on that axis, so the origin lies
+    in a plane through the edge or vertex parallel to the ray: where the
+    triangle attains its unit's bound there (``tight_boxes``), the origin
+    lies in a face plane of the box; (2) from a point on a face or an edge
+    of a unit's box (one or two coordinates exactly its bounds) toward a
+    random point of the middle half of the box; (3) grazing a unit's box:
+    toward one of its corners from 1-4 units away; (4) from about 1e3 away
+    toward a random point of a static triangle, with one direction
+    component exactly 0. Then every eighth lane ends exactly at its first
+    hit (maxt = the plain version's t), every eighth from the fourth just
+    past it (the next float), every seventh has a NaN maxt, and a quarter
+    of the rest end at a finite maxt. Made with numpy from ``seed``."""
+    from mitsuba3dopplertof_tpu_torch.ops.intersect_v4 import \
+        intersect_v4_reference
+    rng = np.random.default_rng(seed)
+    ns = sa.n_static_tris
+    tri = np.stack([sa.tri("s", c)[:ns].cpu().numpy() for c in _GEOM],
+                   axis=1).astype(np.float32)                  # (ns, 9)
+    ok = np.flatnonzero(np.linalg.norm(np.cross(tri[:, 3:6], tri[:, 6:9]),
+                                       axis=1) > 1e-10)
+    verts = np.stack([tri[:, 0:3], tri[:, 0:3] + tri[:, 3:6],
+                      tri[:, 0:3] + tri[:, 6:9]], axis=1)      # float32
+    kind = np.arange(n) % 5
+    pick = ok[rng.integers(0, len(ok), n)]
+    vi = rng.integers(0, 3, n)
+    a = rng.uniform(0.0, 1.0, (n, 1)).astype(np.float32)
+    edge = verts[pick, vi] + a * (verts[pick, (vi + 1) % 3]
+                                  - verts[pick, vi])
+    b1, b2 = rng.uniform(0.0, 1.0, (2, n, 1))
+    flip = b1 + b2 > 1.0
+    b1, b2 = np.where(flip, 1.0 - b1, b1), np.where(flip, 1.0 - b2, b2)
+    inner = (verts[pick, 0] + b1 * (verts[pick, 1] - verts[pick, 0])
+             + b2 * (verts[pick, 2] - verts[pick, 0]))
+    # (2), (3): a live unit's box, and a triangle of the unit
+    boxes = tb.box.cpu().numpy().astype(np.float64)
+    real = (tb.woop_tri.abs().sum(dim=2) > 0.0).cpu().numpy()
+    units = np.flatnonzero(real.any(axis=1))
+    u = units[rng.integers(0, len(units), n)]
+    lo, hi = boxes[u, :3], boxes[u, 3:]
+    p_box = lo + rng.uniform(0.0, 1.0, (n, 3)) * (hi - lo)
+    n_fix = rng.integers(1, 3, n)
+    axes = np.argsort(rng.uniform(size=(n, 3)), axis=1)
+    side = rng.integers(0, 2, (n, 3))
+    for k in range(2):
+        ax = axes[:, k]
+        fix = n_fix > k
+        rows = np.flatnonzero(fix)
+        p_box[rows, ax[rows]] = np.where(side[rows, k] == 0,
+                                         lo[rows, ax[rows]],
+                                         hi[rows, ax[rows]])
+    corner = np.where(side == 0, lo, hi)
+    centre = 0.5 * (lo + hi)
+    d = rng.normal(size=(n, 3))
+    zero_ax = rng.integers(0, 3, n)
+    sign0 = np.where(np.arange(n) % 2 == 0, 0.0, -0.0)
+    rows = np.flatnonzero(kind != 3)
+    d[rows, zero_ax[rows]] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[rows, zero_ax[rows]] = sign0[rows]
+    dist = np.where(kind == 4, rng.uniform(500.0, 1000.0, n),
+                    rng.uniform(1.0, 4.0, n))
+    target = np.where(kind[:, None] == 0, edge,
+                      np.where(kind[:, None] == 1, verts[pick, vi],
+                               inner)).astype(np.float64)
+    o = target - d * dist[:, None]
+    # the zero component's coordinate is the target's own, exactly
+    o[rows, zero_ax[rows]] = target[rows, zero_ax[rows]]
+    # (2) from the box surface toward a point of its middle half
+    k2 = kind == 2
+    tgt2 = centre + 0.25 * (hi - lo) * rng.uniform(-1.0, 1.0, (n, 3))
+    d2 = tgt2 - p_box
+    d2 /= np.maximum(np.linalg.norm(d2, axis=1, keepdims=True), 1e-30)
+    o = np.where(k2[:, None], p_box, o)
+    d = np.where(k2[:, None], d2, d)
+    # (3) toward a corner of the box from outside
+    k3 = kind == 3
+    away = rng.normal(size=(n, 3))
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+    o3 = corner + away * rng.uniform(1.0, 4.0, (n, 1))
+    d3 = corner - o3
+    d3 /= np.linalg.norm(d3, axis=1, keepdims=True)
+    o = np.where(k3[:, None], o3, o)
+    d = np.where(k3[:, None], d3, d)
+    f = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
+    ray = Ray(Vec3(*(f(o[:, i]) for i in range(3))),
+              Vec3(*(f(d[:, i]) for i in range(3))),
+              f(rng.uniform(0.0, 1.0, n)), f(np.full(n, np.inf)))
+    t = intersect_v4_reference(sa, ray)[0]
+    lane = torch.arange(n, device=t.device)
+    maxt = torch.where(torch.as_tensor(rng.uniform(size=n) < 0.25,
+                                       device=t.device),
+                       f(rng.uniform(1.0, 8.0, n)), ray.maxt)
+    found = torch.isfinite(t)
+    maxt = torch.where(found & (lane % 8 == 0), t, maxt)
+    maxt = torch.where(found & (lane % 8 == 4),
+                       torch.nextafter(t, torch.full_like(t, np.inf)), maxt)
+    maxt = torch.where(lane % 7 == 5, float("nan"), maxt)
+    return ray._replace(maxt=maxt.contiguous())
+
+
+def equal_t_v4_tables(tb, prim, keys):
+    """B2's tables (``intersect_v4.V4Tables``, which B5 walks) with one
+    more unit, in the transform group of a chosen unit, holding a copy of
+    that unit's triangles, with a box that is the scene's widened by 1 on
+    every side: a ray that hits a copied triangle hits its copy at the same
+    t, at a higher slot, and a block whose key for the original unit is
+    above 0 may reach the copy first. The unit is the one that holds the
+    most winners ``prim`` (slots of each lane; -1 for a miss) in blocks
+    whose key (``keys``: (n_blocks, n_units) entry distances of the
+    blocks' visit lists) for it is above 0. Returns (tables, unit, the new
+    unit's index)."""
+    n = tb.n_units
+    dev = tb.box.device
+    of_slot = unit_of_slot(tb)
+    lane = (prim >= 0).nonzero()[:, 0]
+    unit = of_slot[prim[lane].long()]
+    ok = (unit >= 0) & (keys[lane // 256, unit.clamp(min=0)] > 0.0)
+    k = int(torch.bincount(unit[ok], minlength=n).argmax())
+    live = tb.box[:, 0] <= tb.box[:, 3]
+    box = torch.cat([tb.box[live, :3].amin(dim=0) - 1.0,
+                     tb.box[live, 3:].amax(dim=0) + 1.0])[None]
+    ci = int(tb.meta[k, 0])
+    slot0 = int(of_slot.shape[0]) + 32
+    meta = torch.tensor([[ci, slot0]], dtype=torch.int32, device=dev)
+    return (tb._replace(
+        meta=torch.cat([tb.meta, meta]).contiguous(),
+        woop=torch.cat([tb.woop, tb.woop[k:k + 1]]).contiguous(),
+        box=torch.cat([tb.box, box]).contiguous(), n_units=n + 1,
+        runs=tb.runs + ((ci, n, n + 1),),
+        woop_tri=torch.cat([tb.woop_tri, tb.woop_tri[k:k + 1]]).contiguous(),
+        scene_box=box[0].clone()), k, n)
