@@ -95,7 +95,19 @@ phase raises on failure:
   8. the port on the card against the port on the CPU at 16x16 x 16 spp:
      the canonical scene (dopplertofpath and path) and the 2k animated
      scene (B2 and binning on the card, the plain intersector on the CPU);
-  9. a JSON line with the kernels, then the contract line
+  9. the rest of the Doppler core: velocity and depth on the canonical
+     scene at 256x256 x 1024 spp through B1 (velocity: two closest-hit
+     launches a pass) and on the 40k animated scene at 256x256 x 256 spp
+     through B2; dopplertofpath with the timestratified sampler on the
+     canonical scene, and through a thin lens with the mitchell filter on
+     the 40k scene; each twice, the second render timed, launch counts
+     read around the first; on the card against the CPU at 16x16 x 16 spp
+     with phase 8's criteria: velocity and depth (canonical and the 2k
+     mesh), the five new samplers, a batch sensor (thinlens, orthographic,
+     distant, perspective) and the lanczos and catmullrom filters; a
+     timed-out render, and checkpoint resumes (spp-sliced and strip passes)
+     equal to the uninterrupted render bit for bit, at 64x64 x 64 spp;
+ 10. a JSON line with the kernels, then the contract line
      {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
@@ -284,7 +296,7 @@ def camera_wavefront(scene, n, lane0, spp, shutter, seed):
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                     device=scene.device)
     ray, _ = sample_ray_kind(
-        sensor.device_params(), f32(rng.uniform(0.0, shutter, n)),
+        sensor.device_params(), None, f32(rng.uniform(0.0, shutter, n)),
         f32(((pix % W) + rng.uniform(0.0, 1.0, n)) / W),
         f32(((pix // W) + rng.uniform(0.0, 1.0, n)) / H))
     return ray
@@ -902,7 +914,7 @@ def b1_wavefronts(scene, ik, dev, n):
     tcam = ts * 0.0015
     tcam = torch.where(tcam < 0.0015, tcam, tcam - 0.0015)
     cam, _ = sample_ray_kind(
-        sensor.device_params(), tcam,
+        sensor.device_params(), None, tcam,
         ((pix % W).float() + off[0]) * (1.0 / W),
         ((pix // W).float() + off[1]) * (1.0 / H))
     si = build_si(sa, cam, ik.intersect_reference(sa, cam))
@@ -1579,6 +1591,225 @@ class WalkWork:
             return (int(per_warp.sum()), int(tested.any(dim=0).sum()),
                     "chunks")
         raise KeyError(row)
+
+
+def canonical_dict(mi, sampler=None, rfilter=None, sensor=None, **params):
+    """scenes/canonical/scene.xml as a scene dict (``params`` override its
+    defaults spp, resx, resy), with its sampler, its film's filter or its
+    sensor replaced by the given plugin dicts."""
+    d = mi.xml_to_dict(CANONICAL, {k: str(v) for k, v in params.items()},
+                       is_file=True)
+    key = next(k for k, v in d.items()
+               if isinstance(v, dict) and v.get("type") == "perspective")
+    cam = dict(d[key])
+    for k, v in list(cam.items()):
+        if not isinstance(v, dict):
+            continue
+        if sampler is not None and v.get("type") == "correlated":
+            cam[k] = dict(sampler, sample_count=v["sample_count"])
+        elif rfilter is not None and v.get("type") == "hdrfilm":
+            cam[k] = {fk: (dict(rfilter) if isinstance(fv, dict) else fv)
+                      for fk, fv in v.items()}
+    d[key] = cam if sensor is None else sensor(cam)
+    return d
+
+
+def batch_sensor(cam: dict) -> dict:
+    """A batch sensor over the canonical camera: a thin lens, an
+    orthographic and a distant sensor looking down the box, and the
+    perspective camera itself, side by side on a film four times as wide."""
+    import numpy as np
+    film = next(v for v in cam.values()
+                if isinstance(v, dict) and v.get("type") == "hdrfilm")
+    sampler = next(v for v in cam.values()
+                   if isinstance(v, dict) and v.get("type") == "correlated")
+    child_film = dict(film)
+    ortho = np.array(cam["to_world"], dtype=np.float64)
+    ortho[:3, :3] = ortho[:3, :3] * 1.1
+    plain = {k: v for k, v in cam.items() if not isinstance(v, dict)}
+    return {"type": "batch", "shutter_open": cam["shutter_open"],
+            "shutter_close": cam["shutter_close"],
+            "film": dict(film, width=4 * film["width"]),
+            "sampler": dict(sampler),
+            "lens": dict(plain, type="thinlens", aperture_radius=0.08,
+                         focus_distance=4.5, film=dict(child_film)),
+            "ortho": {"type": "orthographic", "to_world": ortho,
+                      "film": dict(child_film)},
+            "distant": {"type": "distant", "direction": [0.0, 0.0, -1.0],
+                        "film": dict(child_film)},
+            "pinhole": dict(plain, film=dict(child_film))}
+
+
+def doppler_core_phase(mi, obj40, obj2k, reset, read, card, res=256,
+                       spp_small=1024, spp_large=256) -> None:
+    """Phase 9: the velocity and depth integrators, the timestratified
+    sampler, the thin lens and the mitchell filter at the main path's
+    sizes (``res`` x ``res`` at ``spp_small`` spp on the canonical scene,
+    ``spp_large`` on the 40k one); the new samplers, sensors and filters on
+    the card against the CPU; a timed-out render and checkpoint resumes on
+    the card."""
+    import numpy as np
+    import tempfile
+    import torch
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
+        animated_mesh_scene
+    t_phase = time.perf_counter()
+
+    def twice(tag, load, spp, integ, forms, kernel):
+        """Render twice (counts read around the first), time the second;
+        ``forms``: the forms of ``kernel`` that must be launched (the
+        others must not be)."""
+        scene = load()
+        kw = {} if integ is None else {"integrator": mi.load_dict(integ)}
+        reset()
+        t0 = time.perf_counter()
+        img = mi.render(scene, spp=spp, seed=0, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read()[kernel]
+        t0 = time.perf_counter()
+        img2 = mi.render(scene, spp=spp, seed=0, **kw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        w, h = img.shape[1], img.shape[0]
+        if tuple(img.shape) != (res, res, 3):
+            fail(f"{tag}: image shape {tuple(img.shape)}")
+        if not bool(torch.isfinite(img).all()) or not bool(
+                (img != 0).any()):
+            fail(f"{tag}: image not finite or all zero")
+        for form, count in counts.items():
+            if (count > 0) != (form in forms):
+                fail(f"{tag} launched {kernel} {form} {count} times")
+        print(f"render {tag} {w}x{h}x{spp}: first {first_s:.3f} s, warm "
+              f"{warm_s:.3f} s = {w * h * spp / warm_s / 1e6:.3f} "
+              f"Msamples/s ({card}); launches {kernel} {counts}; image "
+              f"mean {float(img.mean()):.6g}, max |v| "
+              f"{float(img.abs().max()):.6g}", flush=True)
+        if not torch.equal(img, img2):
+            print("note: two renders differ (max "
+                  f"{float((img - img2).abs().max()):.3g})", flush=True)
+
+    closest = ("closest_hit",)
+    both = ("closest_hit", "any_hit")
+    velocity = {"type": "velocity", "time": 0.0015}
+    canon = lambda: mi.load_file(CANONICAL, spp=spp_small, resx=res,
+                                 resy=res)
+    mesh40 = lambda d=None: mi.load_dict(
+        d or animated_mesh_scene(obj40, spp=spp_large, res=res))
+    twice("canonical velocity through B1", canon, spp_small, velocity,
+          closest, "B1")
+    twice("canonical depth through B1", canon, spp_small, {"type": "depth"},
+          closest, "B1")
+    twice("40k animated velocity through B2", mesh40, spp_large, velocity,
+          closest, "B2")
+    twice("40k animated depth through B2", mesh40, spp_large,
+          {"type": "depth"}, closest, "B2")
+    twice("canonical dopplertofpath timestratified through B1",
+          lambda: mi.load_dict(canonical_dict(
+              mi, sampler={"type": "timestratified"}, spp=spp_small,
+              resx=res, resy=res)), spp_small, None, both, "B1")
+    d40 = animated_mesh_scene(obj40, spp=spp_large, res=res)
+    d40["sensor"] = dict(d40["sensor"], type="thinlens",
+                         aperture_radius=0.05, focus_distance=4.0,
+                         film=dict(d40["sensor"]["film"],
+                                   rfilter={"type": "mitchell"}))
+    twice("40k animated dopplertofpath thinlens + mitchell through B2",
+          lambda: mesh40(d40), spp_large, None, both, "B2")
+
+    # card against CPU at 16x16 x 16 spp, phase 8's criteria
+    small = dict(spp=16, resx=16, resy=16)
+    cases = [("canonical velocity", lambda dv: mi.load_file(
+                  CANONICAL, device=dv, **small), velocity),
+             ("canonical depth", lambda dv: mi.load_file(
+                  CANONICAL, device=dv, **small), {"type": "depth"}),
+             ("2k animated velocity", lambda dv: mi.load_dict(
+                  animated_mesh_scene(obj2k, spp=16, res=16), device=dv),
+              velocity),
+             ("2k animated depth", lambda dv: mi.load_dict(
+                  animated_mesh_scene(obj2k, spp=16, res=16), device=dv),
+              {"type": "depth"})]
+    for kind in ("timestratified", "stratified", "multijitter", "ldsampler",
+                 "orthogonal"):
+        cases.append((f"canonical dopplertofpath {kind}",
+                      lambda dv, k=kind: mi.load_dict(canonical_dict(
+                          mi, sampler={"type": k}, **small), device=dv),
+                      None))
+    cases.append(("canonical dopplertofpath batch(thinlens, orthographic, "
+                  "distant, perspective)",
+                  lambda dv: mi.load_dict(canonical_dict(
+                      mi, sensor=batch_sensor, **small), device=dv), None))
+    for kind in ("lanczos", "catmullrom"):
+        cases.append((f"canonical dopplertofpath {kind}",
+                      lambda dv, k=kind: mi.load_dict(canonical_dict(
+                          mi, rfilter={"type": k}, **small), device=dv),
+                      None))
+    for label, load, integ in cases:
+        out = []
+        for dv in (None, "cpu"):
+            kw = {} if integ is None else {
+                "integrator": mi.load_dict(integ, device=dv)}
+            out.append(mi.render(load(dv), spp=16, seed=0,
+                                 **kw).cpu().numpy())
+        ig, ic = out
+        scale = float(np.abs(ic).max())
+        close = np.isclose(ig, ic, rtol=1e-4, atol=1e-4 * scale)
+        rel_mean = abs(ig.mean() - ic.mean()) / max(abs(ic.mean()), 1e-30)
+        print(f"cuda vs cpu {label} {ig.shape[1]}x{ig.shape[0]}x16: "
+              f"{close.mean() * 100:.2f}% of values within tolerance, mean "
+              f"rel diff {rel_mean:.3g}, max abs diff "
+              f"{float(np.abs(ig - ic).max()):.3g} (scale {scale:.3g})",
+              flush=True)
+        if (close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0
+                or not np.isfinite(ig).all()):
+            fail(f"cuda vs cpu {label}: outside tolerance")
+
+    # a timed-out render, and checkpoint resumes in both kinds of passes:
+    # 64x64 x 64 spp in four passes of 16 spp, or of 16 pixel rows
+    mid = dict(spp=64, resx=64, resy=64)
+    timed = mi.load_file(CANONICAL, **mid)
+    timed.integrator.timeout = 1e-9
+    timed.integrator.samples_per_pass = 16
+    img = mi.render(timed, spp=64, seed=0)
+    if not bool(torch.isfinite(img).all()) or not bool((img != 0).any()):
+        fail("the timed-out render is not finite or all zero")
+    print(f"timed-out render canonical 64x64x64 (timeout 1e-9 s, 16 spp a "
+          f"pass): finite, mean {float(img.mean()):.6g}", flush=True)
+    for mode, setup, kw in (("spp-sliced", {"samples_per_pass": 16}, {}),
+                            ("strip", {}, {"max_lanes": 64 * 64 * 16})):
+        def scene_with():
+            sc = mi.load_file(CANONICAL, **mid)
+            for k, v in setup.items():
+                setattr(sc.integrator, k, v)
+            return sc
+        full = scene_with()
+        full = full.integrator.render(full, spp=64, seed=0, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck.npz")
+            sc = scene_with()
+            integ = sc.integrator
+            calls = []
+
+            def stop_at_second(start, integ=integ, calls=calls):
+                calls.append(start)
+                if len(calls) == 2:
+                    integ.cancel()
+                return type(integ).should_stop(integ, start)
+            integ.should_stop = stop_at_second
+            integ.render(sc, spp=64, seed=0, checkpoint_path=ck,
+                         checkpoint_every=1, **kw)
+            with np.load(ck) as f:
+                stopped_at = int(f["pass_idx"])
+            sc = scene_with()
+            resumed = sc.integrator.render(sc, spp=64, seed=0,
+                                           checkpoint_path=ck, **kw)
+        same = torch.equal(resumed, full)
+        print(f"checkpoint resume canonical 64x64x64 ({mode}, 4 passes, "
+              f"stopped after {stopped_at}): resumed == uninterrupted bit "
+              f"for bit: {same}", flush=True)
+        if stopped_at != 2 or not same:
+            fail(f"checkpoint resume ({mode}) differs from the "
+                 "uninterrupted render")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2393,6 +2624,9 @@ def main() -> int:
               f"{scale:.3g})", flush=True)
         if close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0:
             fail(f"cuda vs cpu {label}: outside tolerance")
+
+    # ---- 9. the rest of the Doppler core ----------------------------------
+    doppler_core_phase(mi, obj40, obj2k, reset_counts, read_counts, card)
 
     if "jax" in sys.modules:
         fail("the port imported jax")

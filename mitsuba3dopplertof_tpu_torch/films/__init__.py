@@ -41,11 +41,9 @@ class Film:
         if self.component_format not in ("float16", "float32"):
             raise RuntimeError(
                 f"film: unknown component_format '{self.component_format}'")
-        if props.has_property("crop_offset_x") or props.has_property(
-                "crop_offset_y"):
-            raise NotImplementedError(
-                "film crop offsets are not ported yet (ROADMAP Queue A "
-                "item 10)")
+        # stored as the JAX package stores them; nothing reads them
+        self.crop_offset = (props.get_int("crop_offset_x", 0),
+                            props.get_int("crop_offset_y", 0))
         self.crop_size = (props.get_int("crop_width", self.width),
                           props.get_int("crop_height", self.height))
         self.sample_border = props.get_bool("sample_border", False)

@@ -1,7 +1,7 @@
 """Integrator plugins and render orchestration (port of the JAX package's
 ``integrators/__init__.py``: ``SamplingIntegrator.render`` with strip
-passes, the rgb sample body, the MIS path loop, ``path`` and
-``dopplertofpath``).
+passes, timeout, ``cancel()`` and checkpoints, the rgb sample body, the MIS
+path loop, ``path``, ``dopplertofpath``, ``velocity`` and ``depth``).
 
   * render orchestration (wavefront sizing, passes, film)
       — reference src/render/integrator.cpp:104-347
@@ -9,6 +9,8 @@ passes, the rgb sample body, the MIS path loop, ``path`` and
       — reference integrator.cpp:399-543
   * ``path``           — reference src/integrators/path.cpp
   * ``dopplertofpath`` — reference src/integrators/dopplertofpath.cpp
+  * ``velocity``       — reference src/integrators/velocity.cpp:125-137
+  * ``depth``          — reference src/integrators/depth.cpp
 
 One pass renders a wavefront of lanes: pixel decode, sampler draws, camera
 ray, the bounce loop over masked lanes, film accumulation. Every per-lane
@@ -19,13 +21,17 @@ from __future__ import annotations
 
 import math
 import os
+import threading
+import time as _time
 
+import numpy as np
 import torch
 
 from ..core.properties import Properties, register_plugin
 from ..core.vec import Vec3, dot, where3, vmax
 from ..core.waveform import (WAVEFORM_TYPES, eval_modulation,
                              eval_modulation_low_pass)
+from ..core import logger as _log
 from ..core.logger import profile_phase
 from ..render.types import Ray, DirectionSample
 from ..render.scene import ray_intersect, ray_test
@@ -54,11 +60,22 @@ class Integrator:
 
     def __init__(self, props: Properties):
         self.id = props.id
-        if props.get_float("timeout", -1.0) > 0.0:
-            raise NotImplementedError(
-                "render timeouts are not ported yet (ROADMAP Queue A "
-                "item 6)")
+        # cooperative cancellation budget in seconds (reference
+        # integrator.cpp:24,48-50), checked between passes
+        self.timeout = props.get_float("timeout", -1.0)
         self.hide_emitters = props.get_bool("hide_emitters", False)
+        self._cancel = False
+
+    def cancel(self):
+        """Request cooperative cancellation (reference Integrator::cancel,
+        integrator.cpp:48-50): the render stops at the next pass boundary
+        and develops what it has accumulated. A render resets the request
+        when it starts, so a cancel() before it is a no-op."""
+        self._cancel = True
+
+    def should_stop(self, start_time: float) -> bool:
+        return self._cancel or (self.timeout > 0.0
+                                and _time.time() - start_time > self.timeout)
 
 
 class SamplingIntegrator(Integrator):
@@ -91,16 +108,25 @@ class SamplingIntegrator(Integrator):
 
     def render(self, scene, sensor=None, seed: int = 0, spp: int = 0,
                develop_film: bool = True,
-               max_lanes: int = DEFAULT_MAX_LANES, device=None):
+               max_lanes: int = DEFAULT_MAX_LANES, device=None,
+               checkpoint_path: str = None, checkpoint_every: int = 16):
         """Render on ``device`` (default: the scene's device).
 
         Wavefront sizing, as in the JAX package: when the frame at full spp
         exceeds ``max_lanes``, each pass renders the next few pixel rows at
         full spp (strip passes); sampler streams are windowed from one
         global wavefront, so the image does not depend on the split. Else,
-        or when ``MI_SPP_SLICE_PASSES`` is set, spp is sliced: the largest
-        divisor of spp with W*H*d <= max_lanes per pass
-        (integrator.cpp:227-245)."""
+        when ``MI_SPP_SLICE_PASSES`` is set, or when the integrator has a
+        ``timeout``, spp is sliced: the largest divisor of spp with
+        W*H*d <= max_lanes per pass (integrator.cpp:227-245).
+
+        Between passes the render stops early on ``cancel()`` or once
+        ``timeout`` seconds have passed, and develops what it has. With
+        ``checkpoint_path`` the block and the pass count are saved to that
+        ``.npz`` every ``checkpoint_every`` passes and after the last, and
+        a render of the same seed, spp and split resumes from the file:
+        each pass is a pure function of (scene, seed, pass), so a resumed
+        render equals an uninterrupted one bit for bit."""
         if sensor is None:
             sensor = scene.sensor
         film = sensor.film
@@ -113,8 +139,10 @@ class SamplingIntegrator(Integrator):
         spp_per_pass = spp if self.samples_per_pass < 0 else min(
             self.samples_per_pass, spp)
         rows_per_pass = max_lanes // max(W * spp, 1)
-        strip_mode = (self.samples_per_pass < 0 and W * H * spp > max_lanes
-                      and rows_per_pass >= 1
+        # a timed render keeps spp slicing: its partial film must be a
+        # whole (noisy) image, not a band of rows (integrator.cpp:248-255)
+        strip_mode = (self.samples_per_pass < 0 and self.timeout <= 0.0
+                      and W * H * spp > max_lanes and rows_per_pass >= 1
                       and not os.environ.get("MI_SPP_SLICE_PASSES"))
         if strip_mode:
             spp_per_pass = spp
@@ -147,11 +175,54 @@ class SamplingIntegrator(Integrator):
                                   spp_per_pass,
                                   rows_per_pass if strip_mode else None,
                                   pad_k)
-        for p in range(n_passes):
+        start_pass = 0
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            with np.load(checkpoint_path) as f:
+                ck = {k: f[k] for k in f.files}
+            if (int(ck["seed"]) == seed and int(ck["spp"]) == spp
+                    and bool(ck.get("strip", False)) == strip_mode
+                    and ck["block"].shape == tuple(block.shape)):
+                start_pass = int(ck["pass_idx"])
+                block = torch.as_tensor(ck["block"], device=sa.device)
+                if strip_mode:
+                    # windowed streams depend only on (seed, lane): seed
+                    # the resume strip's lane window directly
+                    state = sampler.seed(seed, n_lanes,
+                                         lane0=start_pass * n_lanes,
+                                         device=sa.device)
+                else:
+                    for _ in range(start_pass):
+                        state = sampler.advance(state)
+
+        self._cancel = False
+        t_start = _time.time()
+        # The pass loop queues work on the card without waiting for it. A
+        # timeout measures the card's progress, and a cancel() can come
+        # only from another thread, so in either case each pass is waited
+        # for before the check; otherwise nothing waits.
+        sync = sa.device.type == "cuda" and (
+            self.timeout > 0.0 or threading.active_count() > 1)
+        for p in range(start_pass, n_passes):
             block, state = run_pass(sa, block, state)
             if p + 1 < n_passes:
                 state = (sampler.advance_window(state) if strip_mode
                          else sampler.advance(state))
+            if checkpoint_path is not None and (
+                    (p + 1) % checkpoint_every == 0 or p + 1 == n_passes):
+                np.savez(checkpoint_path, block=block.cpu().numpy(),
+                         pass_idx=p + 1, seed=seed, spp=spp,
+                         strip=strip_mode)
+            if p + 1 < n_passes:
+                if sync:
+                    torch.cuda.synchronize(sa.device)
+                if self.should_stop(t_start):
+                    # develop the partial accumulation, scaled by its own
+                    # weight channel (integrator.cpp:48-50)
+                    _log.log(_log.WARN,
+                             "render cancelled after %d/%d passes (%s)",
+                             p + 1, n_passes,
+                             "cancel()" if self._cancel else "timeout")
+                    break
         if strip_mode:
             block = block[:, pad_k:pad_k + H]
         if develop_film:
@@ -165,6 +236,9 @@ def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
     state, lane, active) -> (values, put_x, put_y, active, state)`` with
     ``lane`` the global lane ids (lane // spp = pixel, row-major)."""
     sensor_params = sensor.device_params()
+    lens_params = (sensor.device_lens_params()
+                   if hasattr(sensor, "device_lens_params") else None)
+    needs_aperture = sensor.needs_aperture_sample
     rfilter = film.rfilter
     has_alpha = film.has_alpha
     shutter_open = float(sensor.shutter_open)
@@ -178,7 +252,7 @@ def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
         py = (pix // W).to(torch.float32)
         px = (pix % W).to(torch.float32)
 
-        # ---- position / time draws (integrator.cpp:399-543) -------------
+        # ---- position / aperture / time draws (integrator.cpp:399-543) --
         if is_doppler:
             off, state = sampler.next_2d_correlate(state, active,
                                                    correlate_pixel)
@@ -188,6 +262,16 @@ def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
         sy = py + off[1]
         adj_x = sx * (1.0 / W)
         adj_y = sy * (1.0 / H)
+
+        if needs_aperture:
+            if is_doppler:
+                ap, state = sampler.next_2d_correlate(state, active,
+                                                      correlate_pixel)
+            else:
+                ap, state = sampler.next_2d(state, active)
+            ap_x, ap_y = ap
+        else:
+            ap_x = ap_y = torch.full((n,), 0.5, device=lane.device)
 
         time = torch.full((n,), shutter_open, device=lane.device)
         if shutter_time > 0.0:
@@ -200,7 +284,8 @@ def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
                 ts, state = sampler.next_1d(state, active)
             time = time + ts * shutter_time
 
-        ray, ray_weight = sample_ray_kind(sensor_params, time, adj_x, adj_y)
+        ray, ray_weight = sample_ray_kind(sensor_params, lens_params, time,
+                                          adj_x, adj_y, ap_x, ap_y)
         spec, valid, state = integrator.sample(sa, sampler, state, ray,
                                                active)
         spec = spec * ray_weight
@@ -478,8 +563,41 @@ class DopplerToFPathIntegrator(MonteCarloIntegrator):
             use_correlate=True)
 
 
+@register_plugin("integrator", "velocity")
+class VelocityIntegrator(MonteCarloIntegrator):
+    """Ground-truth radial velocity (reference velocity.cpp:125-137): the
+    first-hit distance at time ``time`` minus that at time 0, over
+    ``time``. Two closest-hit queries a lane, each at one time for all
+    lanes."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.time = props.get_float("time", 0.0015)
+
+    def sample(self, sa, sampler, state, ray, active):
+        si1 = ray_intersect(sa, ray._replace(
+            time=torch.zeros_like(ray.time)), active)
+        si2 = ray_intersect(sa, ray._replace(
+            time=torch.full_like(ray.time, self.time)), active)
+        velocity = (torch.where(si2.valid, si2.t, 0.0)
+                    - torch.where(si1.valid, si1.t, 0.0)) / self.time
+        valid = si1.valid & si2.valid
+        v = torch.where(valid, velocity, 0.0)
+        return Vec3(v, v, v), valid, state
+
+
+@register_plugin("integrator", "depth")
+class DepthIntegrator(SamplingIntegrator):
+    """reference src/integrators/depth.cpp: the first-hit distance."""
+
+    def sample(self, sa, sampler, state, ray, active):
+        si = ray_intersect(sa, ray, active)
+        v = torch.where(si.valid, si.t, 0.0)
+        return Vec3(v, v, v), si.valid, state
+
+
 __all__ = [
     "Integrator", "SamplingIntegrator", "MonteCarloIntegrator",
-    "PathIntegrator", "DopplerToFPathIntegrator", "mis_weight",
-    "DEFAULT_MAX_LANES",
+    "PathIntegrator", "DopplerToFPathIntegrator", "VelocityIntegrator",
+    "DepthIntegrator", "mis_weight", "DEFAULT_MAX_LANES",
 ]

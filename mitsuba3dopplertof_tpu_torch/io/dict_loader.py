@@ -25,11 +25,10 @@ _CATEGORIES = ["integrator", "sensor", "sampler", "film", "rfilter", "shape",
 _DEFERRED = {
     "ROADMAP Queue A item 3": ("ply", "serialized", "shapegroup",
                                "instance"),
-    "ROADMAP Queue A item 4": ("timestratified",),
-    "ROADMAP Queue A item 6": ("velocity", "depth"),
     "ROADMAP Queue A item 9": ("checkerboard", "bitmap", "roughplastic",
                                "conductor", "null", "envmap",
                                "heterogeneous", "homogeneous", "gridvolume"),
+    "ROADMAP Queue A item 11": ("specfilm",),
 }
 
 
@@ -114,6 +113,8 @@ def load_dict(d: Dict[str, Any], device=None):
             shapes.append(obj)
             if obj.emitter is not None:
                 emitters.append(obj.emitter)
+            if obj.sensor is not None:
+                sensors.append(obj.sensor)
         elif isinstance(obj, Emitter):
             emitters.append(obj)
         elif isinstance(obj, Sensor):

@@ -191,11 +191,17 @@ def prepare(tables: MxuTables, ray: Ray):
     (8, N) rows ox oy oz 1 dx dy dz maxt padded to whole blocks, with maxt
     clamped to 3e38 (row 7 meets zero coefficients and 0 * inf is NaN) and
     dead (-1) in the padding; the padded times; the blocks' visit lists.
-    Returns (x, time, order, tlo)."""
+    A lane whose maxt is NaN takes no part in its block's largest maxt, as
+    in ``intersect_v4.prepare`` (JAX's amax would leave the whole block
+    nothing to reach); X keeps the NaN for the kernel. Returns (x, time,
+    order, tlo)."""
     o, d, time, maxt = _padded_cols(ray, torch.clamp(ray.maxt, max=_BIG),
                                     BLOCK)
-    x = torch.stack(list(o) + [torch.ones_like(maxt)] + list(d) + [maxt])
-    order, tlo = _visit_order(tables.sub, tables.n_chunks, x, BLOCK)
+    head = list(o) + [torch.ones_like(maxt)] + list(d)
+    x = torch.stack(head + [maxt])
+    order, tlo = _visit_order(tables.sub, tables.n_chunks, torch.stack(
+        head + [torch.where(torch.isnan(maxt), -float("inf"), maxt)]),
+        BLOCK)
     return x.contiguous(), time, order, tlo
 
 

@@ -1,6 +1,7 @@
 """Sampler plugins as functional state machines (port of the JAX package's
-``samplers/__init__.py``: the base sampler, ``independent`` and
-``correlated``), bitwise equal to it draw for draw.
+``samplers/__init__.py``: the base sampler, ``independent``,
+``correlated``, ``timestratified``, ``stratified``, ``multijitter``,
+``ldsampler`` and ``orthogonal``), bitwise equal to it draw for draw.
 
 Sampler state is a plain tuple of tensors and ints; every draw returns
 (value, new state):
@@ -11,17 +12,26 @@ Sampler state is a plain tuple of tensors and ints; every draw returns
   * per-sequence permutation seed                                    (sampler.cpp:85-92)
   * next_1d_time strategies                                          (correlated.cpp:92-153)
   * next_1d_correlate: draws BOTH streams, selects by `correlate`    (correlated.cpp:156-161)
+  * stratified families: Kensler-permuted strata with jitter, the
+    (0,2)-sequence and orthogonal arrays, indexed by the global sample
+    index and the dimension                    (timestratified.cpp,
+    stratified.cpp, multijitter.cpp, ldsampler.cpp, orthogonal.cpp)
+
+Every 32-bit product is taken mod 2^32 with ``_mul32_lo``: the words live
+in int64 tensors, where a plain ``*`` would carry past 32 bits.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..core.properties import Properties, register_plugin
 from ..core.rng import (MASK32, PCG32State, pcg32_seed_wavefront,
-                        pcg32_next_f32, sample_tea_32, permute_kensler)
+                        pcg32_next_f32, sample_tea_32, permute_kensler,
+                        _mul32_lo)
 
 # ETimeSampling (reference include/mitsuba/render/sampler.h:27-34)
 TIME_UNIFORM = 0
@@ -61,6 +71,7 @@ class Sampler:
         self.samples_per_wavefront = 1
         self.time_correlate_number = 1
         self.path_correlate_number = 1
+        self.jitter = True
 
     def set_sample_count(self, spp: int):
         self.sample_count = spp
@@ -227,8 +238,304 @@ class CorrelatedSampler(Sampler):
         return (f1, f2), state
 
 
+class _JitteredStrata(Sampler):
+    """Shared by the Kensler-stratified samplers: the next dimension's
+    permutation seed, and the jitter draw (0.5 without jitter)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.jitter = props.get_bool("jitter", True)
+
+    def _next_dim(self, state):
+        """(sample indices, this dimension's permutation seed, state with
+        the dimension advanced)."""
+        idx = self.current_sample_index(state)
+        perm_seed = (state.permutation_seed + state.dimension_index) & MASK32
+        return idx, perm_seed, state._replace(
+            dimension_index=state.dimension_index + 1)
+
+    def _jitter(self, state, active):
+        if self.jitter:
+            j, rng = pcg32_next_f32(state.rng, active)
+            return j, state._replace(rng=rng)
+        return 0.5, state
+
+    def _jitter_2d(self, state, active):
+        if self.jitter:
+            jx, rng = pcg32_next_f32(state.rng, active)
+            jy, rng = pcg32_next_f32(rng, active)
+            return jx, jy, state._replace(rng=rng)
+        return 0.5, 0.5, state
+
+    def _stratum_1d(self, state, active, scramble: int = None):
+        """The jittered point of the sample's permuted stratum among
+        ``sample_count``; ``scramble`` multiplies the permutation seed."""
+        idx, perm_seed, state = self._next_dim(state)
+        if scramble is not None:
+            perm_seed = _mul32_lo(perm_seed, scramble)
+        p = permute_kensler(idx, self.sample_count, perm_seed, active)
+        j, state = self._jitter(state, active)
+        return (p.to(torch.float32) + j) / self.sample_count, state
+
+
+@register_plugin("sampler", "timestratified")
+class TimeStratifiedSampler(_JitteredStrata):
+    """Kensler-permuted stratified time (reference
+    src/samplers/timestratified.cpp:117-130): sample k of a pixel's
+    ``sample_count`` takes the time stratum of its permuted index."""
+
+    def next_1d_time(self, state, active=None, strategy=TIME_UNIFORM,
+                     antithetic_shift=0.0, stratified_interval=False):
+        return self._stratum_1d(state, active)
+
+
+@register_plugin("sampler", "stratified")
+class StratifiedSampler(_JitteredStrata):
+    """2D-stratified sampler (reference src/samplers/stratified.cpp):
+    Kensler-permuted stratum order with jitter; 2D draws on a square grid,
+    so ``sample_count`` rounds up to a square."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self._update_resolution()
+
+    def _update_resolution(self):
+        r = 1
+        while r * r < self.sample_count:
+            r += 1
+        self.resolution = r
+        self.sample_count = r * r
+
+    def set_sample_count(self, spp: int):
+        self.sample_count = spp
+        self._update_resolution()
+
+    def next_1d(self, state, active=None):
+        return self._stratum_1d(state, active)
+
+    def next_2d(self, state, active=None):
+        idx, perm_seed, state = self._next_dim(state)
+        p = permute_kensler(idx, self.sample_count, perm_seed, active)
+        res = self.resolution
+        y = p // res
+        x = p - y * res
+        jx, jy, state = self._jitter_2d(state, active)
+        inv = 1.0 / res
+        return ((x.to(torch.float32) + jx) * inv,
+                (y.to(torch.float32) + jy) * inv), state
+
+
+@register_plugin("sampler", "multijitter")
+class MultijitterSampler(_JitteredStrata):
+    """Correlated multi-jittered sampler (reference
+    src/samplers/multijitter.cpp, Kensler 2013) on an rx x ry grid."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self._update_resolution()
+
+    def _update_resolution(self):
+        rx = max(1, int(math.sqrt(self.sample_count)))
+        while rx * rx < self.sample_count:
+            rx += 1
+        ry = (self.sample_count + rx - 1) // rx
+        self.res_x, self.res_y = rx, ry
+        self.sample_count = rx * ry
+
+    def set_sample_count(self, spp: int):
+        self.sample_count = spp
+        self._update_resolution()
+
+    def next_1d(self, state, active=None):
+        return self._stratum_1d(state, active, scramble=0x45FBE943)
+
+    def next_2d(self, state, active=None):
+        idx, perm_seed, state = self._next_dim(state)
+        s = permute_kensler(idx, self.sample_count,
+                            _mul32_lo(perm_seed, 0x51633E2D), active)
+        rx, ry = self.res_x, self.res_y
+        y = s // rx
+        x = s - y * rx
+        sx = permute_kensler(x, rx, _mul32_lo(perm_seed, 0x68BC21EB), active)
+        sy = permute_kensler(y, ry, _mul32_lo(perm_seed, 0x02E5BE93), active)
+        jx, jy, state = self._jitter_2d(state, active)
+        fx = (x.to(torch.float32)
+              + (sy.to(torch.float32) + jx) / ry) / rx
+        fy = (y.to(torch.float32)
+              + (sx.to(torch.float32) + jy) / rx) / ry
+        return (fx, fy), state
+
+
+# Sobol' second-dimension direction numbers: v[0] = 2^31,
+# v[k+1] = v[k] ^ (v[k] >> 1); with the van der Corput first dimension
+# this is the (0,2)-sequence in base 2
+_SOBOL2_DIRS = []
+_v = 1 << 31
+for _ in range(32):
+    _SOBOL2_DIRS.append(_v)
+    _v ^= _v >> 1
+_SOBOL2_DIRS = tuple(_SOBOL2_DIRS)
+_INV_2_32 = 2.3283064365386963e-10
+
+
+def _u32_to_unit(v):
+    """A uint32 word (int64 tensor) times 2^-32 in float32: the int64 to
+    float32 conversion rounds once, as a uint32 conversion does."""
+    return v.to(torch.float32) * _INV_2_32
+
+
+@register_plugin("sampler", "ldsampler")
+class LDSampler(Sampler):
+    """Low-discrepancy sampler (reference src/samplers/ldsampler.cpp):
+    each 2D draw is a scrambled (0,2)-sequence pair (van der Corput and
+    Sobol'), 1D draws the scrambled van der Corput sequence. It draws
+    nothing from the PCG32 streams."""
+
+    @staticmethod
+    def _vdc(idx, scramble):
+        v = idx
+        # bit-reverse a 32-bit word
+        v = ((v >> 16) | (v << 16)) & MASK32
+        v = (((v & 0x00FF00FF) << 8) | ((v & 0xFF00FF00) >> 8)) & MASK32
+        v = (((v & 0x0F0F0F0F) << 4) | ((v & 0xF0F0F0F0) >> 4)) & MASK32
+        v = (((v & 0x33333333) << 2) | ((v & 0xCCCCCCCC) >> 2)) & MASK32
+        v = (((v & 0x55555555) << 1) | ((v & 0xAAAAAAAA) >> 1)) & MASK32
+        return _u32_to_unit(v ^ scramble)
+
+    @staticmethod
+    def _sobol2(idx, scramble):
+        v = scramble
+        for bit, d in enumerate(_SOBOL2_DIRS):
+            v = torch.where(((idx >> bit) & 1) != 0, v ^ d, v)
+        return _u32_to_unit(v)
+
+    def next_1d(self, state, active=None):
+        idx = self.current_sample_index(state)
+        scramble = (state.permutation_seed
+                    + ((state.dimension_index * 0x9E3779B9) & MASK32)) \
+            & MASK32
+        state = state._replace(dimension_index=state.dimension_index + 1)
+        return self._vdc(idx, scramble), state
+
+    def next_2d(self, state, active=None):
+        idx = self.current_sample_index(state)
+        dim = state.dimension_index
+        s1 = (state.permutation_seed + ((dim * 0x9E3779B9) & MASK32)) \
+            & MASK32
+        s2 = (state.permutation_seed
+              + ((dim * 0x8D2FBC71 + 0x4B1BD1B5) & MASK32)) & MASK32
+        state = state._replace(dimension_index=dim + 1)
+        return (self._vdc(idx, s1), self._sobol2(idx, s2)), state
+
+
+_ORTHO_STRATUM = 0x51633E2D
+_ORTHO_SUB = 0x68BC21EB
+
+
+@register_plugin("sampler", "orthogonal")
+class OrthogonalSampler(_JitteredStrata):
+    """Orthogonal-array sampler (reference src/samplers/orthogonal.cpp):
+    Bose's construction for strength 2 (orthogonal.cpp:215-243), Bush's
+    above it (:194-212), both with the correlated multi-jitter
+    randomization. The grid resolution is the smallest prime whose square
+    covers the requested spp (:94-108)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.strength = props.get_int("strength", 2)
+        self._update_resolution()
+
+    @staticmethod
+    def _is_prime(x):
+        if x < 2:
+            return False
+        k = 2
+        while k * k <= x:
+            if x % k == 0:
+                return False
+            k += 1
+        return True
+
+    def _update_resolution(self):
+        r = 2
+        while r * r < self.sample_count or not self._is_prime(r):
+            r += 1
+        self.resolution = r
+        self.sample_count = r * r
+
+    def set_sample_count(self, spp: int):
+        self.sample_count = spp
+        self._update_resolution()
+
+    def _seeds(self, p, j):
+        """The stratum and sub-stratum permutation seeds of dimension j:
+        p * (j + 1) * constant, mod 2^32."""
+        return (_mul32_lo(p, ((j + 1) * _ORTHO_STRATUM) & MASK32),
+                _mul32_lo(p, ((j + 1) * _ORTHO_SUB) & MASK32))
+
+    def next_1d(self, state, active=None):
+        i = self.current_sample_index(state)
+        p = state.permutation_seed
+        j = state.dimension_index & MASK32
+        state = state._replace(dimension_index=state.dimension_index + 1)
+        if self.strength != 2:
+            return self._bush(state, i, j, p, active)
+        # Bose construction (strength 2)
+        res = self.resolution
+        i = permute_kensler(i % self.sample_count, self.sample_count, p,
+                            active)
+        a_i0 = i // res
+        a_i1 = i - a_i0 * res
+        if j == 0:
+            a_ij, a_ik = a_i0, a_i1
+        elif j == 1:
+            a_ij, a_ik = a_i1, a_i0
+        else:
+            k = j - 1 if j % 2 > 0 else j + 1
+            a_ij = ((a_i0 + _mul32_lo(a_i1, (j - 1) & MASK32)) & MASK32) \
+                % res
+            a_ik = ((a_i0 + _mul32_lo(a_i1, (k - 1) & MASK32)) & MASK32) \
+                % res
+        seed_s, seed_sub = self._seeds(p, j)
+        stratum = permute_kensler(a_ij, res, seed_s, active)
+        sub = permute_kensler(a_ik, res, seed_sub, active)
+        jit, state = self._jitter(state, active)
+        v = (stratum.to(torch.float32)
+             + (sub.to(torch.float32) + jit) / res) / res
+        return v, state
+
+    def _bush(self, state, i, j, p, active):
+        res = self.resolution
+        n = res ** self.strength
+        stm = n // res
+        i = permute_kensler(i % n, n, p, active)
+        # the digits of i in base res, as a polynomial evaluated at x = j
+        digits = []
+        tmp = i
+        for _ in range(self.strength):
+            digits.append(tmp % res)
+            tmp = tmp // res
+        phi = torch.zeros_like(i)
+        for dgt in reversed(digits):
+            phi = (_mul32_lo(phi, j) + dgt) & MASK32
+        seed_s, seed_sub = self._seeds(p, j)
+        stratum = permute_kensler(phi % res, res, seed_s, active)
+        sub = permute_kensler((i // res) % stm, stm, seed_sub, active)
+        jit, state = self._jitter(state, active)
+        v = (stratum.to(torch.float32)
+             + (sub.to(torch.float32) + jit) / stm) / res
+        return v, state
+
+    def next_2d(self, state, active=None):
+        f1, state = self.next_1d(state, active)
+        f2, state = self.next_1d(state, active)
+        return (f1, f2), state
+
+
 __all__ = [
     "Sampler", "SamplerState", "IndependentSampler", "CorrelatedSampler",
+    "TimeStratifiedSampler", "StratifiedSampler", "MultijitterSampler",
+    "LDSampler", "OrthogonalSampler",
     "TIME_UNIFORM", "TIME_STRATIFIED", "TIME_ANTITHETIC",
     "TIME_ANTITHETIC_MIRROR", "TIME_PERIODIC", "TIME_SAMPLING_METHODS",
 ]

@@ -55,14 +55,19 @@ class Shape:
         self.flip_normals = props.get_bool("flip_normals", False)
         self.bsdf = None
         self.emitter = None
+        self.sensor = None        # an irradiance meter bound to this shape
         self.mesh: Optional[Mesh] = None
         from ..bsdfs import BSDF
         from ..emitters import Emitter
+        from ..sensors import IrradianceMeter
         for key, v in props.objects():
             if isinstance(v, BSDF):
                 self.bsdf = v
             elif isinstance(v, Emitter):
                 self.emitter = v
+                v.shape = self
+            elif isinstance(v, IrradianceMeter):
+                self.sensor = v
                 v.shape = self
             else:
                 raise NotImplementedError(

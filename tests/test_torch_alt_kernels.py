@@ -503,6 +503,38 @@ def test_mxu_zero_skipped_sums_match_ordered_sums(gate_case):
     assert torch.equal(t_skip.view(torch.int32), t8.view(torch.int32))
 
 
+def test_mxu_prepare_leaves_out_nan_maxt(scene, rays):
+    """B6's ``prepare`` on a 256-lane block of the shell rays in which one
+    lane's maxt is NaN: the block's visit list is the one it has with that
+    lane dead (maxt -1), and every other lane that the plain version hits
+    finds its hit's chunk on the list, entered no later than the hit (the
+    walk reaches it). JAX's amax would carry the NaN and empty the list."""
+    sa_t = scene[1]
+    tb = tmxu.mxu_tables(sa_t)
+    ray = _head(rays[1], tmxu.BLOCK)
+    lane = torch.arange(tmxu.BLOCK)
+    nan_lane = 5
+    with_nan = ray._replace(maxt=torch.where(lane == nan_lane, float("nan"),
+                                             ray.maxt))
+    dead = ray._replace(maxt=torch.where(lane == nan_lane, -1.0, ray.maxt))
+    x, _, order, tlo = tmxu.prepare(tb, with_nan)
+    assert bool(torch.isnan(x[7, nan_lane]))      # the kernel still sees it
+    _, _, order_d, tlo_d = tmxu.prepare(tb, dead)
+    assert torch.equal(order, order_d) and torch.equal(tlo, tlo_d)
+    t, prim = tmxu.intersect_mxu_reference(sa_t, with_nan)
+    hit = torch.isfinite(t) & (lane != nan_lane)
+    assert int(hit.sum()) >= 48
+    slots = (tb.meta[:, 1:2] + torch.arange(tmxu.T)).reshape(-1)
+    chunk_of = torch.full((int(slots.max()) + 1,), -1, dtype=torch.int64)
+    chunk_of[slots.long()] = torch.arange(tb.n_chunks).repeat_interleave(
+        tmxu.T)
+    entry = torch.full((tb.n_chunks,), float("inf"))
+    entry[order[0].long()] = torch.where(tlo[0] < tmxu._BIG, tlo[0],
+                                         float("inf"))
+    reach = entry[chunk_of[prim[hit].long()]]
+    assert bool((reach <= t[hit]).all())
+
+
 def test_mxu_fragment_table_is_tf32_woop_table(scene):
     """(d) The fragment-ordered table, read as ``mma.m16n8k8``'s A
     fragments are defined (lane 4g + c holds A[g][c], A[g+8][c],

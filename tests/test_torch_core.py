@@ -83,8 +83,9 @@ def test_camera_rays():
     sx, sy, time = _f(rng, 0, 1), _f(rng, 0, 1), _f(rng, 0, 0.0015)
     rj, _ = j_sample_ray(sj.sensor.device_params(), jnp.asarray(time),
                          jnp.asarray(sx), jnp.asarray(sy), None, None)
-    rt, w = sample_ray_kind(st.sensor.device_params(), torch.from_numpy(time),
-                            torch.from_numpy(sx), torch.from_numpy(sy))
+    rt, w = sample_ray_kind(st.sensor.device_params(), None,
+                            torch.from_numpy(time), torch.from_numpy(sx),
+                            torch.from_numpy(sy))
     assert w == 1.0
     for a, b in zip((*rj.o, *rj.d, rj.time, rj.maxt),
                     (*rt.o, *rt.d, rt.time, rt.maxt)):

@@ -98,7 +98,7 @@ def _canonical_wavefront(kind, device, n=1 << 16, spp=256, seed=3):
     pix = (H // 2 * W + W // 2 - n // spp // 2) + np.arange(n) // spp
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     cam, _ = sample_ray_kind(
-        scene.sensor.device_params(), f(rng.uniform(0.0, 0.0015, n)),
+        scene.sensor.device_params(), None, f(rng.uniform(0.0, 0.0015, n)),
         f(((pix % W) + rng.uniform(0.0, 1.0, n)) / W),
         f(((pix // W) + rng.uniform(0.0, 1.0, n)) / H))
     if kind == "camera":
@@ -693,3 +693,51 @@ def test_v3_query_builds_no_lists(cuda, tmp_path, monkeypatch):
     ik.ray_test(sa, ray)
     torch.cuda.synchronize()
     assert v3.LAUNCHES_BY_FORM == {"closest_hit": 2, "any_hit": 2}
+
+
+@pytest.mark.parametrize("integrator", [{"type": "velocity"},
+                                        {"type": "depth"}],
+                         ids=["velocity", "depth"])
+def test_velocity_and_depth_on_card_match_cpu(cuda, integrator):
+    """The canonical scene at 16x16 x 16 spp through B1: the card against
+    the CPU within the slice test's tolerance on >= 99% of values."""
+    imgs = [mt.render(mt.load_file(CANONICAL, device=dev, spp=16, resx=16,
+                                   resy=16), spp=16, seed=0,
+                      integrator=mt.load_dict(dict(integrator), device=dev)
+                      ).cpu().numpy() for dev in (cuda, "cpu")]
+    g, c = imgs
+    scale = np.abs(c).max()
+    assert scale > 0.0 and np.isfinite(g).all()
+    assert np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale).mean() >= 0.99
+
+
+def test_checkpoint_resume_on_card(cuda, tmp_path):
+    """A render stopped by cancel() after 2 of 4 spp-sliced passes and
+    resumed from its checkpoint equals the uninterrupted render on the
+    card bit for bit."""
+    def scene():
+        sc = mt.load_file(CANONICAL, device=cuda, spp=16, resx=32, resy=32)
+        sc.integrator.samples_per_pass = 4
+        return sc
+
+    full = scene()
+    full = full.integrator.render(full, seed=0)
+    ck = str(tmp_path / "ck.npz")
+    sc = scene()
+    integ = sc.integrator
+    calls = []
+
+    def stop_at_second(start):
+        calls.append(start)
+        if len(calls) == 2:
+            integ.cancel()
+        return type(integ).should_stop(integ, start)
+
+    integ.should_stop = stop_at_second
+    integ.render(sc, seed=0, checkpoint_path=ck, checkpoint_every=1)
+    with np.load(ck) as f:
+        assert int(f["pass_idx"]) == 2
+    sc = scene()
+    resumed = sc.integrator.render(sc, seed=0, checkpoint_path=ck)
+    assert resumed.device.type == "cuda"
+    assert torch.equal(resumed, full)

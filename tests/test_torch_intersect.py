@@ -332,7 +332,7 @@ def _canonical_wavefronts(n=4096, spp=64, seed=3):
     pix = (H // 2 * W + W // 2 - n // spp // 2) + np.arange(n) // spp
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
     cam, _ = sample_ray_kind(
-        scene.sensor.device_params(), f32(rng.uniform(0.0, 0.0015, n)),
+        scene.sensor.device_params(), None, f32(rng.uniform(0.0, 0.0015, n)),
         f32(((pix % W) + rng.uniform(0.0, 1.0, n)) / W),
         f32(((pix // W) + rng.uniform(0.0, 1.0, n)) / H))
     u = f32(rng.uniform(0.0, 1.0, (4, n)))

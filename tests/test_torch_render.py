@@ -81,6 +81,26 @@ def test_port_matches_jax(jax_images, port_images, integrator):
     assert len(bad) <= 0.005 * img.size
 
 
+# The JAX package's dopplertofpath image of the stand-in at the jax_images
+# settings (16x16 x 16 spp, seed 0), rendered on the CPU by the JAX package
+# of commit 6ed28bf (the package has not changed since).
+STANDIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                              "golden_canonical_standin_16x16_16spp.npy")
+
+
+def test_standin_golden(jax_images, port_images):
+    """The fixtures' dopplertofpath images, the JAX package's and the
+    port's, against the stand-in's golden at the golden tolerance (atol
+    2e-6, rtol 1e-4), with no new render."""
+    golden = np.load(STANDIN_GOLDEN)
+    assert golden.shape == (16, 16, 3) and np.abs(golden).max() > 0.0
+    for img in (jax_images["dopplertofpath"],
+                port_images["dopplertofpath"]):
+        assert img.shape == golden.shape
+        assert np.allclose(img, golden, atol=2e-6, rtol=1e-4), \
+            float(np.abs(img - golden).max())
+
+
 @pytest.mark.parametrize("integrator", ["dopplertofpath", "path"])
 def test_strip_passes_equal_single_pass(port_images, integrator):
     single = port_images[integrator]
@@ -154,3 +174,5 @@ def test_unported_features_name_their_roadmap_item():
         mt.load_dict({"type": "spot"})
     with pytest.raises(NotImplementedError, match="item 3"):
         mt.load_dict({"type": "ply", "filename": "x.ply"})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        mt.load_dict({"type": "specfilm"})

@@ -5,6 +5,7 @@ film splat and develop agree to 1e-6 relative for box, tent and gaussian
 filters, in one pass and in strips."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -13,6 +14,7 @@ import mitsuba3dopplertof_tpu as mj
 import mitsuba3dopplertof_tpu_torch as mt
 from mitsuba3dopplertof_tpu import films as jfilms
 from mitsuba3dopplertof_tpu import samplers as js
+from mitsuba3dopplertof_tpu.core import rng as jrng
 from mitsuba3dopplertof_tpu_torch import films as tfilms
 
 N = 4096
@@ -42,8 +44,19 @@ def _same_state(sj, st):
     assert int(sj.seed_value) == st.seed_value
 
 
+@pytest.fixture(scope="module")
+def jit_kensler():
+    """The JAX samplers' Kensler permutation under jax.jit (sample count
+    static): integer arithmetic, exact under jit, where eagerly each call
+    compiles its own while loop. The draws' float arithmetic stays eager."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(js, "permute_kensler",
+                   jax.jit(jrng.permute_kensler, static_argnums=1))
+        yield
+
+
 @pytest.mark.parametrize("spw", [16, 4])
-def test_correlated_draws_bitwise(spw):
+def test_correlated_draws_bitwise(jit_kensler, spw):
     sj_, st_ = _samplers("correlated", time_correlate_number=2,
                          path_correlate_number=2)
     for s in (sj_, st_):
