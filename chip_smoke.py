@@ -107,8 +107,20 @@ phase raises on failure:
      distant, perspective) and the lanczos and catmullrom filters; a
      timed-out render, and checkpoint resumes (spp-sliced and strip passes)
      equal to the uninterrupted render bit for bit, at 64x64 x 64 spp;
- 10. a JSON line with the kernels, then the contract line
-     {"ok": true, "device": {...}}.
+ 10. the hero scene (utils/hero_scene.py, assets written by the port):
+     dopplertofpath at 256x256 x 64 spp and volpath (max_depth 6) at the
+     largest of 64, 32 and 16 spp that fits 60 s, each twice with B2's
+     launches; B2 against its plain version on the hero's camera and
+     shadow wavefronts, timed with its bound; the card against the CPU on
+     the mini hero (a 192-triangle knot, a 96-triangle sphere) at 16x16 x
+     16 spp for both integrators and through MI_STREAM_KERNEL=v3, the
+     lanes whose paths meet a tie or graze an edge (tests/torch_ties.py)
+     left out of both films, with phase 8's criteria; and the card's mean of
+     seeds 0 and 1 at 512 spp against QUALITY_HERO_ref.npz at pyramid
+     levels 3-5, within 3x the Monte Carlo error of QUALITY_HERO.md's
+     table plus the anchor's float16 rounding;
+ 11. a JSON line with the kernels (B2 twice more: on the hero's
+     wavefronts), then the contract line {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
 input read once, each output written once) over the card's memory rate and
@@ -141,6 +153,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -280,6 +293,44 @@ def check_hits(hk, hr, label, sph_base):
     # triangle hits of the two versions agree bit for bit (--fmad=false)
     tri = m & (r["prim"] < sph_base)
     return err, int(tri.sum()), int((k["t"][tri] != r["t"][tri]).sum())
+
+
+def check_t_prim(tag, t_k, p_k, t_r, p_r, any_hit, errs_k, skip=None,
+                 exact_prim=False):
+    """Occlusion exact on every lane; closest-hit: t bitwise equal on
+    hit lanes, prim different only at ties in t (with ``exact_prim``
+    on no lane). ``skip``: lanes left out (``zero_area_winner``), at
+    most one in 100,000."""
+    if skip is not None and bool(skip.any()):
+        n_skip = int(skip.sum())
+        print(f"{tag}: {n_skip} lanes left out, the plain version's "
+              f"winner there is a triangle of zero area", flush=True)
+        if n_skip > p_r.numel() // 100000:
+            fail(f"{tag}: {n_skip} lanes with a zero-area winner")
+        keep = ~skip
+        t_k, p_k, t_r, p_r = t_k[keep], p_k[keep], t_r[keep], p_r[keep]
+    hit = p_r >= 0
+    occ = int(((p_k >= 0) != hit).sum())
+    if occ:
+        fail(f"{tag}: occlusion differs on {occ} lanes")
+    if any_hit:
+        # the any-hit form's error: lanes whose occlusion differs
+        errs_k["any_hit"] = max(errs_k["any_hit"], float(occ))
+        print(f"{tag}: occlusion equal on all {hit.numel()} lanes "
+              f"({int(hit.sum())} occluded)", flush=True)
+        return
+    n_tdiff = int((t_k[hit] != t_r[hit]).sum())
+    n_pdiff = int((hit & (p_k != p_r)).sum())
+    err = float((t_k[hit] - t_r[hit]).abs().max()) \
+        if bool(hit.any()) else 0.0
+    errs_k["closest_hit"] = max(errs_k["closest_hit"], err)
+    print(f"{tag}: {int(hit.sum())} hit lanes, t differs on {n_tdiff} "
+          f"(max abs {err:.3g}), prim differs on {n_pdiff} (ties in t)",
+          flush=True)
+    if n_tdiff:
+        fail(f"{tag}: t not bitwise equal on {n_tdiff} lanes")
+    if n_pdiff > (0 if exact_prim else max(20, int(hit.sum()) // 10000)):
+        fail(f"{tag}: prim differs on {n_pdiff} lanes")
 
 
 def camera_wavefront(scene, n, lane0, spp, shutter, seed):
@@ -1812,6 +1863,328 @@ def doppler_core_phase(mi, obj40, obj2k, reset, read, card, res=256,
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# the hero scene (phase 10): utils/hero_scene.py at its full width
+HERO_RES = 256
+HERO_SPP = 64                   # dopplertofpath's render
+HERO_ANCHOR_SPP = 512           # QUALITY_HERO_ref.npz's spp per pass
+HERO_VOLPATH = {"type": "volpath", "max_depth": 6}
+HERO_VOLPATH_BUDGET_S = 60.0    # volpath's first + warm render at most
+HERO_ANCHOR = os.path.join(ROOT, "QUALITY_HERO_ref.npz")
+
+
+def down2(img):
+    """2x2 box average (scripts/hero_quality.py's pyramid step)."""
+    h, w = img.shape[:2]
+    return img[:h - h % 2, :w - w % 2].reshape(
+        h // 2, 2, w // 2, 2, -1).mean(axis=(1, 3))
+
+
+def half_mean_table() -> dict:
+    """QUALITY_HERO.md's half-mean RMSE per pyramid level, as a fraction
+    of the anchor's level-0 signal RMS."""
+    import re
+    out = {}
+    with open(os.path.join(ROOT, "QUALITY_HERO.md")) as f:
+        for line in f:
+            m = re.match(r"\|\s*(\d)\s*\|\s*\d+x\d+\s*\|\s*([\d.]+)%", line)
+            if m:
+                out[int(m.group(1))] = float(m.group(2)) / 100.0
+    if sorted(out) != list(range(6)):
+        fail(f"QUALITY_HERO.md: half-mean table unreadable ({out})")
+    return out
+
+
+def hero_phase(mi, reset, read, card, res=HERO_RES, spp=HERO_SPP,
+               anchor_spp=HERO_ANCHOR_SPP) -> dict:
+    """Phase 10: the hero scene (utils/hero_scene.py) with the port's own
+    assets: dopplertofpath at ``res`` x ``res`` x ``spp`` and volpath
+    (max_depth 6) at the largest of 64, 32 and 16 spp that fits
+    HERO_VOLPATH_BUDGET_S, each twice (launches read around the first,
+    the second timed); B2 against its plain version on the hero's camera
+    and shadow wavefronts, with its times and bound; the card against the
+    CPU on the mini hero at 16x16 x 16 spp (both integrators, and
+    dopplertofpath through MI_STREAM_KERNEL=v3), the lanes that meet a
+    tie or graze an edge left out of both films; and the card's 2-seed
+    mean at ``anchor_spp`` against QUALITY_HERO_ref.npz. Returns what the
+    kernel line's hero entries need."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
+    from mitsuba3dopplertof_tpu_torch.ops.ray_binning import binned
+    from mitsuba3dopplertof_tpu_torch.utils.hero_scene import (
+        hero_assets, hero_scene_dict)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hero_")
+    try:
+        t0 = time.perf_counter()
+        hero_assets(tmp)
+        print(f"hero assets (knot, sphere, marble and sky EXRs, smoke .vol) "
+              f"written by the port: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+        def load(spp_, integ=None, device=None, r=res, assets=tmp):
+            return mi.load_dict(hero_scene_dict(
+                res=r, spp=spp_, cache_dir=assets,
+                integrator=None if integ is None else dict(integ)),
+                device=device)
+
+        def twice(tag, spp_, integ):
+            scene = load(spp_, integ)
+            reset()
+            t0 = time.perf_counter()
+            img = mi.render(scene, spp=spp_, seed=0)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = read()
+            t0 = time.perf_counter()
+            img2 = mi.render(scene, spp=spp_, seed=0)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            if tuple(img.shape) != (res, res, 3):
+                fail(f"hero {tag}: image shape {tuple(img.shape)}")
+            if not bool(torch.isfinite(img).all()) or not bool(
+                    (img != 0).any()):
+                fail(f"hero {tag}: image not finite or all zero")
+            b2 = counts["B2"]
+            others = {row: c for row, c in counts.items()
+                      if row not in ("B1", "B2") and sum(c.values())}
+            # volpath's shadow rays walk the smoke's null boundaries by
+            # closest hits: it launches no any-hit query
+            want_any = integ is None
+            if (b2["closest_hit"] <= 0 or (b2["any_hit"] > 0) != want_any
+                    or others):
+                fail(f"hero {tag}: launches {counts}")
+            print(f"render hero {tag} {res}x{res}x{spp_}: first "
+                  f"{first_s:.3f} s, warm {warm_s:.3f} s = "
+                  f"{res * res * spp_ / warm_s / 1e6:.3f} Msamples/s "
+                  f"({card}); launches B2 {b2}, B1 {counts['B1']}; image "
+                  f"mean {float(img.mean()):.6g}, max |v| "
+                  f"{float(img.abs().max()):.6g}", flush=True)
+            if not torch.equal(img, img2):
+                print("note: two renders differ (max "
+                      f"{float((img - img2).abs().max()):.3g})", flush=True)
+            return b2
+
+        launches = {"dopplertofpath": twice("dopplertofpath", spp, None)}
+        # volpath: a 16 spp probe sets the spp that fits the budget
+        probe = load(16, HERO_VOLPATH)
+        t0 = time.perf_counter()
+        mi.render(probe, spp=16, seed=0)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        vol_spp = next((s for s in (64, 32, 16) if 2.0 * probe_s * s / 16
+                        <= HERO_VOLPATH_BUDGET_S), 16)
+        print(f"volpath probe {res}x{res}x16: {probe_s:.3f} s; volpath at "
+              f"{vol_spp} spp, the largest of 64, 32, 16 whose first and "
+              f"warm renders fit {HERO_VOLPATH_BUDGET_S:.0f} s", flush=True)
+        launches["volpath"] = twice(f"volpath (max_depth 6, {vol_spp} spp)",
+                                    vol_spp, HERO_VOLPATH)
+
+        # B2 on the hero's wavefronts: the camera rays of one strip pass
+        # from the middle of the frame (closest-hit) and their shadow rays
+        # toward emitter samples, the lamp and the sky (any-hit): against
+        # the plain version over binned rays, then timed with its bound
+        t_step = time.perf_counter()
+        sc = load(spp)
+        sa = sc.compile()
+        waves, n_valid = strip_waves(sc, sa, MIDDLE_ROW, seed=7)
+        print(f"hero: {sa.n_static_tris + sa.n_anim_tris} triangles, "
+              f"{v4.v4_tables(sa).n_units} units; camera wavefront "
+              f"{WAVEFRONT} lanes, {n_valid} hit", flush=True)
+        errs = {"closest_hit": 0.0, "any_hit": 0.0}
+        times = {}
+        n_anim = len(sa.anim_ranges)
+        for wname, any_hit, ray in waves:
+            if wname == "bounce":
+                continue
+            form = "any_hit" if any_hit else "closest_hit"
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t_r, p_r = v4.intersect_v4_reference(sa, ray)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms = e0.elapsed_time(e1)
+            t_k, p_k = binned(sa, ray, None, lambda r, a=any_hit: list(
+                v4.intersect_v4(sa, r, any_hit=a)))
+            torch.cuda.synchronize()
+            check_t_prim(f"B2 hero {wname} binned "
+                         f"{'any-hit' if any_hit else 'closest-hit'}",
+                         t_k, p_k, t_r, p_r, any_hit, errs)
+            ray_s, pos = sort_wavefront(sa, ray)
+            t_ref = torch.empty_like(t_r)
+            t_ref[pos] = t_r
+            walk = WalkWork(sa, ray_s, t_ref, any_hit)
+            k_ms, q_ms, _, _ = b2_times(v4, sa, ray_s, any_hit)
+            n_lanes = ray_s.o.x.shape[0]
+            b_bound, need, distinct, _ = b2_walk_bound(
+                walk, n_lanes * n_anim * INV_LERP_OPS)
+            times[form] = (k_ms, plain_ms, b_bound)
+            print(f"B2 time hero {wname} ({form.replace('_', '-')}, "
+                  f"binned): kernel {k_ms:.4f} ms, query {q_ms:.4f} ms, "
+                  f"plain {plain_ms:.3f} ms; a walk needs {need} units over "
+                  f"{n_lanes // 32} warps ({distinct} distinct); bound "
+                  f"{b_bound[0]:.4f} ms ({b_bound[1]}) ({card})", flush=True)
+            del t_r, p_r, t_k, p_k, walk
+        del sc, sa, waves
+        print(f"B2 on the hero's wavefronts: {time.perf_counter() - t_step:.1f}"
+              " s", flush=True)
+        t_step = time.perf_counter()
+
+        # card against CPU at 16x16 x 16 spp, on the mini hero: the hero
+        # with a 192-triangle knot and a 96-triangle sphere (312 triangles
+        # in all, through B2 on the card; every plugin kept), whose CPU
+        # renders take seconds where the full hero's dense CPU scans take
+        # minutes (tests/test_torch_cuda.py renders it the same way). The
+        # smoke cube's bottom face
+        # lies in the floor's plane: rays through it meet both at one t,
+        # and the last bits of t decide, which differ between the card
+        # (Woop, CUDA's rsqrt, sin, exp) and the CPU (Möller); so do rays
+        # that graze a wall's edge. The CPU render marks those lanes
+        # (tests/torch_ties.TieRecorder: a rival hit within 2^-20 of t, or
+        # an edge within 2^-17 in barycentrics, on any query). Phase 8's
+        # measures of the whole images are printed; phase 8's criteria
+        # (>= 99% of values within rtol 1e-4, atol 1e-4 * max|cpu|, mean
+        # within 1e-3 relative) must hold for the images with the marked
+        # lanes left out of both films, and the marked lanes must be at
+        # most 10% of the lanes.
+        from mitsuba3dopplertof_tpu_torch.utils import hero_scene as hs
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from torch_ties import TieRecorder
+        mini = os.path.join(tmp, "mini")
+        os.makedirs(mini)
+        hs._knot_obj(os.path.join(mini, "knot.obj"), nu=12, nv=8)
+        hs._icosphere_obj(os.path.join(mini, "sphere.obj"), nu=8, nv=6)
+        hero_assets(mini)
+        small = lambda integ, device: load(16, integ, device, 16, mini)
+        cpu = {}
+        for label, integ, env in (
+                ("dopplertofpath", None, {}),
+                ("volpath", HERO_VOLPATH, {}),
+                ("dopplertofpath through B5 (MI_STREAM_KERNEL=v3)", None,
+                 {"MI_STREAM_KERNEL": "v3"})):
+            key = "volpath" if integ else "dopplertofpath"
+            if key not in cpu:
+                rec = TieRecorder(16 * 16 * 16, "cpu")
+                with rec.hooked():
+                    whole = mi.render(small(integ, "cpu"), spp=16,
+                                      seed=0).numpy()
+                with rec.dropped():
+                    kept = mi.render(small(integ, "cpu"), spp=16,
+                                     seed=0).numpy()
+                cpu[key] = (rec, whole, kept)
+            rec, whole_c, kept_c = cpu[key]
+            os.environ.update(env)
+            try:
+                whole_g = mi.render(small(integ, None), spp=16,
+                                    seed=0).cpu().numpy()
+                reset()
+                with rec.dropped():
+                    kept_g = mi.render(small(integ, None), spp=16,
+                                       seed=0).cpu().numpy()
+                counts = read()
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            row = "B5" if env else "B2"
+            if counts[row]["closest_hit"] <= 0:
+                fail(f"mini hero card vs cpu {label}: launches {counts}")
+
+            def measure(ig, ic):
+                scale = float(np.abs(ic).max())
+                close = np.isclose(ig, ic, rtol=1e-4, atol=1e-4 * scale)
+                rel_mean = (abs(ig.mean() - ic.mean())
+                            / max(abs(ic.mean()), 1e-30))
+                return scale, close.mean(), rel_mean, float(
+                    np.abs(ig - ic).max())
+
+            sw, cw, mw, dw = measure(whole_g, whole_c)
+            sk, ck, mk, dk = measure(kept_g, kept_c)
+            n_marked = int(rec.marked.sum())
+            print(f"cuda vs cpu mini hero {label} 16x16x16: whole images "
+                  f"{cw * 100:.2f}% of values within tolerance, mean rel "
+                  f"diff {mw:.3g}, max abs diff {dw:.3g} (scale {sw:.3g}); "
+                  f"{n_marked} of 4096 lanes marked (ties, grazed edges); "
+                  f"without them {ck * 100:.2f}% within tolerance, mean "
+                  f"rel diff {mk:.3g}, max abs diff {dk:.3g} (scale "
+                  f"{sk:.3g})", flush=True)
+            if (ck < 0.99 or mk > 1e-3 or sk <= 0.0 or n_marked > 409
+                    or not np.isfinite(whole_g).all()):
+                fail(f"cuda vs cpu mini hero {label}: outside tolerance")
+
+        print(f"card vs cpu, mini hero: {time.perf_counter() - t_step:.1f} "
+              "s", flush=True)
+
+        # the anchor: QUALITY_HERO_ref.npz, the mean of K passes of
+        # ``anchor_spp`` spp at seeds 0..K-1 (scripts/hero_quality.py),
+        # against the card's mean of seeds 0 and 1 at box-downsampled
+        # pyramid levels 3-5, RMSE over the anchor's level-0 signal RMS.
+        # Limit: 3x the Monte Carlo error of a 2-pass mean against the
+        # K-pass mean, taken as independent (the card's seeds 0 and 1
+        # repeat two of the anchor's passes, which only lowers the error),
+        # plus the anchor's float16 rounding (half a float16 ulp, RMS).
+        # QUALITY_HERO.md's half-means are K/2-pass means: their difference
+        # has 4/K of one pass's variance, so one pass's error is the
+        # table's value times sqrt(K)/2.
+        with np.load(HERO_ANCHOR) as f:
+            ref16, K = f["mean"], int(f["K"])
+            if int(f["spp"]) != anchor_spp:
+                fail(f"anchor spp {int(f['spp'])} != {anchor_spp}")
+        ref = ref16.astype(np.float32)
+        table = half_mean_table()
+        scene = load(anchor_spp)
+        t0 = time.perf_counter()
+        mean2 = sum(mi.render(scene, spp=anchor_spp, seed=s).cpu().numpy()
+                    for s in (0, 1)) / 2.0
+        anchor_s = time.perf_counter() - t0
+        sig0 = float(np.sqrt(np.mean(ref ** 2)))
+        f16 = float(np.sqrt(np.mean((np.spacing(np.abs(ref16))
+                                     .astype(np.float32) / 2) ** 2))) / sig0
+        a, b = mean2, ref
+        for lvl in range(6):
+            if lvl >= 3:
+                err = float(np.sqrt(np.mean((a - b) ** 2))) / sig0
+                expected = table[lvl] * math.sqrt(K) / 2 * math.sqrt(
+                    1.0 / 2 + 1.0 / K)
+                limit = 3.0 * expected + f16
+                print(f"hero anchor level {lvl} ({a.shape[0]}x"
+                      f"{a.shape[1]}): RMSE {100 * err:.3f}% of the "
+                      f"level-0 signal RMS {sig0:.5g}; limit "
+                      f"{100 * limit:.3f}% = 3 x {100 * expected:.3f}% "
+                      f"(2-pass vs {K}-pass mean, from QUALITY_HERO.md's "
+                      f"{100 * table[lvl]:.2f}%) + {100 * f16:.3f}% "
+                      f"(float16)", flush=True)
+                if not err <= limit:
+                    fail(f"hero anchor level {lvl}: {err:.4g} > {limit:.4g}")
+            if lvl < 5:
+                a, b = down2(a), down2(b)
+        print(f"hero anchor renders {res}x{res}x{anchor_spp}, seeds 0 and "
+              f"1: {anchor_s:.3f} s ({card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "times": times, "errs": errs}
+
+
+def hero_entries(hero: dict) -> list:
+    """The kernel line's entries of B2 on the hero: its launches in the
+    dopplertofpath render (and in the volpath render, an extra key), its
+    times on the hero's wavefronts and their bound."""
+    out = []
+    for form in ("closest_hit", "any_hit"):
+        k_ms, p_ms, (b_ms, b_by) = hero["times"][form]
+        out.append({
+            "name": f"intersect_v4 on the hero ({form.replace('_', '-')})",
+            "route": "cuda", "source": B2_SOURCE, "replaces": B2_TPU,
+            "launches": hero["launches"]["dopplertofpath"][form],
+            "launches_volpath": hero["launches"]["volpath"][form],
+            "max_abs_err": hero["errs"][form], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2076,43 +2449,6 @@ def main() -> int:
                      f"{n_bad} lanes")
         print(f"{tag}: all 13 fields equal on {int(same.sum())} lanes",
               flush=True)
-
-    def check_t_prim(tag, t_k, p_k, t_r, p_r, any_hit, errs_k, skip=None,
-                     exact_prim=False):
-        """Occlusion exact on every lane; closest-hit: t bitwise equal on
-        hit lanes, prim different only at ties in t (with ``exact_prim``
-        on no lane). ``skip``: lanes left out (``zero_area_winner``), at
-        most one in 100,000."""
-        if skip is not None and bool(skip.any()):
-            n_skip = int(skip.sum())
-            print(f"{tag}: {n_skip} lanes left out, the plain version's "
-                  f"winner there is a triangle of zero area", flush=True)
-            if n_skip > p_r.numel() // 100000:
-                fail(f"{tag}: {n_skip} lanes with a zero-area winner")
-            keep = ~skip
-            t_k, p_k, t_r, p_r = t_k[keep], p_k[keep], t_r[keep], p_r[keep]
-        hit = p_r >= 0
-        occ = int(((p_k >= 0) != hit).sum())
-        if occ:
-            fail(f"{tag}: occlusion differs on {occ} lanes")
-        if any_hit:
-            # the any-hit form's error: lanes whose occlusion differs
-            errs_k["any_hit"] = max(errs_k["any_hit"], float(occ))
-            print(f"{tag}: occlusion equal on all {hit.numel()} lanes "
-                  f"({int(hit.sum())} occluded)", flush=True)
-            return
-        n_tdiff = int((t_k[hit] != t_r[hit]).sum())
-        n_pdiff = int((hit & (p_k != p_r)).sum())
-        err = float((t_k[hit] - t_r[hit]).abs().max()) \
-            if bool(hit.any()) else 0.0
-        errs_k["closest_hit"] = max(errs_k["closest_hit"], err)
-        print(f"{tag}: {int(hit.sum())} hit lanes, t differs on {n_tdiff} "
-              f"(max abs {err:.3g}), prim differs on {n_pdiff} (ties in t)",
-              flush=True)
-        if n_tdiff:
-            fail(f"{tag}: t not bitwise equal on {n_tdiff} lanes")
-        if n_pdiff > (0 if exact_prim else max(20, int(hit.sum()) // 10000)):
-            fail(f"{tag}: prim differs on {n_pdiff} lanes")
 
     rows = ["B2"] + [row for row, *_ in ALTERNATES]
     errs_l = {row: {"closest_hit": 0.0, "any_hit": 0.0} for row in rows}
@@ -2628,6 +2964,9 @@ def main() -> int:
     # ---- 9. the rest of the Doppler core ----------------------------------
     doppler_core_phase(mi, obj40, obj2k, reset_counts, read_counts, card)
 
+    # ---- 10. the hero scene ----------------------------------------------
+    hero = hero_phase(mi, reset_counts, read_counts, card)
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     entries = [("intersect_bruteforce", B1_SOURCE, B1_TPU, b1,
@@ -2648,6 +2987,7 @@ def main() -> int:
                 "launches": launches[form], "max_abs_err": errs_k[form],
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None})
+    kernels += hero_entries(hero)
     print(f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

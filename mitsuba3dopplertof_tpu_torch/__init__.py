@@ -33,6 +33,10 @@ from . import films as _films              # noqa: F401
 from . import rfilters as _rfilters        # noqa: F401
 from . import samplers as _samplers        # noqa: F401
 from . import integrators as _integrators  # noqa: F401
+from . import textures as _textures        # noqa: F401
+from . import media as _media              # noqa: F401
+from . import volumes as _volumes          # noqa: F401
+from .integrators import volpath as _volpath  # noqa: F401
 
 from .core.fresolver import file_resolver
 from .io.dict_loader import load_dict as _load_dict

@@ -1,10 +1,14 @@
 """BSDF plugins and the masked type dispatch (port of the JAX package's
-``bsdfs/__init__.py``: diffuse and twosided).
+``bsdfs/__init__.py``: diffuse, with a constant or textured reflectance,
+twosided, null, conductor, plastic and roughplastic).
 
 Each BSDF compiles to one row of a parameter table (type id + float
 params); ``eval_pdf_sample`` evaluates every type present in the scene over
 the whole wavefront and selects by mask. Directions are in the local
-shading frame (z = normal), as in the reference.
+shading frame (z = normal), as in the reference. The rows are the JAX
+package's, column for column, quirks included: a plastic row writes its
+specular sampling weight over the first specular-reflectance column and
+leaves the texture column at 0 (ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -14,22 +18,47 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import microfacet as mf
 from ..core import warp
+from ..core.fresnel import fresnel_conductor, fresnel_dielectric, reflect
 from ..core.math import INV_PI
 from ..core.properties import Properties, register_plugin
-from ..core.vec import Vec3, where3
+from ..core.vec import Vec3, dot, normalize, where3
+from .ior_data import CONDUCTOR_IOR, CONDUCTOR_SPECTRA
 
 # type ids (the JAX package's numbering)
 BSDF_DIFFUSE = 0
+BSDF_NULL = 1
+BSDF_CONDUCTOR = 2
+BSDF_PLASTIC = 5
+BSDF_ROUGHPLASTIC = 6
 
 N_BSDF_PARAMS = 24
-P_REFL = 0            # rgb reflectance
+# param columns (meaning depends on type)
+P_REFL = 0            # rgb reflectance / specular reflectance
 P_TWOSIDED = 3        # 1.0 if wrapped in `twosided`
+P_ETA = 4             # relative ior (plastic); rgb eta (conductor 4:7)
+P_K = 7               # rgb k (conductor 7:10); plastic: fdr_int, nonlinear
+P_ALPHA = 10          # roughness alpha; 11: plastic specular weight
+P_SPEC_TRANS = 11     # plastic specular reflectance 11:14 (11 overwritten)
 P_REFL_TEX = 14       # texture id driving the reflectance (-1 = constant)
 P_NMAP_TEX = 15       # normal-map texture id (-1 = none)
 
 # lobe flags (static per row, mirrors reference BSDFFlags)
 FLAG_SMOOTH = 1       # has a smooth (non-delta) lobe => NEE applies
+FLAG_DELTA = 2        # sampling may return a delta lobe
+FLAG_NULL = 4         # null transmission lobe
+
+# types whose eval takes the (tex_refl, tex_mask) reflectance override
+TEXTURED_TYPES = (BSDF_DIFFUSE, BSDF_PLASTIC, BSDF_ROUGHPLASTIC)
+
+# named IORs (reference src/render/ior.h subset)
+IOR_NAMES = {
+    "vacuum": 1.0, "air": 1.000277, "water": 1.3330, "water ice": 1.31,
+    "fused quartz": 1.458, "pyrex": 1.470, "acrylic glass": 1.49,
+    "polypropylene": 1.49, "bk7": 1.5046, "sodium chloride": 1.544,
+    "amber": 1.55, "pet": 1.5750, "diamond": 2.419, "bromine": 1.661,
+}
 
 
 class BSDF:
@@ -43,9 +72,17 @@ class BSDF:
         self.id = props.id
         self.two_sided = False
 
+    def params_row(self) -> np.ndarray:
+        return np.zeros(N_BSDF_PARAMS)
+
 
 def _get_rgb(props, key, default):
+    """An rgb triple from a float, a list, an ``rgb`` dict or a texture
+    (its mean)."""
     v = props.get(key, default)
+    from ..textures import Texture
+    if isinstance(v, Texture):
+        return np.asarray(v.mean_rgb())
     if isinstance(v, dict):   # {'type':'rgb','value':[...]} from the parser
         if v.get("type") != "rgb":
             raise NotImplementedError(
@@ -54,29 +91,63 @@ def _get_rgb(props, key, default):
         v = v.get("value")
     if hasattr(v, "plugin_category"):
         raise NotImplementedError(
-            f"textured '{key}' is not ported yet (ROADMAP Queue A item 9)")
+            f"'{key}' given by a {v.plugin_category} is not ported yet "
+            "(ROADMAP Queue A item 10)")
     a = np.asarray(v, dtype=np.float64).reshape(-1)
     if a.size == 1:
         a = np.repeat(a, 3)
     return a[:3]
 
 
+def _get_texture(props, key):
+    """The Texture object if the property is texture-driven, else None."""
+    from ..textures import Texture
+    if props.has_property(key):
+        v = props.get(key)
+        if isinstance(v, Texture):
+            return v
+    return None
+
+
+def _parse_ior(props, key, default):
+    v = props.get(key, default)
+    if isinstance(v, str):
+        if v not in IOR_NAMES:
+            raise RuntimeError(f"Unknown IOR material '{v}'")
+        return IOR_NAMES[v]
+    if isinstance(v, dict):
+        v = v.get("value")
+        if isinstance(v, (list, tuple)):
+            v = v[0]
+    return float(v)
+
+
+def fdr_approx(eta: float) -> float:
+    """Average Fresnel diffuse reflectance (d'Eon's rational fit)."""
+    if eta < 1.0:
+        return float(-0.4399 + 0.7099 / eta - 0.3319 / eta ** 2
+                     + 0.0636 / eta ** 3)
+    return float(-1.4399 / eta ** 2 + 0.7099 / eta + 0.6681 + 0.0636 * eta)
+
+
 @register_plugin("bsdf", "diffuse")
 class Diffuse(BSDF):
-    """Lambertian (reference src/bsdfs/diffuse.cpp)."""
+    """Lambertian (reference src/bsdfs/diffuse.cpp); a texture child gives
+    the reflectance per hit."""
     type_id = BSDF_DIFFUSE
     flags = FLAG_SMOOTH
 
     def __init__(self, props: Properties):
         super().__init__(props)
         self.reflectance = _get_rgb(props, "reflectance", [0.5, 0.5, 0.5])
+        self.reflectance_tex = _get_texture(props, "reflectance")
+        self.tex_index = -1   # assigned at scene compile
 
     def params_row(self):
         p = np.zeros(N_BSDF_PARAMS)
         p[P_REFL:P_REFL + 3] = self.reflectance
         p[P_TWOSIDED] = 1.0 if self.two_sided else 0.0
-        p[P_REFL_TEX] = -1.0
-        p[P_NMAP_TEX] = -1.0
+        p[P_REFL_TEX] = float(self.tex_index)
         return p
 
 
@@ -105,6 +176,109 @@ class TwoSided(BSDF):
         return row
 
 
+@register_plugin("bsdf", "null")
+class Null(BSDF):
+    """Pass-through (reference src/bsdfs/null.cpp)."""
+    type_id = BSDF_NULL
+    flags = FLAG_NULL | FLAG_DELTA
+
+
+@register_plugin("bsdf", "conductor")
+class Conductor(BSDF):
+    """Smooth conductor (reference src/bsdfs/conductor.cpp): a perfect
+    mirror with the complex-ior Fresnel weight; the default material
+    "none" reflects everything."""
+    type_id = BSDF_CONDUCTOR
+    flags = FLAG_DELTA
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        mat = props.get_string("material", "none")
+        eta_d, k_d = CONDUCTOR_IOR.get(mat, CONDUCTOR_IOR["none"])
+        # the named material's spectra, for the spectral variant
+        # (ROADMAP Queue A item 11)
+        self.material = (mat if (mat in CONDUCTOR_SPECTRA
+                                 and not props.has_property("eta")
+                                 and not props.has_property("k"))
+                         else None)
+        self.eta = _get_rgb(props, "eta", list(eta_d))
+        self.k = _get_rgb(props, "k", list(k_d))
+        self.specular_reflectance = _get_rgb(
+            props, "specular_reflectance", [1.0, 1.0, 1.0])
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_REFL:P_REFL + 3] = self.specular_reflectance
+        p[P_TWOSIDED] = 1.0 if self.two_sided else 0.0
+        p[P_ETA:P_ETA + 3] = self.eta
+        p[P_K:P_K + 3] = self.k
+        return p
+
+
+@register_plugin("bsdf", "plastic")
+class Plastic(BSDF):
+    """Smooth plastic: a delta dielectric coat over a diffuse base
+    (reference src/bsdfs/plastic.cpp)."""
+    type_id = BSDF_PLASTIC
+    flags = FLAG_SMOOTH | FLAG_DELTA
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        int_ior = _parse_ior(props, "int_ior", "polypropylene")
+        ext_ior = _parse_ior(props, "ext_ior", "air")
+        self.eta = int_ior / ext_ior
+        self.diffuse_reflectance = _get_rgb(
+            props, "diffuse_reflectance", [0.5, 0.5, 0.5])
+        self.specular_reflectance = _get_rgb(
+            props, "specular_reflectance", [1.0, 1.0, 1.0])
+        self.nonlinear = props.get_bool("nonlinear", False)
+        # internal diffuse Fresnel reflectance (the reference precomputes
+        # fdr_int by quadrature; d'Eon's fit is within ~1e-3 for eta in
+        # [1, 3])
+        e = self.eta
+        self.fdr_int = fdr_approx(1.0 / e)
+        self.fdr_ext = fdr_approx(e)
+        # average specular sampling weight
+        self.spec_weight_avg = float(np.mean(self.specular_reflectance))
+        self.diff_weight_avg = float(np.mean(self.diffuse_reflectance))
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_REFL:P_REFL + 3] = self.diffuse_reflectance
+        p[P_TWOSIDED] = 1.0 if self.two_sided else 0.0
+        p[P_ETA] = self.eta
+        p[P_K] = self.fdr_int
+        p[P_K + 1] = 1.0 if self.nonlinear else 0.0
+        p[P_SPEC_TRANS:P_SPEC_TRANS + 3] = self.specular_reflectance
+        # probability of picking the specular component (reference
+        # plastic.cpp m_specular_sampling_weight); the JAX package's column
+        # 11, over the first specular-reflectance column
+        sw = self.spec_weight_avg / max(
+            self.spec_weight_avg + self.diff_weight_avg, 1e-6)
+        p[P_ALPHA + 1] = sw
+        return p
+
+
+@register_plugin("bsdf", "roughplastic")
+class RoughPlastic(Plastic):
+    """GGX rough plastic (reference src/bsdfs/roughplastic.cpp): a
+    microfacet specular coat over a diffuse base with internal
+    scattering."""
+    type_id = BSDF_ROUGHPLASTIC
+    flags = FLAG_SMOOTH
+
+    def __init__(self, props: Properties):
+        props.mark_queried("distribution")
+        alpha = props.get_float("alpha", 0.1)
+        super().__init__(props)
+        self.alpha = alpha
+
+    def params_row(self):
+        p = super().params_row()
+        p[P_ALPHA] = self.alpha
+        return p
+
+
 class BSDFSampleResult(NamedTuple):
     val_nee: Vec3             # f(wi, wo_nee) * cos(wo_nee)   (rgb)
     pdf_nee: torch.Tensor
@@ -116,10 +290,20 @@ class BSDFSampleResult(NamedTuple):
     sampled_null: torch.Tensor
 
 
-def _diffuse_eval_pdf_sample(param, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y):
+def _zero3(like) -> Vec3:
+    z = torch.zeros_like(like)
+    return Vec3(z, z, z)
+
+
+def _diffuse_eval_pdf_sample(param, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
+                             tex_refl=None, tex_mask=None):
     """Reference src/bsdfs/diffuse.cpp eval/pdf/sample; ``s1`` is drawn by
-    the caller but unused. ``param(j)`` gives column j per lane."""
+    the caller but unused. ``param(j)`` gives column j per lane;
+    ``tex_refl``/``tex_mask`` override the reflectance on textured
+    lanes."""
     refl = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    if tex_refl is not None:
+        refl = where3(tex_mask, tex_refl, refl)
     two_sided = param(P_TWOSIDED) > 0.5
     sgn = torch.where(two_sided & (wi.z < 0.0), -1.0, 1.0)
     cos_i = wi.z * sgn
@@ -133,23 +317,194 @@ def _diffuse_eval_pdf_sample(param, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y):
     ok = cos_i > 0.0
     pdf = torch.where(ok, INV_PI * wo_local.z, 0.0)
     wo = Vec3(wo_local.x, wo_local.y, wo_local.z * sgn)
-    zero = torch.zeros_like(pdf)
-    weight = where3(ok, refl, Vec3(zero, zero, zero))
+    weight = where3(ok, refl, _zero3(pdf))
     false_ = torch.zeros_like(pdf, dtype=torch.bool)
     return BSDFSampleResult(val_nee, fcos, wo, weight, pdf,
                             torch.ones_like(pdf), false_, false_)
 
 
+def _null_eval_pdf_sample(param, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y):
+    """Reference src/bsdfs/null.cpp: continue straight through, weight 1
+    (a nonzero P_REFL tints it, as the JAX package's polarizer rows do)."""
+    z = torch.zeros_like(wi.z)
+    ones = torch.ones_like(wi.z)
+    true_ = ones > 0.0
+    w = Vec3(torch.where(param(P_REFL) > 0.0, param(P_REFL), 1.0),
+             torch.where(param(P_REFL + 1) > 0.0, param(P_REFL + 1), 1.0),
+             torch.where(param(P_REFL + 2) > 0.0, param(P_REFL + 2), 1.0))
+    return BSDFSampleResult(Vec3(z, z, z), z, -wi, w, ones, ones, true_,
+                            true_)
+
+
+def _conductor_eval_pdf_sample(param, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y):
+    """Delta mirror (reference conductor.cpp): NEE cannot reach it."""
+    z = torch.zeros_like(wi.z)
+    ok = wi.z > 0.0
+    wo = reflect(wi)
+    F = Vec3(
+        fresnel_conductor(wi.z, param(P_ETA), param(P_K)),
+        fresnel_conductor(wi.z, param(P_ETA + 1), param(P_K + 1)),
+        fresnel_conductor(wi.z, param(P_ETA + 2), param(P_K + 2)))
+    refl = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    weight = where3(ok, F * refl, Vec3(z, z, z))
+    pdf = torch.where(ok, 1.0, 0.0)
+    true_ = torch.ones_like(ok)
+    return BSDFSampleResult(Vec3(z, z, z), z, wo, weight, pdf,
+                            torch.ones_like(z), true_, ~true_)
+
+
+def _plastic_diffuse(diff: Vec3, fdr_int, nonlinear, F_i, inv_eta_2):
+    """The internally scattered diffuse base of (rough)plastic, as a
+    function of (cos_o, F_o)."""
+    def term(cos_o, F_o):
+        scale = (1.0 - F_i) * (1.0 - F_o) * inv_eta_2 * INV_PI * cos_o
+        denom_lin = 1.0 - fdr_int
+        return Vec3(
+            diff.x / torch.where(nonlinear, 1.0 - diff.x * fdr_int,
+                                 denom_lin),
+            diff.y / torch.where(nonlinear, 1.0 - diff.y * fdr_int,
+                                 denom_lin),
+            diff.z / torch.where(nonlinear, 1.0 - diff.z * fdr_int,
+                                 denom_lin)) * scale
+    return term
+
+
+def _plastic_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y,
+                             tex_refl=None, tex_mask=None):
+    """Smooth plastic (reference plastic.cpp): delta specular + diffuse
+    with internal-scattering compensation."""
+    eta = param(P_ETA)
+    fdr_int = param(P_K)
+    nonlinear = param(P_K + 1) > 0.5
+    spec_prob_w = param(P_ALPHA + 1)
+    diff = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    if tex_refl is not None:
+        diff = where3(tex_mask, tex_refl, diff)
+    spec = Vec3(param(P_SPEC_TRANS), param(P_SPEC_TRANS + 1),
+                param(P_SPEC_TRANS + 2))
+    two_sided = param(P_TWOSIDED) > 0.5
+    sgn = torch.where(two_sided & (wi.z < 0.0), -1.0, 1.0)
+    cos_i = wi.z * sgn
+    ok = cos_i > 0.0
+
+    F_i, _, _, eta_ti = fresnel_dielectric(cos_i, eta)
+    inv_eta_2 = eta_ti * eta_ti
+
+    # probability of the specular component (reference plastic.cpp sample)
+    prob_spec = F_i * spec_prob_w / torch.clamp(
+        F_i * spec_prob_w + (1.0 - F_i) * (1.0 - spec_prob_w), min=1e-12)
+
+    # diffuse eval for NEE (the specular lobe is delta: it adds 0)
+    cos_o_nee = wo_nee.z * sgn
+    both = ok & (cos_o_nee > 0.0)
+    F_o_nee, _, _, _ = fresnel_dielectric(cos_o_nee, eta)
+    diffuse_term = _plastic_diffuse(diff, fdr_int, nonlinear, F_i, inv_eta_2)
+
+    val_nee = where3(both, diffuse_term(cos_o_nee, F_o_nee), _zero3(F_i))
+    pdf_nee = torch.where(both, (1.0 - prob_spec) * INV_PI * cos_o_nee, 0.0)
+
+    # sample
+    pick_spec = s1 < prob_spec
+    wo_d = warp.cosine_hemisphere_c(s2x, s2y)
+    wo = where3(pick_spec, reflect(Vec3(wi.x, wi.y, cos_i)), wo_d)
+    F_o_s, _, _, _ = fresnel_dielectric(wo.z, eta)
+    pdf_d = (1.0 - prob_spec) * INV_PI * wo.z
+    pdf = torch.where(pick_spec, prob_spec, pdf_d)
+    w_spec = spec * (F_i / torch.clamp(prob_spec, min=1e-12))
+    w_diff = diffuse_term(wo.z, F_o_s) * (
+        1.0 / torch.clamp(pdf_d, min=1e-12))
+    weight = where3(pick_spec, w_spec, w_diff)
+    weight = where3(ok, weight, _zero3(F_i))
+    pdf = torch.where(ok, pdf, 0.0)
+    wo = Vec3(wo.x, wo.y, wo.z * sgn)
+    return BSDFSampleResult(val_nee, pdf_nee, wo, weight, pdf,
+                            torch.ones_like(F_i), pick_spec,
+                            torch.zeros_like(pick_spec))
+
+
+def _roughplastic_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y,
+                                  tex_refl=None, tex_mask=None):
+    """Reference roughplastic.cpp: GGX specular + internally scattered
+    diffuse; both lobes are smooth, so NEE evaluates both."""
+    eta = param(P_ETA)
+    fdr_int = param(P_K)
+    nonlinear = param(P_K + 1) > 0.5
+    spec_prob_w = param(P_ALPHA + 1)
+    alpha = param(P_ALPHA)
+    diff = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    if tex_refl is not None:
+        diff = where3(tex_mask, tex_refl, diff)
+    spec = Vec3(param(P_SPEC_TRANS), param(P_SPEC_TRANS + 1),
+                param(P_SPEC_TRANS + 2))
+    two_sided = param(P_TWOSIDED) > 0.5
+    sgn = torch.where(two_sided & (wi.z < 0.0), -1.0, 1.0)
+    wi_l = Vec3(wi.x, wi.y, wi.z * sgn)
+    cos_i = wi_l.z
+    ok = cos_i > 0.0
+
+    F_i, _, _, eta_ti = fresnel_dielectric(cos_i, eta)
+    inv_eta_2 = eta_ti * eta_ti
+    prob_spec = F_i * spec_prob_w / torch.clamp(
+        F_i * spec_prob_w + (1.0 - F_i) * (1.0 - spec_prob_w), min=1e-12)
+    prob_diff = 1.0 - prob_spec
+    diffuse_term = _plastic_diffuse(diff, fdr_int, nonlinear, F_i, inv_eta_2)
+
+    def eval_both(wo):
+        cos_o = wo.z
+        both = ok & (cos_o > 0.0)
+        h = normalize(wi_l + wo)
+        D = mf.ggx_D(h, alpha, alpha)
+        G = mf.ggx_G(wi_l, wo, h, alpha, alpha)
+        F_h, _, _, _ = fresnel_dielectric(dot(wi_l, h), eta)
+        spec_scalar = torch.where(
+            both, F_h * D * G / torch.clamp(4.0 * cos_i, min=1e-12), 0.0)
+        F_o, _, _, _ = fresnel_dielectric(cos_o, eta)
+        val = spec * spec_scalar + where3(both, diffuse_term(cos_o, F_o),
+                                          _zero3(cos_o))
+        pdf_spec = torch.where(
+            both, mf.ggx_pdf_visible(wi_l, h, alpha, alpha)
+            / torch.clamp(4.0 * torch.abs(dot(wo, h)), min=1e-12), 0.0)
+        pdf = prob_spec * pdf_spec + prob_diff * torch.where(
+            both, INV_PI * cos_o, 0.0)
+        return val, pdf
+
+    wo_nee_l = Vec3(wo_nee.x, wo_nee.y, wo_nee.z * sgn)
+    val_nee, pdf_nee = eval_both(wo_nee_l)
+
+    pick_spec = s1 < prob_spec
+    m, _ = mf.ggx_sample_vndf(wi_l, alpha, alpha, s2x, s2y)
+    wo_spec = Vec3(2.0 * dot(wi_l, m) * m.x - wi_l.x,
+                   2.0 * dot(wi_l, m) * m.y - wi_l.y,
+                   2.0 * dot(wi_l, m) * m.z - wi_l.z)
+    wo_diff = warp.cosine_hemisphere_c(s2x, s2y)
+    wo = where3(pick_spec, wo_spec, wo_diff)
+    val_s, pdf_s = eval_both(wo)
+    valid = ok & (wo.z > 0.0) & (pdf_s > 1e-12)
+    inv_pdf = torch.where(valid, 1.0 / torch.clamp(pdf_s, min=1e-12), 0.0)
+    weight = val_s * inv_pdf
+    pdf_out = torch.where(valid, pdf_s, 0.0)
+    false_ = torch.zeros_like(cos_i, dtype=torch.bool)
+    return BSDFSampleResult(val_nee, pdf_nee,
+                            Vec3(wo.x, wo.y, wo.z * sgn), weight, pdf_out,
+                            torch.ones_like(cos_i), false_, false_)
+
+
 _DISPATCH = {
     BSDF_DIFFUSE: _diffuse_eval_pdf_sample,
+    BSDF_NULL: _null_eval_pdf_sample,
+    BSDF_CONDUCTOR: _conductor_eval_pdf_sample,
+    BSDF_PLASTIC: _plastic_eval_pdf_sample,
+    BSDF_ROUGHPLASTIC: _roughplastic_eval_pdf_sample,
 }
 
 
-def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3,
-                    s1, s2x, s2y) -> BSDFSampleResult:
+def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
+                    tex_refl=None, tex_mask=None) -> BSDFSampleResult:
     """Masked multi-type dispatch of BSDF::eval_pdf_sample (reference
     src/render/bsdf.cpp:168): every type present in the scene runs over the
-    whole wavefront and the lane's own type is selected."""
+    whole wavefront and the lane's own type is selected. ``tex_refl`` /
+    ``tex_mask``: the textured reflectance and the lanes it replaces the
+    row's on, for the types in ``TEXTURED_TYPES``."""
     lane_bsdf = lane_bsdf.long()
     lane_type = sa.bsdf_type[lane_bsdf]
 
@@ -162,8 +517,11 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3,
         if fn is None:
             raise NotImplementedError(
                 f"BSDF type id {tid} is not ported yet "
-                "(ROADMAP Queue A items 9-10)")
-        r = fn(param, wi, wo_nee, s1, s2x, s2y)
+                "(ROADMAP Queue A item 10)")
+        if tid in TEXTURED_TYPES and tex_refl is not None:
+            r = fn(param, wi, wo_nee, s1, s2x, s2y, tex_refl, tex_mask)
+        else:
+            r = fn(param, wi, wo_nee, s1, s2x, s2y)
         if result is None:
             result = r
         else:
@@ -175,6 +533,9 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3,
 
 
 __all__ = [
-    "BSDF", "Diffuse", "TwoSided", "BSDFSampleResult", "eval_pdf_sample",
-    "N_BSDF_PARAMS", "FLAG_SMOOTH", "BSDF_DIFFUSE", "P_REFL", "P_TWOSIDED",
+    "BSDF", "Diffuse", "TwoSided", "Null", "Conductor", "Plastic",
+    "RoughPlastic", "BSDFSampleResult", "eval_pdf_sample", "N_BSDF_PARAMS",
+    "FLAG_SMOOTH", "FLAG_DELTA", "FLAG_NULL", "BSDF_DIFFUSE", "BSDF_NULL",
+    "BSDF_CONDUCTOR", "BSDF_PLASTIC", "BSDF_ROUGHPLASTIC", "P_REFL",
+    "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "TEXTURED_TYPES",
 ]

@@ -1,6 +1,6 @@
 """Emitter plugins and emitter sampling (port of the JAX package's
-``emitters/__init__.py``: the point emitter and the area emitter on
-rectangles and meshes).
+``emitters/__init__.py``: the point emitter, the area emitter on
+rectangles and meshes, and the envmap).
 
 Sampling follows the masked type dispatch over the compiled emitter table;
 the uniform emitter choice replicates reference src/render/scene.cpp:170-188
@@ -22,6 +22,7 @@ from ..render.types import DirectionSample
 EMITTER_POINT = 0         # point light (delta position)
 EMITTER_AREA_RECT = 1     # area emitter on a static rectangle
 EMITTER_AREA_MESH = 3     # area emitter on any other mesh (CDF-sampled)
+EMITTER_ENVMAP = 6        # image-based environment light
 
 N_EMITTER_PARAMS = 16
 E_POS = 0          # point: position
@@ -31,6 +32,8 @@ E_RAD_TEX = 8      # radiance texture id (-1 = constant)
 
 
 class Emitter:
+    is_environment = False
+
     def __init__(self, props: Properties):
         self.id = props.id
         self.shape = None       # set for area emitters during assembly
@@ -71,7 +74,7 @@ class AreaEmitter(Emitter):
         for key, v in props.objects():
             raise NotImplementedError(
                 f"area emitter child '{key}' is not ported yet "
-                "(ROADMAP Queue A item 9)")
+                "(ROADMAP Queue A item 10)")
 
     def params_row(self):
         p = np.zeros(N_EMITTER_PARAMS)
@@ -205,11 +208,15 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
+        elif tid == EMITTER_ENVMAP:
+            ds, w = envmap_sample_direction(sa, ref_p, s_x, s_y)
+            ds = ds._replace(emitter=index)
         else:
             raise NotImplementedError(
                 f"emitter type {tid} is not ported yet "
-                "(ROADMAP Queue A items 5 and 9)")
-        spec = inten * w
+                "(ROADMAP Queue A items 5 and 10)")
+        # the envmap's w is already its radiance over its pdf
+        spec = w if tid == EMITTER_ENVMAP else inten * w
         if best is None:
             best = (ds, spec)
         else:
@@ -241,10 +248,14 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
             # a delta light: a BSDF-sampled direction never reaches it
             pdf = torch.where(lane_type == tid, 0.0, pdf)
             continue
+        if tid == EMITTER_ENVMAP:
+            pdf = torch.where(lane_type == tid,
+                              envmap_pdf_direction(sa, ds.d), pdf)
+            continue
         if tid not in (EMITTER_AREA_RECT, EMITTER_AREA_MESH):
             raise NotImplementedError(
                 f"emitter type {tid} is not ported yet "
-                "(ROADMAP Queue A items 5 and 9)")
+                "(ROADMAP Queue A items 5 and 10)")
         area = sa.emitter_params[E_AREA][idx]
         dist2 = ds.dist * ds.dist
         cos_theta = -dot(ds.d, ds.n)
@@ -291,9 +302,163 @@ def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter):
     return inten * torch.where(ok, 1.0, 0.0)
 
 
+@register_plugin("emitter", "envmap")
+class EnvmapEmitter(Emitter):
+    """Image-based environment light (reference src/emitters/envmap.cpp).
+
+    The reference's direction convention: in emitter space
+    u = atan2(d.x, -d.z)/(2pi) (wrapped), v = acos(d.y)/pi. Importance
+    sampling draws texels from the luminance * sin(theta) pmf through a
+    Vose alias table (``build_alias``), built on the host with the JAX
+    package's numpy code so that the tables are equal bit for bit."""
+    type_id = EMITTER_ENVMAP
+    is_environment = True
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        self.scale = props.get_float("scale", 1.0)
+        if props.has_property("filename"):
+            from ..core.fresolver import resolve_filename
+            from ..io.bitmap import read_exr_rgb
+            filename = resolve_filename(props.get_string("filename"))
+            if filename.lower().endswith(".exr"):
+                img = read_exr_rgb(filename)
+            else:
+                import imageio.v3 as iio
+                img = np.asarray(iio.imread(filename), np.float32)
+                if img.dtype == np.uint8 or img.max() > 64:
+                    img = img / 255.0
+                if img.ndim == 2:
+                    img = np.stack([img] * 3, axis=-1)
+                img = img[..., :3]
+            self.image = np.asarray(img, np.float32) * self.scale
+        else:
+            rad = _get_rgb(props, "radiance", [1.0, 1.0, 1.0])
+            self.image = np.tile(np.asarray(rad, np.float32)[None, None, :],
+                                 (2, 4, 1)) * self.scale
+        self.to_world = props.get_transform("to_world", np.eye(4))
+        # the texel pmf: luminance * sin(theta)
+        h, w, _ = self.image.shape
+        lum = (0.2126 * self.image[..., 0] + 0.7152 * self.image[..., 1]
+               + 0.0722 * self.image[..., 2])
+        theta = (np.arange(h) + 0.5) / h * np.pi
+        weights = lum * np.sin(theta)[:, None]
+        total = weights.sum()
+        self.texel_pdf = (weights / max(total, 1e-20)).astype(np.float32)
+        self.texel_cdf = np.cumsum(self.texel_pdf.reshape(-1)).astype(
+            np.float32)
+        self.texel_alias, self.texel_aprob = build_alias(
+            self.texel_pdf.reshape(-1))
+
+    @property
+    def radiance(self):
+        return self.image.reshape(-1, 3).mean(axis=0)
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_INTENSITY:E_INTENSITY + 3] = self.radiance
+        return p
+
+
+def build_alias(p: np.ndarray):
+    """Vose alias table for the discrete pmf ``p`` (host-side, O(n)):
+    sampling is then two gathers (probability and alias) per lane."""
+    n = p.size
+    scaled = p.astype(np.float64) * n
+    alias = np.arange(n, dtype=np.int32)
+    prob = np.ones(n, np.float32)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        la = large.pop()
+        prob[s] = scaled[s]
+        alias[s] = la
+        scaled[la] = scaled[la] - (1.0 - scaled[s])
+        (small if scaled[la] < 1.0 else large).append(la)
+    for i in small + large:
+        prob[i] = 1.0
+    return alias, prob
+
+
+def _env_texel(sa, d: Vec3):
+    """(flat texel index, v) of world directions ``d``."""
+    m = sa.env_rot          # (9,) row-major inverse rotation
+    ex = m[0] * d.x + m[1] * d.y + m[2] * d.z
+    ey = m[3] * d.x + m[4] * d.y + m[5] * d.z
+    ez = m[6] * d.x + m[7] * d.y + m[8] * d.z
+    u = torch.atan2(ex, -ez) * (0.5 / np.pi)
+    u = torch.where(u < 0.0, u + 1.0, u)
+    v = torch.acos(torch.clamp(ey, -1.0, 1.0)) * (1.0 / np.pi)
+    H, W = sa.env_shape
+    xi = torch.clamp((u * W).to(torch.int32), 0, W - 1)
+    yi = torch.clamp((v * H).to(torch.int32), 0, H - 1)
+    return (yi * W + xi).long(), v
+
+
+def envmap_eval(sa, d: Vec3) -> Vec3:
+    """Environment radiance in world directions ``d`` (miss rays)."""
+    flat, _ = _env_texel(sa, d)
+    return Vec3(sa.env_img_r[flat], sa.env_img_g[flat], sa.env_img_b[flat])
+
+
+def envmap_sample_direction(sa, ref_p: Vec3, s_x, s_y):
+    """Draw a texel from the alias table and a direction inside it;
+    returns (DirectionSample, radiance / pdf)."""
+    H, W = sa.env_shape
+    n = ref_p.x.shape[0]
+    N = H * W
+    j = torch.clamp((s_x * N).to(torch.int32), 0, N - 1).long()
+    # a decorrelated uniform for the alias threshold, derived like the
+    # in-texel jitters below
+    t = mod(s_y * 15485863.0, 1.0)
+    idx = torch.where(t < sa.env_aprob[j], j, sa.env_alias[j].long())
+    yi = idx // W
+    xi = idx - yi * W
+    ju = mod(s_y * 7919.0, 1.0)
+    jv = mod(s_y * 104729.0, 1.0)
+    u = (xi.to(s_y.dtype) + ju) / W
+    v = (yi.to(s_y.dtype) + jv) / H
+    theta = v * np.pi
+    # the inverse of the eval / pdf uv convention u = atan2(ex, -ez)/2pi
+    phi = u * 2.0 * np.pi
+    st = torch.sin(theta)
+    ex = st * torch.sin(phi)
+    ey = torch.cos(theta)
+    ez = -st * torch.cos(phi)
+    m = sa.env_rot_fwd
+    d = Vec3(m[0] * ex + m[1] * ey + m[2] * ez,
+             m[3] * ex + m[4] * ey + m[5] * ez,
+             m[6] * ex + m[7] * ey + m[8] * ez)
+    # solid-angle pdf: p(texel) * (W*H) / (2 pi^2 sin(theta))
+    pdf = sa.env_pdf[idx] * (W * H) / torch.clamp(
+        2.0 * np.pi * np.pi * st, min=1e-8)
+    L = Vec3(sa.env_img_r[idx], sa.env_img_g[idx], sa.env_img_b[idx])
+    w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20), 0.0)
+    dist = torch.full((n,), 2.0, device=ref_p.x.device) * sa.bsphere_radius
+    ds = DirectionSample(ref_p + d * dist, -d, d, dist, pdf,
+                         torch.zeros((n,), dtype=torch.bool,
+                                     device=ref_p.x.device),
+                         torch.zeros((n,), dtype=torch.int32,
+                                     device=ref_p.x.device))
+    return ds, L * w
+
+
+def envmap_pdf_direction(sa, d: Vec3):
+    """Solid-angle pdf of ``envmap_sample_direction`` drawing ``d``."""
+    flat, v = _env_texel(sa, d)
+    H, W = sa.env_shape
+    st = torch.sin(v * np.pi)
+    return sa.env_pdf[flat] * (W * H) / torch.clamp(
+        2.0 * np.pi * np.pi * st, min=1e-8)
+
+
+
 __all__ = [
-    "Emitter", "PointEmitter", "AreaEmitter", "sample_direction",
-    "pdf_direction", "eval_emitter_hit", "N_EMITTER_PARAMS",
-    "EMITTER_POINT", "EMITTER_AREA_RECT", "EMITTER_AREA_MESH", "E_POS",
-    "E_INTENSITY", "E_AREA",
+    "Emitter", "PointEmitter", "AreaEmitter", "EnvmapEmitter",
+    "sample_direction", "pdf_direction", "eval_emitter_hit", "envmap_eval",
+    "envmap_sample_direction", "envmap_pdf_direction", "build_alias",
+    "N_EMITTER_PARAMS", "EMITTER_POINT", "EMITTER_AREA_RECT",
+    "EMITTER_AREA_MESH", "EMITTER_ENVMAP", "E_POS", "E_INTENSITY", "E_AREA",
 ]

@@ -1,7 +1,9 @@
 """Integrator plugins and render orchestration (port of the JAX package's
 ``integrators/__init__.py``: ``SamplingIntegrator.render`` with strip
 passes, timeout, ``cancel()`` and checkpoints, the rgb sample body, the MIS
-path loop, ``path``, ``dopplertofpath``, ``velocity`` and ``depth``).
+path loop with environment emission, textured reflectance and null
+crossings, ``path``, ``dopplertofpath``, ``velocity`` and ``depth``;
+``volpath`` is in ``integrators/volpath.py``).
 
   * render orchestration (wavefront sizing, passes, film)
       — reference src/render/integrator.cpp:104-347
@@ -36,8 +38,10 @@ from ..core.logger import profile_phase
 from ..render.types import Ray, DirectionSample
 from ..render.scene import ray_intersect, ray_test
 from ..samplers import TIME_SAMPLING_METHODS, TIME_ANTITHETIC
-from ..bsdfs import eval_pdf_sample as bsdf_eval_pdf_sample, FLAG_SMOOTH
+from ..bsdfs import (eval_pdf_sample as bsdf_eval_pdf_sample, FLAG_SMOOTH,
+                     P_REFL_TEX)
 from .. import emitters as em_mod
+from ..textures import eval_texture
 from ..films import (block_create, block_splat_wavefront, develop,
                      filter_reach)
 from ..sensors import sample_ray_kind
@@ -362,6 +366,17 @@ class MonteCarloIntegrator(SamplingIntegrator):
 # modulation weight and the correlate-gated draws)
 # ---------------------------------------------------------------------------
 
+def textured_reflectance(sa, lane_bsdf, si):
+    """(reflectance, mask) of the lanes whose BSDF row names a texture,
+    or (None, None) in a scene without textures. The mask is the row's
+    texture column >= 0, as in the JAX package: plastic rows leave it at 0
+    and so take texture 0 (ROADMAP Queue C)."""
+    if sa.n_textures == 0:
+        return None, None
+    lane_tex = sa.bsdf_params[P_REFL_TEX][lane_bsdf.long()].to(torch.int32)
+    return eval_texture(sa, lane_tex, si.uv_u, si.uv_v), lane_tex >= 0
+
+
 def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
                modulation_weight=None, use_correlate=False):
     n = ray.o.x.shape[0]
@@ -372,7 +387,10 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
     path_length = torch.zeros((n,), device=dev)
     eta = torch.ones((n,), device=dev)
     depth = torch.zeros((n,), dtype=torch.int64, device=dev)
-    valid_ray = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # with an environment every camera ray sees something
+    has_env = sa.has_environment and not integrator.hide_emitters
+    valid_ray = torch.full((n,), bool(has_env), dtype=torch.bool,
+                           device=dev)
     prev_p = ray.o
     prev_bsdf_pdf = torch.ones((n,), device=dev)
     prev_bsdf_delta = torch.ones((n,), dtype=torch.bool, device=dev)
@@ -419,7 +437,14 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
         if nee_on:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
                                              lane_emitter)
-            emit_mask = active & (lane_emitter >= 0)
+            if has_env:
+                # rays that escape see the environment
+                miss_env = (~si.valid) & active
+                em_val = where3(miss_env, em_mod.envmap_eval(sa, ray.d),
+                                em_val)
+                emit_mask = active & ((lane_emitter >= 0) | miss_env)
+            else:
+                emit_mask = active & (lane_emitter >= 0)
             # MIS pdf of NEE sampling this hit from the previous vertex
             d_seg = si.p - prev_p
             dist = torch.sqrt(torch.clamp(dot(d_seg, d_seg), min=1e-20))
@@ -429,6 +454,13 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
                 emitter=lane_emitter)
             em_pdf = torch.where(prev_bsdf_delta, 0.0, em_mod.pdf_direction(
                 sa, ds_hit, prim=si.prim, time=ray.time))
+            if has_env:
+                # NEE samples the environment too: escaped rays are
+                # MIS-weighted against it
+                env_pdf = em_mod.envmap_pdf_direction(sa, ray.d) * (
+                    1.0 / max(sa.n_emitters, 1))
+                em_pdf = torch.where(miss_env & ~prev_bsdf_delta, env_pdf,
+                                     em_pdf)
             mis_bsdf = mis_weight(prev_bsdf_pdf, em_pdf)
             lw = weight_fn(ray.time, path_length)
             scale = torch.where(emit_mask, mis_bsdf * lw, 0.0)
@@ -456,8 +488,9 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
         # ------------- BSDF eval & sample (path.cpp:204-210) -------------
         s1, state = draw_1d(state, active, correlate)
         s2, state = draw_2d(state, active, correlate)
+        tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si)
         bs = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, wo_nee, s1, s2[0],
-                                  s2[1])
+                                  s2[1], tex_refl, tex_mask)
 
         # ------------- NEE contribution (path.cpp:212-226) ---------------
         if nee_on:
@@ -599,5 +632,6 @@ class DepthIntegrator(SamplingIntegrator):
 __all__ = [
     "Integrator", "SamplingIntegrator", "MonteCarloIntegrator",
     "PathIntegrator", "DopplerToFPathIntegrator", "VelocityIntegrator",
-    "DepthIntegrator", "mis_weight", "DEFAULT_MAX_LANES",
+    "DepthIntegrator", "mis_weight", "textured_reflectance",
+    "DEFAULT_MAX_LANES",
 ]

@@ -1,0 +1,467 @@
+"""Volumetric path tracer (port of the JAX package's
+``integrators/volpath.py``, the rgb path; reference
+src/integrators/volpath.cpp).
+
+Homogeneous media sample their free flights by the channel-mean
+extinction with an exact rgb transmittance reweighting; heterogeneous
+(grid) media by delta tracking against the majorant, their shadow
+segments by ratio tracking (``_delta_track``, ``_ratio_track``). NEE runs
+from medium and surface vertices; a shadow connection walks through up to
+``_MAX_NULL`` null boundaries with a closest-hit query per segment,
+switching media at each crossing (``_shadow_transmittance``). Media
+change at transmissive boundaries by the closed-shape convention.
+
+The tracking loops draw only on their live lanes and stop once none is
+live, as the JAX package's ``bounce_loop`` does, so the draws stay the JAX
+package's lane for lane. The Stokes branch and the SGGX, Rayleigh and
+tabulated phases are ROADMAP Queue A items 10 and 11.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bsdfs import (FLAG_NULL, FLAG_SMOOTH,
+                     eval_pdf_sample as bsdf_eval_pdf_sample)
+from ..core.logger import profile_phase
+from ..core.properties import register_plugin
+from ..core.vec import Vec3, dot, vmax, where3
+from .. import emitters as em_mod
+from ..media import (M_ALBEDO, M_FILTER, M_G, M_GRID_OFF, M_MAXD, M_NX,
+                     M_NY, M_NZ, M_SAMPLE_EM, M_SIGMA_T, hg_eval, hg_sample)
+from ..render.scene import ray_intersect, ray_test
+from ..render.types import SHADOW_EPSILON, DirectionSample, Ray
+from . import MonteCarloIntegrator, mis_weight
+
+_DT_STEPS = 64     # delta-tracking collision budget per bounce (minimum)
+_RT_STEPS = 32     # ratio-tracking steps for shadow transmittance (minimum)
+_MAX_NULL = 3      # null boundary crossings a shadow ray may tunnel through
+
+
+def _step_budgets(sa):
+    """Tracking budgets from the scene's largest optical depth (the
+    expected majorant collisions along a scene-crossing ray), as the JAX
+    package sets them."""
+    tau = sa.max_optical_depth_hint or 0.0
+    dt = int(min(max(_DT_STEPS, 3.0 * tau + 16), 1024))
+    rt = int(min(max(_RT_STEPS, 3.0 * tau + 8), 1024))
+    return dt, rt
+
+
+def _grid_density(sa, medium, p: Vec3):
+    """sigma_t at world points ``p`` of media ``medium``: the grid (world
+    -> [0,1]^3 by the medium's inverse to_world, zero outside the unit
+    cube), trilinear or nearest (reference gridvolume.cpp eval), times the
+    gray base M_SIGMA_T (the medium's scale)."""
+    idx = torch.clamp(medium, min=0).long()
+
+    def w2g(j):
+        return sa.med_w2g[j][idx]
+
+    def mp(j):
+        return sa.med_params[j][idx]
+
+    lx = w2g(0) * p.x + w2g(1) * p.y + w2g(2) * p.z + w2g(3)
+    ly = w2g(4) * p.x + w2g(5) * p.y + w2g(6) * p.z + w2g(7)
+    lz = w2g(8) * p.x + w2g(9) * p.y + w2g(10) * p.z + w2g(11)
+    inside = ((lx >= 0.0) & (lx <= 1.0) & (ly >= 0.0) & (ly <= 1.0)
+              & (lz >= 0.0) & (lz <= 1.0))
+    nx = mp(M_NX).to(torch.int32)
+    ny = mp(M_NY).to(torch.int32)
+    nz = mp(M_NZ).to(torch.int32)
+    off = mp(M_GRID_OFF).to(torch.int32)
+    nxf = torch.clamp(nx.to(torch.float32), min=1.0)
+    nyf = torch.clamp(ny.to(torch.float32), min=1.0)
+    nzf = torch.clamp(nz.to(torch.float32), min=1.0)
+    fx = torch.minimum(torch.clamp(lx * nxf - 0.5, min=0.0), nxf - 1.0)
+    fy = torch.minimum(torch.clamp(ly * nyf - 0.5, min=0.0), nyf - 1.0)
+    fz = torch.minimum(torch.clamp(lz * nzf - 0.5, min=0.0), nzf - 1.0)
+    x0 = fx.to(torch.int32)
+    y0 = fy.to(torch.int32)
+    z0 = fz.to(torch.int32)
+    x1 = torch.minimum(x0 + 1, nx - 1)
+    y1 = torch.minimum(y0 + 1, ny - 1)
+    z1 = torch.minimum(z0 + 1, nz - 1)
+    tx = fx - x0.to(torch.float32)
+    ty = fy - y0.to(torch.float32)
+    tz = fz - z0.to(torch.float32)
+    last = sa.med_grid.shape[0] - 1
+
+    def at(x, y, z):
+        lin = off + (z * ny + y) * nx + x
+        return sa.med_grid[torch.clamp(lin, 0, last).long()]
+
+    c00 = at(x0, y0, z0) * (1 - tx) + at(x1, y0, z0) * tx
+    c10 = at(x0, y1, z0) * (1 - tx) + at(x1, y1, z0) * tx
+    c01 = at(x0, y0, z1) * (1 - tx) + at(x1, y0, z1) * tx
+    c11 = at(x0, y1, z1) * (1 - tx) + at(x1, y1, z1) * tx
+    c0 = c00 * (1 - ty) + c10 * ty
+    c1 = c01 * (1 - ty) + c11 * ty
+    dens = c0 * (1 - tz) + c1 * tz
+    # nearest lookup (gridvolume.cpp filter_type="nearest")
+    nearest = mp(M_FILTER) > 0.5
+    xn = torch.minimum(torch.clamp((lx * nxf).to(torch.int32), min=0), nx - 1)
+    yn = torch.minimum(torch.clamp((ly * nyf).to(torch.int32), min=0), ny - 1)
+    zn = torch.minimum(torch.clamp((lz * nzf).to(torch.int32), min=0), nz - 1)
+    dens = torch.where(nearest, at(xn, yn, zn), dens)
+    return torch.where(inside, dens * mp(M_SIGMA_T), 0.0)
+
+
+def _delta_track(sa, sampler, state, ray, medium, t_surf, sigma_bar, alive):
+    """Free-flight sampling against the majorant ``sigma_bar`` (Woodcock /
+    delta tracking; reference medium.cpp sample_interaction's decision
+    chain). Returns (t_event, scattered, state); lanes that exhaust the
+    step budget without a real collision escape."""
+    n = t_surf.shape[0]
+    sb = torch.clamp(sigma_bar, min=1e-8)
+    t = torch.zeros((n,), device=t_surf.device)
+    done = ~alive
+    scat = torch.zeros_like(alive)
+    live = alive
+    for _ in range(_step_budgets(sa)[0]):
+        if not bool(live.any()):
+            break
+        u1, state = sampler.next_1d(state, live)
+        t_new = t - torch.log(torch.clamp(1.0 - u1, min=1e-20)) / sb
+        esc = t_new >= t_surf
+        p = Vec3(ray.o.x + ray.d.x * t_new, ray.o.y + ray.d.y * t_new,
+                 ray.o.z + ray.d.z * t_new)
+        dens = _grid_density(sa, medium, p)
+        u2, state = sampler.next_1d(state, live)
+        real = u2 < (dens / sb)
+        done_now = live & (esc | real)
+        scat = torch.where(live & ~esc & real, True, scat)
+        t = torch.where(live, torch.where(esc, t_surf, t_new), t)
+        done = done | done_now
+        live = live & ~done
+    return torch.where(scat, t, t_surf), scat & alive, state
+
+
+def _ratio_track(sa, sampler, state, origin, dirn, dist, medium, sigma_bar,
+                 alive):
+    """Shadow transmittance by ratio tracking: the product of
+    (1 - density / majorant) over majorant-exponential steps."""
+    sb = torch.clamp(sigma_bar, min=1e-8)
+    t = torch.zeros_like(dist)
+    tr = torch.ones_like(dist)
+    live = alive
+    for _ in range(_step_budgets(sa)[1]):
+        if not bool(live.any()):
+            break
+        u, state = sampler.next_1d(state, live)
+        t_new = t - torch.log(torch.clamp(1.0 - u, min=1e-20)) / sb
+        inside = t_new < dist
+        p = Vec3(origin.x + dirn.x * t_new, origin.y + dirn.y * t_new,
+                 origin.z + dirn.z * t_new)
+        dens = _grid_density(sa, medium, p)
+        tr = torch.where(live & inside,
+                         tr * torch.clamp(1.0 - dens / sb, min=0.0), tr)
+        t = torch.where(live, t_new, t)
+        live = live & inside
+    return tr, state
+
+
+def _segment_tr(sa, sampler, state, o, dn, dist, medium, act):
+    """Transmittance of one shadow segment in ``medium``: the rgb
+    exponential, ratio-tracked on heterogeneous lanes."""
+    idx = torch.clamp(medium, min=0).long()
+    in_med = medium >= 0
+    st = [sa.med_params[M_SIGMA_T + c][idx] for c in range(3)]
+    tr = where3(in_med, Vec3(*(torch.exp(-s * dist) for s in st)),
+                Vec3.ones(dist.shape[0], device=dist.device))
+    if sa.any_hetero:
+        maxd = sa.med_params[M_MAXD][idx]
+        het = in_med & (maxd > 0.0)
+        tr_h, state = _ratio_track(sa, sampler, state, o, dn, dist, medium,
+                                   maxd, act & het)
+        tr = where3(het, Vec3(tr_h, tr_h, tr_h), tr)
+    return tr, state
+
+
+def _shadow_transmittance(sa, sampler, state, sh_o, sh_dn, time, sh_dist,
+                          medium, active_em, null_ids):
+    """A shadow connection through up to ``_MAX_NULL`` null boundaries:
+    one closest-hit query per segment, the segment's transmittance in its
+    medium, and the medium switched at each null crossing (reference
+    volpath.cpp's transmittance along NEE rays). Any other hit occludes;
+    lanes still inside geometry after the crossing budget count as
+    occluded. Returns (occluded, transmittance, state)."""
+    n = sh_dist.shape[0]
+    tr = Vec3.ones(n, device=sh_dist.device)
+    occluded = torch.zeros_like(active_em)
+    alive = active_em
+    seg_o = sh_o
+    seg_med = medium
+    remaining = sh_dist
+    for _ in range(_MAX_NULL + 1):
+        r = Ray(seg_o, sh_dn, time, remaining * (1.0 - SHADOW_EPSILON))
+        si = ray_intersect(sa, r, alive)
+        hit = alive & si.valid
+        seg_len = torch.where(hit, si.t, remaining)
+        tr_seg, state = _segment_tr(sa, sampler, state, seg_o, sh_dn,
+                                    seg_len, seg_med, alive)
+        tr = where3(alive, tr * tr_seg, tr)
+        inst = torch.clamp(si.inst, min=0).long()
+        lane_bsdf = sa.inst_bsdf[inst]
+        nm = torch.zeros_like(hit)
+        for nid in null_ids:
+            nm = nm | (lane_bsdf == nid)
+        is_null = hit & nm
+        occluded = occluded | (hit & ~nm)
+        # the medium across the boundary (closed-shape convention, as in
+        # the bounce loop): the exterior is the sensor's medium
+        entering = dot(sh_dn, si.n) < 0.0
+        inst_med = sa.inst_int_medium[inst]
+        seg_med = torch.where(
+            is_null & (inst_med >= 0),
+            torch.where(entering, inst_med, sa.sensor_medium), seg_med)
+        seg_o = where3(hit, si._offset_p(sh_dn), seg_o)
+        remaining = torch.where(hit, remaining - si.t, remaining)
+        alive = is_null & (remaining > 1e-5)
+    return occluded | alive, tr, state
+
+
+@register_plugin("integrator", "volpath")
+class VolPathIntegrator(MonteCarloIntegrator):
+    """Volumetric path tracing with NEE and MIS (reference volpath.cpp)."""
+
+    def sample(self, sa, sampler, state, ray, active):
+        return _volpath_loop(self, sa, sampler, state, ray, active)
+
+
+def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
+    n = ray.o.x.shape[0]
+    dev = ray.o.x.device
+
+    throughput = Vec3.ones(n, device=dev)
+    result = Vec3.zeros(n, device=dev)
+    ones3 = Vec3.ones(n, device=dev)
+    zero = torch.zeros((n,), device=dev)
+    false_ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    eta = torch.ones((n,), device=dev)
+    depth = torch.zeros((n,), dtype=torch.int64, device=dev)
+    has_env = sa.has_environment and not integrator.hide_emitters
+    valid_ray = torch.full((n,), bool(has_env), dtype=torch.bool, device=dev)
+    medium = torch.full((n,), sa.sensor_medium, dtype=torch.int32, device=dev)
+    prev_p = ray.o
+    prev_pdf = torch.ones((n,), device=dev)   # bsdf or phase pdf
+    prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
+
+    bsdf_flags = torch.tensor(sa.bsdf_flags_host, dtype=torch.int32,
+                              device=dev)
+    null_ids = [i for i, f in enumerate(sa.bsdf_flags_host) if f & FLAG_NULL]
+    depth_cap = min(integrator.max_depth, 2 ** 31 - 1)
+    nee_on = sa.n_emitters > 0
+
+    def med(j, med_id):
+        return sa.med_params[j][torch.clamp(med_id, min=0).long()]
+
+    for _ in range(integrator.loop_iterations):
+        if not bool(active.any()):
+            break
+        with profile_phase("RayIntersect"):
+            si = ray_intersect(sa, ray, active)
+
+        # ---------------- medium distance sampling --------------------
+        in_med = (medium >= 0) & active
+        st_r = med(M_SIGMA_T, medium)
+        st_g = med(M_SIGMA_T + 1, medium)
+        st_b = med(M_SIGMA_T + 2, medium)
+        st_mean = torch.clamp((st_r + st_g + st_b) / 3.0, min=1e-8)
+        u, state = sampler.next_1d(state, active)
+        t_med = -torch.log(torch.clamp(1.0 - u, min=1e-20)) / st_mean
+        t_surf = si.t
+        hit_med = in_med & (t_med < t_surf)
+        t_trav = torch.where(in_med, torch.minimum(t_med, t_surf), t_surf)
+        t_fin = torch.where(torch.isfinite(t_trav), t_trav, 0.0)
+
+        # transmittance / pdf reweighting (exponential sampling by the
+        # mean sigma_t)
+        tr = Vec3(torch.exp(-st_r * t_fin), torch.exp(-st_g * t_fin),
+                  torch.exp(-st_b * t_fin))
+        pdf_dist = torch.where(hit_med,
+                               st_mean * torch.exp(-st_mean * t_fin),
+                               torch.exp(-st_mean * t_fin))
+        w_med = where3(in_med,
+                       tr * (1.0 / torch.clamp(pdf_dist, min=1e-20)), ones3)
+        al_r = med(M_ALBEDO, medium)
+        al_g = med(M_ALBEDO + 1, medium)
+        al_b = med(M_ALBEDO + 2, medium)
+        sig_s = Vec3(st_r * al_r, st_g * al_g, st_b * al_b)
+        w_med = where3(hit_med, w_med * sig_s, w_med)
+
+        if sa.any_hetero:
+            # heterogeneous lanes: delta tracking against the majorant
+            # (unit weight; scattering events carry the albedo)
+            maxd = med(M_MAXD, medium)
+            is_het = in_med & (maxd > 0.0)
+            with profile_phase("DeltaTracking"):
+                t_het, scat_het, state = _delta_track(
+                    sa, sampler, state, ray, medium, t_surf, maxd,
+                    active & is_het)
+            hit_med = torch.where(is_het, scat_het, hit_med)
+            t_fin = torch.where(
+                is_het, torch.where(scat_het, t_het, torch.where(
+                    torch.isfinite(t_surf), t_surf, 0.0)), t_fin)
+            w_het = where3(scat_het, Vec3(al_r, al_g, al_b), ones3)
+            w_med = where3(is_het, w_het, w_med)
+        throughput = throughput * w_med
+
+        # ---------------- emission on surface hits / env --------------
+        surf_evt = active & ~hit_med & si.valid
+        inst = torch.clamp(si.inst, min=0).long()
+        lane_emitter = torch.where(surf_evt, sa.inst_emitter[inst], -1)
+        if nee_on:
+            em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
+                                             lane_emitter)
+            miss_env = (~si.valid) & active & ~hit_med
+            mis_emitter = lane_emitter
+            if has_env:
+                em_val = where3(miss_env, em_mod.envmap_eval(sa, ray.d),
+                                em_val)
+                emit_mask = (lane_emitter >= 0) | miss_env
+                # escaped lanes carry the environment's index, so that
+                # their MIS pdf is the environment's NEE pdf
+                mis_emitter = torch.where(miss_env, sa.env_index,
+                                          lane_emitter)
+            else:
+                emit_mask = lane_emitter >= 0
+            d_seg = si.p - prev_p
+            dist = torch.sqrt(torch.clamp(dot(d_seg, d_seg), min=1e-20))
+            ds_hit = DirectionSample(
+                p=si.p, n=si.sh_n,
+                d=where3(miss_env, ray.d, d_seg * (1.0 / dist)), dist=dist,
+                pdf=zero, delta=false_, emitter=mis_emitter)
+            em_pdf = torch.where(prev_delta, 0.0, em_mod.pdf_direction(
+                sa, ds_hit, prim=si.prim, time=ray.time))
+            scale = torch.where(emit_mask, mis_weight(prev_pdf, em_pdf), 0.0)
+            result = result + throughput * em_val * scale
+
+        active_next = ((depth + 1) < depth_cap) & active & (hit_med
+                                                            | si.valid)
+
+        # the interaction point (medium or surface)
+        p_evt = where3(hit_med, ray.o + ray.d * t_fin, si.p)
+        med_se = med(M_SAMPLE_EM, medium) > 0.5
+        lane_bsdf = sa.inst_bsdf[inst]
+
+        # ---------------- NEE from the medium or the surface ------------
+        nee, state = sampler.next_2d(state, active)
+        if nee_on:
+            ds, em_weight = em_mod.sample_direction(sa, p_evt, ray.time,
+                                                    nee[0], nee[1])
+            smooth = (bsdf_flags[lane_bsdf.long()] & FLAG_SMOOTH) != 0
+            # media with sample_emitters=false take no NEE from their
+            # events (medium.h sample_emitters)
+            active_em = active_next & (ds.pdf != 0.0) & (
+                (hit_med & med_se) | (~hit_med & si.valid & smooth))
+            sh_o = where3(hit_med, p_evt, si._offset_p(ds.p - si.p))
+            sh_d = ds.p - sh_o
+            sh_dist = torch.sqrt(torch.clamp(dot(sh_d, sh_d), min=1e-20))
+            sh_dn = sh_d * (1.0 / sh_dist)
+            if not null_ids:
+                with profile_phase("RayTest"):
+                    occluded = ray_test(sa, Ray(
+                        sh_o, sh_dn, ray.time,
+                        sh_dist * (1.0 - SHADOW_EPSILON)), active_em)
+                # transmittance along the shadow segment (current medium)
+                tr_sh = where3(in_med, Vec3(torch.exp(-st_r * ds.dist),
+                                            torch.exp(-st_g * ds.dist),
+                                            torch.exp(-st_b * ds.dist)),
+                               ones3)
+                if sa.any_hetero:
+                    maxd_sh = med(M_MAXD, medium)
+                    het_sh = in_med & (maxd_sh > 0.0)
+                    tr_h, state = _ratio_track(sa, sampler, state, sh_o,
+                                               sh_dn, sh_dist, medium,
+                                               maxd_sh, active_em & het_sh)
+                    tr_sh = where3(het_sh, Vec3(tr_h, tr_h, tr_h), tr_sh)
+            else:
+                # null-transparent shadow rays: a medium enclosed in a null
+                # shell does not occlude its own NEE
+                with profile_phase("ShadowTransmittance"):
+                    occluded, tr_sh, state = _shadow_transmittance(
+                        sa, sampler, state, sh_o, sh_dn, ray.time, sh_dist,
+                        medium, active_em, null_ids)
+            nee_ok = active_em & ~occluded
+            em_weight = em_weight * tr_sh
+        else:
+            ds = DirectionSample(Vec3(zero, zero, zero),
+                                 Vec3(zero, zero, zero),
+                                 Vec3(zero, zero, zero), zero, zero, false_,
+                                 torch.full((n,), -1, dtype=torch.int32,
+                                            device=dev))
+
+        # ---------------- next direction: phase or BSDF ---------------
+        s1, state = sampler.next_1d(state, active)
+        s2, state = sampler.next_2d(state, active)
+        g = med(M_G, medium)
+        wo_phase, pdf_phase = hg_sample(-ray.d, g, s2[0], s2[1])
+        # NEE phase eval: HG about the propagation direction
+        phase_nee = hg_eval(dot(ray.d, ds.d), g)
+        # the JAX package's volpath evaluates BSDFs with their rows'
+        # reflectance: no texture lookup here
+        bs = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, si.to_local(ds.d),
+                                  s1, s2[0], s2[1])
+
+        # NEE contribution (medium: phase; surface: bsdf)
+        if nee_on:
+            val = where3(hit_med, Vec3(phase_nee, phase_nee, phase_nee),
+                         bs.val_nee)
+            pdf_fwd = torch.where(hit_med, phase_nee, bs.pdf_nee)
+            mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd))
+            scale = torch.where(nee_ok, mis_em, 0.0)
+            result = result + throughput * val * em_weight * scale
+
+        # next ray
+        wo_world_surf = si.to_world(bs.wo)
+        d_next = where3(hit_med, wo_phase, wo_world_surf)
+        o_next = where3(hit_med, p_evt, si.spawn_ray(wo_world_surf).o)
+
+        surf_next = active_next & ~hit_med
+        throughput = where3(surf_next, throughput * bs.weight, throughput)
+        eta = eta * torch.where(surf_next, bs.eta, 1.0)
+        valid_ray = valid_ray | (active & (hit_med | si.valid))
+
+        # medium transitions: for closed shapes, the side of the outgoing
+        # direction against the geometric normal decides inside or out
+        entering = dot(wo_world_surf, si.n) < 0.0
+        inst_med = sa.inst_int_medium[inst]
+        medium = torch.where(
+            active_next & surf_evt & (inst_med >= 0),
+            torch.where(entering, inst_med, sa.sensor_medium), medium)
+
+        # null (index-matched) crossings are no events for MIS and depth
+        # (reference volpath.cpp: they neither reset the last real vertex
+        # nor count as bounces)
+        null_evt = surf_evt & bs.sampled_null
+        real_evt = (hit_med | si.valid) & ~null_evt
+        prev_p = where3(real_evt, p_evt, prev_p)
+        keep = active_next & ~null_evt
+        prev_pdf = torch.where(keep, torch.where(hit_med, pdf_phase, bs.pdf),
+                               prev_pdf)
+        prev_delta = torch.where(
+            keep, torch.where(hit_med, ~med_se, bs.sampled_delta),
+            prev_delta)
+        depth = depth + (real_evt & active).to(torch.int64)
+
+        # russian roulette
+        tmax = vmax(throughput)
+        rr_prob = torch.clamp(tmax * eta * eta, max=0.95)
+        rr_active = depth >= integrator.rr_depth
+        rr_draw, state = sampler.next_1d(state, active)
+        rr_continue = rr_draw < rr_prob
+        rr_scale = torch.where(rr_active,
+                               1.0 / torch.clamp(rr_prob, min=1e-8), 1.0)
+        throughput = throughput * rr_scale
+        active = active_next & (~rr_active | rr_continue) & (tmax != 0.0)
+
+        ray = Ray(where3(active_next, o_next, ray.o),
+                  where3(active_next, d_next, ray.d), ray.time,
+                  torch.full((n,), float("inf"), device=dev))
+
+    spec = where3(valid_ray, result, Vec3(zero, zero, zero))
+    return spec, valid_ray, state
+
+
+__all__ = ["VolPathIntegrator"]

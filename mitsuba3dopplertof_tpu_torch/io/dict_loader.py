@@ -25,9 +25,9 @@ _CATEGORIES = ["integrator", "sensor", "sampler", "film", "rfilter", "shape",
 _DEFERRED = {
     "ROADMAP Queue A item 3": ("ply", "serialized", "shapegroup",
                                "instance"),
-    "ROADMAP Queue A item 9": ("checkerboard", "bitmap", "roughplastic",
-                               "conductor", "null", "envmap",
-                               "heterogeneous", "homogeneous", "gridvolume"),
+    "ROADMAP Queue A item 10": ("rayleigh", "blendphase", "tabphase",
+                                "sggx", "mesh_attribute", "volume",
+                                "constant"),
     "ROADMAP Queue A item 11": ("specfilm",),
 }
 

@@ -1,6 +1,7 @@
 """Scene assembly and compilation into device SoA tables (port of the JAX
-package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs and
-emitters the port has, ``build_si``, ``ray_intersect`` and ``ray_test``).
+package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs,
+textures, emitters, environment and media the port has, ``build_si``,
+``ray_intersect`` and ``ray_test``).
 
 The host compiles the shape graph into flat component-wise triangle /
 instance / BSDF / emitter tables (each column a (T,) tensor). Triangle slot
@@ -40,20 +41,28 @@ class SceneArrays:
            "inst_bsdf", "inst_emitter", "inst_nsign",
            "bsdf_type", "bsdf_params",       # bsdf_params: (P, B)
            "emitter_type", "emitter_params", "emitter_m",  # (P, E), (12, E)
+           "tex_type", "tex_params", "tex_h",             # tex_params: (P, X)
+           "tex_atlas_r", "tex_atlas_g", "tex_atlas_b",
            "sph_m0c", "sph_m1c", "sph_t0", "sph_t1", "sph_inst",
-           "em_tri_cdf", "bsphere_radius", "bsphere_center"]
+           "env_img_r", "env_img_g", "env_img_b", "env_pdf", "env_cdf",
+           "env_alias", "env_aprob", "env_rot", "env_rot_fwd",
+           "em_tri_cdf",
+           "med_params", "inst_int_medium", "med_grid", "med_w2g",
+           "bsphere_radius", "bsphere_center"]
     )
     META_FIELDS = [
         "n_static_tris", "n_anim_tris", "anim_ranges", "bsdf_types_present",
-        "emitter_types_present", "n_emitters", "bsdf_flags_host",
-        "n_spheres", "sphere_animated", "mesh_em_meta", "any_flip",
+        "emitter_types_present", "n_emitters", "has_environment",
+        "env_radiance", "bsdf_flags_host", "tex_types_present", "n_textures",
+        "n_spheres", "sphere_animated", "env_kind", "env_shape", "env_index",
+        "mesh_em_meta", "sensor_medium", "n_media", "any_hetero", "any_flip",
+        "max_optical_depth_hint",
     ]
     # a JAX SceneArrays with any of these set uses a feature the port
     # does not have yet
-    _UNPORTED_META = {"has_environment": "ROADMAP Queue A item 9",
-                      "n_textures": "ROADMAP Queue A item 9",
-                      "n_media": "ROADMAP Queue A item 9",
-                      "any_nmap": "ROADMAP Queue A item 9",
+    _UNPORTED_META = {"any_nmap": "ROADMAP Queue A item 10",
+                      "any_sggx": "ROADMAP Queue A item 10",
+                      "any_rayleigh": "ROADMAP Queue A item 10",
                       "spectral": "ROADMAP Queue A item 11",
                       "polarized": "ROADMAP Queue A item 11"}
 
@@ -97,6 +106,13 @@ def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
     for k, item in SceneArrays._UNPORTED_META.items():
         if get(k, None):
             raise NotImplementedError(f"scene uses '{k}' ({item})")
+    from ..textures import TEX_BITMAP, TEX_CHECKERBOARD
+    if (set(get("tex_types_present", ()) or ())
+            - {TEX_CHECKERBOARD, TEX_BITMAP}
+            or any(t is not None for t in get("tab_phase_tables", ()) or ())):
+        raise NotImplementedError(
+            "scene uses a volume or mesh_attribute texture or a tabulated "
+            "phase (ROADMAP Queue A item 10)")
     arrays = dict(arrays)
     if arrays.get("chunk_aabb") is None and get("chunk_aabb") is not None:
         arrays["chunk_aabb"] = np.asarray(get("chunk_aabb"))
@@ -148,6 +164,12 @@ class Scene:
     def sensor(self):
         return self.sensors[0]
 
+    def environment(self):
+        for e in self.emitters:
+            if e.is_environment:
+                return e
+        return None
+
     def compile(self, device=None) -> SceneArrays:
         """The scene's tables on ``device`` (default: the scene's own)."""
         dev = torch.device(device if device is not None else self.device)
@@ -158,7 +180,7 @@ class Scene:
         return self._compiled[str(dev)]
 
     def _compile_host(self):
-        from ..bsdfs import Diffuse
+        from ..bsdfs import Diffuse, P_NMAP_TEX
         from ..core.properties import Properties
         from ..emitters import E_AREA, EMITTER_AREA_MESH, N_EMITTER_PARAMS
         from ..ops.intersect_stream import chunk_aabbs
@@ -173,11 +195,47 @@ class Scene:
             if id(sh.bsdf) not in bsdf_index:
                 bsdf_index[id(sh.bsdf)] = len(bsdf_objs)
                 bsdf_objs.append(sh.bsdf)
+
+        # --- texture table + bitmap atlas --------------------------------
+        from ..textures import N_TEX_PARAMS, T_ATLAS, TEX_BITMAP
+        tex_objs: List[Any] = []
+        tex_index: Dict[int, int] = {}
+        for b in bsdf_objs:
+            t = getattr(b, "reflectance_tex", None)
+            if t is None and hasattr(b, "nested"):
+                t = getattr(b.nested, "reflectance_tex", None)
+            if t is not None:
+                if id(t) not in tex_index:
+                    tex_index[id(t)] = len(tex_objs)
+                    tex_objs.append(t)
+                b.tex_index = tex_index[id(t)]
+                if hasattr(b, "nested"):
+                    b.nested.tex_index = b.tex_index
+        tex_rows, tex_types, tex_h, atlas = [], [], [], []
+        atlas_off = 0
+        for t in tex_objs:
+            row = t.params_row()
+            if t.type_id == TEX_BITMAP:
+                img = t.image
+                row[T_ATLAS] = float(atlas_off)
+                row[T_ATLAS + 1] = float(img.shape[1])
+                tex_h.append(img.shape[0])
+                atlas.append(img.reshape(-1, 3))
+                atlas_off += img.shape[0] * img.shape[1]
+            else:
+                tex_h.append(0)
+            tex_rows.append(row)
+            tex_types.append(t.type_id)
+        atlas_np = (np.concatenate(atlas, axis=0) if atlas
+                    else np.zeros((1, 3), np.float32))
+
         if not bsdf_objs:
             bsdf_objs.append(Diffuse(Properties("diffuse")))
         bsdf_type = np.array([b.type_id for b in bsdf_objs], np.int32)
         bsdf_flags = np.array([b.flags for b in bsdf_objs], np.int32)
         bsdf_params = np.stack([b.params_row() for b in bsdf_objs]).T
+        # no row has a normal map yet (ROADMAP Queue A item 10)
+        bsdf_params[P_NMAP_TEX] = -1.0
 
         # --- emitter table ------------------------------------------------
         emitter_rows, emitter_types, emitter_mats = [], [], []
@@ -190,6 +248,8 @@ class Scene:
             row = em.params_row()
             etype = em.type_id
             m0 = np.eye(4)           # emitters without a shape (point)
+            if hasattr(em, "to_world") and em.shape is None:
+                m0 = np.asarray(em.to_world, np.float64)     # envmap
             if em.shape is not None:
                 m0 = em.shape.to_world.matrices()[0]
                 row[E_AREA] = float(np.sum(em.shape.mesh.surface_areas(m0)))
@@ -208,6 +268,71 @@ class Scene:
         emitter_type = np.array(emitter_types, np.int32)
         emitter_m = (np.stack(emitter_mats).T if emitter_mats
                      else np.zeros((12, 0)))
+
+        # --- environment ---------------------------------------------------
+        env = self.environment()
+        env_radiance = (np.asarray(env.radiance, np.float32)
+                        if env is not None else np.zeros(3, np.float32))
+        env_kind = None
+        env_index = -1
+        env_img = np.zeros((1, 1, 3), np.float32)
+        env_pdf = np.ones(1, np.float32)
+        env_cdf = np.ones(1, np.float32)
+        env_alias = np.zeros(1, np.int32)
+        env_aprob = np.ones(1, np.float32)
+        env_rot = np.eye(3).reshape(-1)
+        env_rot_fwd = np.eye(3).reshape(-1)
+        if env is not None:
+            from ..emitters import EnvmapEmitter
+            env_index = self.emitters.index(env)
+            if not isinstance(env, EnvmapEmitter):
+                raise NotImplementedError(
+                    f"environment emitter '{env.plugin_name}' is not ported "
+                    "yet (ROADMAP Queue A item 10)")
+            env_kind = "envmap"
+            env_img = env.image
+            env_pdf = env.texel_pdf.reshape(-1)
+            env_cdf = env.texel_cdf
+            env_alias = env.texel_alias
+            env_aprob = env.texel_aprob
+            R = env.to_world[:3, :3]
+            env_rot_fwd = R.reshape(-1)
+            env_rot = np.linalg.inv(R).reshape(-1)
+
+        # --- media: the sensor's first, then each shape's interior ---------
+        from ..media import M_GRID_OFF, M_MAXD, N_MED_PARAMS
+        media_objs: List[Any] = []
+        media_index: Dict[int, int] = {}
+
+        def add_medium(m):
+            if m is None:
+                return -1
+            if id(m) not in media_index:
+                media_index[id(m)] = len(media_objs)
+                media_objs.append(m)
+            return media_index[id(m)]
+
+        sensor_medium = add_medium(self.sensor.medium)
+        inst_int_medium = [add_medium(sh.interior_medium)
+                           for sh in self.shapes]
+        med_params = (np.stack([m.params_row() for m in media_objs]).T
+                      if media_objs else np.zeros((N_MED_PARAMS, 1)))
+        # flat density atlas + world->grid transforms of the grid media
+        med_grid_parts = []
+        med_w2g = np.zeros((12, max(len(media_objs), 1)))
+        grid_off = 0
+        for mi_, m in enumerate(media_objs):
+            g = getattr(m, "grid", None)
+            if g is None:
+                continue
+            data = g.scalar_grid().ravel()     # index (z*ny + y)*nx + x
+            med_params[M_GRID_OFF, mi_] = grid_off
+            med_grid_parts.append(data)
+            grid_off += data.size
+            w2g = np.linalg.inv(np.asarray(g.to_world, np.float64))
+            med_w2g[:, mi_] = w2g[:3, :4].reshape(-1)
+        med_grid = (np.concatenate(med_grid_parts)
+                    if med_grid_parts else np.zeros(1, np.float32))
 
         # --- instances & triangles -----------------------------------------
         inst_m0, inst_m1, inst_t0, inst_t1 = [], [], [], []
@@ -385,6 +510,26 @@ class Scene:
             sph_inst=np.asarray(sph_inst or [-1], i32),
             em_tri_cdf=(np.concatenate(cdf_parts) if cdf_parts
                         else np.ones(1)).astype(f32),
+            tex_type=np.asarray(tex_types or [0], i32),
+            tex_params=(np.stack(tex_rows).T if tex_rows
+                        else np.zeros((N_TEX_PARAMS, 1))).astype(f32),
+            tex_h=np.asarray(tex_h or [0], i32),
+            tex_atlas_r=atlas_np[:, 0].astype(f32),
+            tex_atlas_g=atlas_np[:, 1].astype(f32),
+            tex_atlas_b=atlas_np[:, 2].astype(f32),
+            env_img_r=env_img[..., 0].reshape(-1).astype(f32),
+            env_img_g=env_img[..., 1].reshape(-1).astype(f32),
+            env_img_b=env_img[..., 2].reshape(-1).astype(f32),
+            env_pdf=np.asarray(env_pdf, f32),
+            env_cdf=np.asarray(env_cdf, f32),
+            env_alias=np.asarray(env_alias, i32),
+            env_aprob=np.asarray(env_aprob, f32),
+            env_rot=np.asarray(env_rot, f32),
+            env_rot_fwd=np.asarray(env_rot_fwd, f32),
+            med_params=med_params.astype(f32),
+            inst_int_medium=np.asarray(inst_int_medium or [-1], i32),
+            med_grid=med_grid.astype(f32),
+            med_w2g=med_w2g.astype(f32),
             bsphere_radius=np.asarray(radius, f32),
             bsphere_center=np.asarray(center, f32),
         )
@@ -401,6 +546,23 @@ class Scene:
             sphere_animated=tuple(sphere_animated),
             mesh_em_meta=tuple(mesh_em_meta),
             any_flip=any(s < 0.0 for s in inst_nsign),
+            has_environment=env is not None,
+            env_radiance=tuple(float(x) for x in env_radiance),
+            tex_types_present=tuple(sorted(set(int(t) for t in tex_types))),
+            n_textures=len(tex_objs),
+            env_kind=env_kind,
+            env_shape=(int(env_img.shape[0]), int(env_img.shape[1])),
+            env_index=env_index,
+            sensor_medium=sensor_medium,
+            n_media=len(media_objs),
+            any_hetero=bool(med_grid_parts),
+            # the largest majorant (or sigma_t) times the scene's diameter:
+            # the volpath tracking loops' budgets (the JAX package's host
+            # code)
+            max_optical_depth_hint=float(
+                max((max(float(np.max(m.params_row()[M_MAXD:M_MAXD + 1])),
+                         float(np.max(m.params_row()[:3])))
+                     for m in media_objs), default=0.0) * 2.0 * radius),
         )
         return arrays, meta
 

@@ -58,19 +58,23 @@ class Sensor:
                                              self.shutter_open)
         self.film = None
         self.sampler = None
+        self.medium = None        # the medium the camera sits in (volpath)
         from ..films import Film
+        from ..media import Medium
         from ..samplers import Sampler
         for key, v in props.objects():
             if isinstance(v, Film):
                 self.film = v
             elif isinstance(v, Sampler):
                 self.sampler = v
+            elif isinstance(v, Medium):
+                self.medium = v
             elif not isinstance(v, Sensor):
                 # nested sensors are the batch sensor's children
                 raise NotImplementedError(
                     f"sensor child '{key}' of kind "
                     f"{getattr(v, '_category', type(v).__name__)} is not "
-                    "ported yet (media: ROADMAP Queue A item 9)")
+                    "ported yet (ROADMAP Queue A item 10)")
         if self.film is None:
             from ..films import HDRFilm
             self.film = HDRFilm(Properties("hdrfilm"))

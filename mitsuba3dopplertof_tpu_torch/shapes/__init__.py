@@ -56,9 +56,13 @@ class Shape:
         self.bsdf = None
         self.emitter = None
         self.sensor = None        # an irradiance meter bound to this shape
+        # participating media inside and outside the boundary (volpath)
+        self.interior_medium = None
+        self.exterior_medium = None
         self.mesh: Optional[Mesh] = None
         from ..bsdfs import BSDF
         from ..emitters import Emitter
+        from ..media import Medium
         from ..sensors import IrradianceMeter
         for key, v in props.objects():
             if isinstance(v, BSDF):
@@ -69,10 +73,15 @@ class Shape:
             elif isinstance(v, IrradianceMeter):
                 self.sensor = v
                 v.shape = self
+            elif isinstance(v, Medium):
+                if key == "exterior":
+                    self.exterior_medium = v
+                else:
+                    self.interior_medium = v
             else:
                 raise NotImplementedError(
                     f"shape child '{key}' of kind {v.plugin_category} is not "
-                    "ported yet (ROADMAP Queue A item 9)")
+                    "ported yet (ROADMAP Queue A item 10)")
 
 
 def make_rectangle() -> Mesh:

@@ -22,11 +22,14 @@ the order they ran; for the scenes that B1 serves, its launches split by
 the query that made them (camera, bounce and shadow rays by depth). Prints
 the card's name and power limit first. Needs a CUDA card.
 
-Scenes: ``canonical`` (scenes/canonical/scene.xml, 256x256 x 1024 spp) and
+Scenes: ``canonical`` (scenes/canonical/scene.xml, 256x256 x 1024 spp),
 the benchmark meshes of ``utils/bench_scenes.py`` at 256x256 x 256 spp:
 ``2k``, ``10k``, ``40k``, ``100k`` (animated, dopplertofpath) and
-``50k-static`` (path). The OBJ files go to the port's ignored build
-directory.
+``50k-static`` (path), and the hero scene of ``utils/hero_scene.py`` at
+its defaults, 256x256 x 64 spp: ``hero`` (dopplertofpath) and
+``hero-volpath`` (volpath, max_depth 6; its phases DeltaTracking and
+ShadowTransmittance are listed with the others). The OBJ files and the
+hero's assets go to the port's ignored build directory.
 """
 
 from __future__ import annotations
@@ -140,6 +143,13 @@ def _load(mi, name: str):
             os.path.abspath(__file__))))
         return mi.load_file(os.path.join(root, "scenes", "canonical",
                                          "scene.xml")), 1024
+    if name in ("hero", "hero-volpath"):
+        from .hero_scene import hero_scene_dict
+        integ = ({"type": "volpath", "max_depth": 6}
+                 if name == "hero-volpath" else None)
+        return mi.load_dict(hero_scene_dict(
+            cache_dir=str(BUILD_DIR / "scenes" / "hero"),
+            integrator=integ)), 64
     static = name == "50k-static"
     nu, nv = STATIC_SIZE if static else ANIMATED_SIZES[name]
     (BUILD_DIR / "scenes").mkdir(parents=True, exist_ok=True)

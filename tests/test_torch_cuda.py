@@ -741,3 +741,45 @@ def test_checkpoint_resume_on_card(cuda, tmp_path):
     resumed = sc.integrator.render(sc, seed=0, checkpoint_path=ck)
     assert resumed.device.type == "cuda"
     assert torch.equal(resumed, full)
+
+
+@pytest.mark.parametrize("integrator", [None, {"type": "volpath",
+                                               "max_depth": 4}],
+                         ids=["dopplertofpath", "volpath"])
+def test_mini_hero_on_card_matches_cpu(cuda, tmp_path, integrator):
+    """The hero scene with a 192-triangle knot and a 96-triangle sphere
+    (every plugin kept: textures, envmap, conductor, roughplastic, the
+    null-bounded smoke grid) at 16x16 x 16 spp through B2, card against
+    CPU as chip_smoke's phase 10 holds them: the lanes whose paths meet a
+    tie or graze an edge (marked on the CPU, torch_ties.TieRecorder; at
+    most 10%) left out of both films, >= 99% of values within rtol 1e-4,
+    atol 1e-4 * max|cpu|, and the mean within 1e-3."""
+    from mitsuba3dopplertof_tpu_torch.utils import hero_scene as th
+    from torch_ties import TieRecorder
+    d = str(tmp_path)
+    th._knot_obj(os.path.join(d, "knot.obj"), nu=12, nv=8)
+    th._icosphere_obj(os.path.join(d, "sphere.obj"), nu=8, nv=6)
+    kw = dict(res=16, spp=16, max_depth=4, cache_dir=d)
+    if integrator is not None:
+        kw["integrator"] = dict(integrator)
+    load = lambda dev: mt.load_dict(th.hero_scene_dict(**kw), device=dev)
+    rec = TieRecorder(16 * 16 * 16, "cpu")
+    with rec.hooked():
+        mt.render(load("cpu"), spp=16, seed=0)
+    assert int(rec.marked.sum()) <= 0.1 * rec.marked.numel()
+    imgs = []
+    with rec.dropped():
+        for dev in (cuda, "cpu"):
+            v4.reset_launch_counts()
+            imgs.append(mt.render(load(dev), spp=16, seed=0).cpu().numpy())
+            if dev is cuda:
+                forms = v4.LAUNCHES_BY_FORM
+                assert forms["closest_hit"] > 0
+                # volpath's shadow rays walk the null boundaries by
+                # closest hits
+                assert (forms["any_hit"] > 0) == (integrator is None)
+    g, c = imgs
+    scale = np.abs(c).max()
+    assert scale > 0.0 and np.isfinite(g).all()
+    assert np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale).mean() >= 0.99
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())

@@ -6,6 +6,7 @@ JAX package's render of the 2k animated-mesh scene that both files hold
 the port's renders against. Imports both packages; only the port's tests
 import it."""
 
+import contextlib
 import functools
 import os
 import subprocess
@@ -37,21 +38,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @functools.lru_cache(maxsize=None)
-def fresh_import_report():
-    """A fresh interpreter imports every module of the port; the lines it
-    prints, once per process: the default device's type, the modules of
-    jax and of the JAX package in ``sys.modules`` (a list, empty if the
-    port pulls in none), and whether loading a scene on the default device
-    raised for want of a card ("raised" also with a card)."""
+def _fresh_process():
+    """One fresh interpreter a test process (the port's import checks and
+    the hero's render without jax share it): the lines it prints."""
     code = (
-        "import sys, pkgutil, importlib, torch\n"
+        "import os, shutil, sys, pkgutil, importlib, tempfile, torch\n"
         "import mitsuba3dopplertof_tpu_torch as mi\n"
         "for m in pkgutil.walk_packages(mi.__path__, mi.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "print(mi.get_device().type)\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or "
+        "def jax_modules():\n"
+        "    return sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'mitsuba3dopplertof_tpu.')) "
-        "or m == 'mitsuba3dopplertof_tpu'))\n"
+        "or m == 'mitsuba3dopplertof_tpu')\n"
+        "print(mi.get_device().type)\n"
+        "print(jax_modules())\n"
         "if not torch.cuda.is_available():\n"
         "    try:\n"
         "        mi.load_file('scenes/canonical/scene.xml')\n"
@@ -59,11 +59,42 @@ def fresh_import_report():
         "    except RuntimeError as e:\n"
         "        print('raised' if 'CUDA' in str(e) else e)\n"
         "else:\n"
-        "    print('raised')\n")
+        "    print('raised')\n"
+        "from mitsuba3dopplertof_tpu_torch.utils.hero_scene import "
+        "hero_scene_dict\n"
+        "mi.set_device('cpu')\n"
+        "d = tempfile.mkdtemp(prefix='torch_port_hero_')\n"
+        "for integ in (None, {'type': 'volpath', 'max_depth': 6}):\n"
+        "    img = mi.render(mi.load_dict(hero_scene_dict(\n"
+        "        res=8, spp=2, cache_dir=d, integrator=integ)))\n"
+        "    print(tuple(img.shape), img.device.type, "
+        "bool(torch.isfinite(img).all()), bool((img != 0).any()))\n"
+        "print(sorted(os.listdir(d)))\n"
+        "shutil.rmtree(d)\n"
+        "print(jax_modules())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split("\n")
-    return tuple(out[:3])
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return tuple(out.stdout.split("\n"))
+
+
+def fresh_import_report():
+    """A fresh interpreter imports every module of the port; the lines it
+    prints, once per process: the default device's type, the modules of
+    jax and of the JAX package in ``sys.modules`` (a list, empty if the
+    port pulls in none), and whether loading a scene on the default device
+    raised for want of a card ("raised" also with a card)."""
+    return _fresh_process()[:3]
+
+
+def fresh_hero_report():
+    """The same interpreter then builds the hero's assets with the port in
+    a temporary directory and renders the full-size hero on the CPU
+    (asked for) at 8x8 x 2 spp with dopplertofpath and with volpath: per
+    render (shape, device type, all finite, any nonzero), the assets'
+    file names, and the modules of jax and of the JAX package in
+    ``sys.modules`` after the renders."""
+    return _fresh_process()[3:7]
 
 
 def sphere_obj(path, nu, nv):
@@ -190,3 +221,62 @@ def assert_t_prim(t_p, p_p, t_r, p_r, rtol, label):
     assert np.allclose(t_p[bad], t_r[bad], rtol=1e-3), (label, "prim")
     assert bad.mean() < 2e-3, (label, "too many ties", bad.sum())
     return int(hit.sum())
+
+
+# ---------------------------------------------------------------------------
+# The mini hero: utils/hero_scene.py with a 192-triangle knot and a
+# 96-triangle sphere, every plugin kept (tests/test_torch_hero.py and
+# tests/test_torch_hero_plugins.py)
+# ---------------------------------------------------------------------------
+
+MINI_HERO = dict(res=16, spp=4, max_depth=4)
+HERO_INTEGRATORS = {"dopplertofpath": None,
+                    "volpath": {"type": "volpath", "max_depth": 4}}
+
+
+@functools.lru_cache(maxsize=None)
+def mini_hero_dir():
+    """A directory with the mini hero's assets, once per process: the JAX
+    package's ``_knot_obj(nu=12, nv=8)`` and ``_icosphere_obj(nu=8,
+    nv=6)``, then its ``hero_assets`` (EXRs and the .vol grid as the JAX
+    package writes them)."""
+    from mitsuba3dopplertof_tpu.utils import hero_scene as jh
+    d = tempfile.mkdtemp(prefix="torch_port_hero_")
+    jh._knot_obj(os.path.join(d, "knot.obj"), nu=12, nv=8)
+    jh._icosphere_obj(os.path.join(d, "sphere.obj"), nu=8, nv=6)
+    jh.hero_assets(d)
+    return d
+
+
+def mini_hero_dict(port: bool, integrator: str, **kw):
+    """The mini hero's scene dict for the port (``port``) or the JAX
+    package, with ``integrator`` ("dopplertofpath" or "volpath")."""
+    from mitsuba3dopplertof_tpu.utils import hero_scene as jh
+    from mitsuba3dopplertof_tpu_torch.utils import hero_scene as th
+    args = dict(MINI_HERO, cache_dir=mini_hero_dir(), **kw)
+    if HERO_INTEGRATORS[integrator] is not None:
+        args["integrator"] = dict(HERO_INTEGRATORS[integrator])
+    return (th if port else jh).hero_scene_dict(**args)
+
+
+@contextlib.contextmanager
+def jax_python_obj_loader():
+    """The JAX package's OBJ loader on its pure-Python path, the one the
+    port ports (float64 coordinates), instead of its native shim (float32
+    where it builds; ROADMAP Queue C): the two packages then compile OBJ
+    meshes to the same tables bit for bit."""
+    from mitsuba3dopplertof_tpu.io import mesh_loaders as jml
+    saved = jml._OBJ_SHIM_TRIED, jml._OBJ_SHIM
+    jml._OBJ_SHIM_TRIED, jml._OBJ_SHIM = True, None
+    try:
+        yield
+    finally:
+        jml._OBJ_SHIM_TRIED, jml._OBJ_SHIM = saved
+
+
+@functools.lru_cache(maxsize=None)
+def jax_mini_hero_scene():
+    """The JAX package's compiled mini hero (dopplertofpath), once per
+    process: its tables serve the function tests."""
+    with jax_python_obj_loader():
+        return mj.load_dict(mini_hero_dict(False, "dopplertofpath")).compile()
