@@ -119,8 +119,25 @@ phase raises on failure:
      seeds 0 and 1 at 512 spp against QUALITY_HERO_ref.npz at pyramid
      levels 3-5, within 3x the Monte Carlo error of QUALITY_HERO.md's
      table plus the anchor's float16 rounding;
- 11. a JSON line with the kernels (B2 twice more: on the hero's
-     wavefronts), then the contract line {"ok": true, "device": {...}}.
+ 11. the scene dialect's surfaces and lights: the JAX package's deep-path
+     row (scripts/bench_suite.py:118-139: path, max_depth 48, a sphere
+     area light in a two-sided diffuse box) at 256x256 x 256 spp through
+     B1, and the glass scene (``glass_dict``: the 40k UV sphere of
+     utils/bench_scenes.py written as a binary PLY, in a shapegroup placed by an
+     animated instance, with roughdielectric; a roughconductor floor, a
+     thindielectric pane, a disk under mask, a cylinder under blendbsdf; a
+     sphere area light, a spot, a directional light and a constant sky)
+     at 256x256 x 256 spp
+     through B2 and B1's sphere pass, each twice with their launches, the
+     idle share of one glass strip pass by torch.profiler; the card
+     against the CPU at 16x16 x 16 spp with phase 8's criteria (marked
+     lanes left out, as in phase 10): the deep-path scene, and the glass
+     scene with the 2k sphere through B2 and through MI_STREAM_KERNEL=v3,
+     whose image must be B2's within phase 7's tolerance;
+ 12. a JSON line with the kernels (B2 twice more: on the hero's
+     wavefronts; B1's and B2's entries carry their launches in phase 11's
+     renders as ``launches_deep_path`` and ``launches_glass``), then the
+     contract line {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
 input read once, each output written once) over the card's memory rate and
@@ -2185,6 +2202,260 @@ def hero_entries(hero: dict) -> list:
     return out
 
 
+# the scene dialect (phase 11): the JAX package's deep-path benchmark row
+# (utils/bench_scenes.py) and the glass scene
+DIALECT_RES = 256
+DEEP_SPP = 256
+GLASS_SPP = 256
+GLASS_PROFILE_SPP = 16          # one strip pass of the glass scene
+
+
+def glass_dict(ply: str, spp: int, res: int, tf=None, anim_cls=None) -> dict:
+    """The glass scene, built here (not a published scene): the animated
+    mesh scene of utils/bench_scenes.py (its camera, shutter, correlated
+    sampler, floor and dopplertofpath, at max_depth 6) with its sphere
+    read from the PLY file ``ply`` into a shapegroup and placed by an
+    instance with the mesh's animated to_world; a GGX roughdielectric
+    sphere (alpha 0.1, bk7); a Beckmann roughconductor floor (Al, alpha_u
+    0.05, alpha_v 0.3); a thindielectric pane; a disk under mask (opacity
+    0.6) over diffuse; a cylinder under blendbsdf (weight 0.3) of
+    dielectric and conductor Au; a sphere area light (radius 0.3, radiance
+    20), a spot (cutoff 25 degrees), a directional light and a constant sky
+    of 0.05. ``tf``/``anim_cls``: the transform module and
+    AnimatedTransform class of the package that loads the dict (default:
+    the port's)."""
+    from mitsuba3dopplertof_tpu_torch.core import transform as port_tf
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
+        animated_mesh_scene
+    tf = tf or port_tf
+    base = animated_mesh_scene(ply, spp, res, tf, anim_cls)
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+    return {
+        "type": "scene",
+        "group": {"type": "shapegroup",
+                  "mesh": {"type": "ply", "filename": ply,
+                           "bsdf": {"type": "roughdielectric",
+                                    "distribution": "ggx", "alpha": 0.1,
+                                    "int_ior": "bk7"}}},
+        "glass": {"type": "instance", "group": {"type": "ref",
+                                                "id": "group"},
+                  "to_world": base["mesh"]["to_world"]},
+        "floor": {**base["floor"],
+                  "bsdf": {"type": "roughconductor",
+                           "distribution": "beckmann", "material": "Al",
+                           "alpha_u": 0.05, "alpha_v": 0.3}},
+        "pane": {"type": "rectangle",
+                 "to_world": tf.translate([-1.9, -0.2, 0.9])
+                 @ tf.rotate([0, 1, 0], 35) @ tf.scale([0.7, 0.9, 1]),
+                 "bsdf": {"type": "thindielectric", "int_ior": 1.5}},
+        "disk": {"type": "disk",
+                 "to_world": tf.translate([1.8, -0.5, 0.6])
+                 @ tf.rotate([0, 1, 0], -30) @ tf.scale([0.6] * 3),
+                 "bsdf": {"type": "mask", "opacity": 0.6,
+                          "bsdf": {"type": "diffuse",
+                                   "reflectance": rgb([0.8, 0.3, 0.2])}}},
+        "can": {"type": "cylinder",
+                "to_world": tf.translate([1.2, -1.15, 2.0])
+                @ tf.rotate([1, 0, 0], -90) @ tf.scale([0.4, 0.4, 1.1]),
+                "bsdf": {"type": "blendbsdf", "weight": 0.3,
+                         "a": {"type": "dielectric", "int_ior": 1.33},
+                         "b": {"type": "conductor", "material": "Au"}}},
+        "lamp": {"type": "sphere", "center": [0.0, 2.4, 0.5],
+                 "radius": 0.3,
+                 "emitter": {"type": "area", "radiance": rgb(20.0)}},
+        "spot": {"type": "spot", "cutoff_angle": 25.0,
+                 "to_world": tf.look_at([-2.5, 3.0, -2.5], [0, -0.5, 0],
+                                        [0, 1, 0]),
+                 "intensity": rgb(30.0)},
+        "sun": {"type": "directional", "direction": [0.3, -1.0, 0.5],
+                "irradiance": rgb(1.5)},
+        "sky": {"type": "constant", "radiance": rgb(0.05)},
+        "sensor": base["sensor"],
+        "integrator": {**base["integrator"], "max_depth": 6},
+    }
+
+
+def dialect_phase(mi, reset, read, card) -> dict:
+    """Phase 11: the scene dialect's surfaces and lights on the card. The
+    deep-path row (scripts/bench_suite.py:118-139, B1 with its sphere
+    light) and the glass scene (the 40k UV sphere written as a PLY, in a
+    shapegroup placed by an animated instance: B2, and B1's sphere pass),
+    each rendered twice at 256x256 x 256 spp (launches read around the
+    first, the second timed), the glass scene's idle share from one
+    profiled warm strip pass (utils/profile_render.device_breakdown); then
+    the card against the CPU at 16x16 x 16 spp with phase 8's criteria,
+    the lanes that meet a tie or graze an edge (tests/torch_ties.py) left
+    out of both films: the deep-path scene, and the glass scene with the 2k
+    sphere through B2 and through MI_STREAM_KERNEL=v3, whose image must be
+    B2's within phase 7's tolerance. Returns the launches of the two
+    renders by kernel row."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
+        ANIMATED_SIZES, deep_path_scene, write_uv_sphere_ply)
+    from mitsuba3dopplertof_tpu_torch.utils.profile_render import \
+        device_breakdown
+    res = DIALECT_RES
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dialect_")
+    try:
+        plys = {}
+        for size in ("40k", "2k"):
+            nu, nv = ANIMATED_SIZES[size]
+            plys[size] = os.path.join(tmp, f"sphere_{nu}x{nv}.ply")
+            write_uv_sphere_ply(plys[size], nu, nv)
+
+        def deep(spp, device=None, r=res):
+            return mi.load_dict(deep_path_scene(spp, r), device=device)
+
+        def glass(spp, device=None, r=res, size="40k"):
+            return mi.load_dict(glass_dict(plys[size], spp, r),
+                                device=device)
+
+        def twice(tag, scene, spp, rows):
+            reset()
+            t0 = time.perf_counter()
+            img = mi.render(scene, spp=spp, seed=0)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = read()
+            t0 = time.perf_counter()
+            img2 = mi.render(scene, spp=spp, seed=0)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            if tuple(img.shape) != (res, res, 3):
+                fail(f"{tag}: image shape {tuple(img.shape)}")
+            if not bool(torch.isfinite(img).all()) or not bool(
+                    (img != 0).any()):
+                fail(f"{tag}: image not finite or all zero")
+            for row, c in counts.items():
+                want = row in rows
+                if any((n > 0) != want for n in c.values()):
+                    fail(f"{tag}: launches {counts}")
+            print(f"render {tag} {res}x{res}x{spp}: first {first_s:.3f} s, "
+                  f"warm {warm_s:.3f} s = "
+                  f"{res * res * spp / warm_s / 1e6:.3f} Msamples/s "
+                  f"({card}); launches " + ", ".join(
+                      f"{row} {counts[row]}" for row in rows)
+                  + f"; image mean {float(img.mean()):.6g}, max |v| "
+                  f"{float(img.abs().max()):.6g}", flush=True)
+            if not torch.equal(img, img2):
+                print("note: two renders differ (max "
+                      f"{float((img - img2).abs().max()):.3g})", flush=True)
+            return counts, warm_s
+
+        launches = {}
+        launches["deep_path"], _ = twice(
+            "deep path (path, max_depth 48, rr_depth 5; sphere light)",
+            deep(DEEP_SPP), DEEP_SPP, ("B1",))
+        scene = glass(GLASS_SPP)
+        sa = scene.compile()
+        print(f"glass scene: {sa.n_static_tris} static and "
+              f"{sa.n_anim_tris} animated triangles, {sa.n_spheres} sphere; "
+              f"BSDF types {sa.bsdf_types_present}, emitter types "
+              f"{sa.emitter_types_present}", flush=True)
+        launches["glass"], warm_s = twice(
+            "glass 40k (dopplertofpath, max_depth 6)", scene, GLASS_SPP,
+            ("B2", "B1"))
+        # the idle share of one strip pass: a 256x256 x 16 spp render is
+        # one wavefront of 1,048,576 lanes, whose trace torch.profiler
+        # reads back in seconds (the whole render's takes minutes)
+        one_pass = GLASS_PROFILE_SPP
+        mi.render(scene, spp=one_pass, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.render(scene, spp=one_pass, seed=0)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        idle = device_breakdown(mi, scene, one_pass, pass_s)
+        print(f"glass 40k, one strip pass ({res}x{res}x{one_pass}, warm "
+              f"{pass_s:.3f} s): the card idles {100 * idle:.1f}% of it "
+              f"({card})", flush=True)
+        del scene, sa
+
+        # card against CPU at 16x16 x 16 spp: phase 8's criteria (>= 99%
+        # of values within rtol 1e-4, atol 1e-4 * max|cpu|, mean within
+        # 1e-3 relative) on the images with the lanes the CPU render marks
+        # left out of both films, at most 10% of the lanes marked
+        t_step = time.perf_counter()
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from torch_ties import TieRecorder
+        cases = (("deep path", lambda dv: deep(16, dv, 16), {}, "B1"),
+                 ("glass 2k", lambda dv: glass(16, dv, 16, "2k"), {}, "B2"),
+                 ("glass 2k through B5 (MI_STREAM_KERNEL=v3)",
+                  lambda dv: glass(16, dv, 16, "2k"),
+                  {"MI_STREAM_KERNEL": "v3"}, "B5"))
+        cpu, card_imgs = {}, {}
+        for label, load, env, row in cases:
+            key = label.split(" through")[0]
+            if key not in cpu:
+                rec = TieRecorder(16 * 16 * 16, "cpu")
+                with rec.hooked():
+                    whole = mi.render(load("cpu"), spp=16, seed=0).numpy()
+                with rec.dropped():
+                    kept = mi.render(load("cpu"), spp=16, seed=0).numpy()
+                cpu[key] = (rec, whole, kept)
+            rec, whole_c, kept_c = cpu[key]
+            os.environ.update(env)
+            try:
+                whole_g = mi.render(load(None), spp=16,
+                                    seed=0).cpu().numpy()
+                reset()
+                with rec.dropped():
+                    kept_g = mi.render(load(None), spp=16,
+                                       seed=0).cpu().numpy()
+                counts = read()
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            if counts[row]["closest_hit"] <= 0:
+                fail(f"{label} card vs cpu: launches {counts}")
+            card_imgs[label] = whole_g
+
+            def measure(ig, ic):
+                scale = float(np.abs(ic).max())
+                close = np.isclose(ig, ic, rtol=1e-4, atol=1e-4 * scale)
+                rel_mean = (abs(ig.mean() - ic.mean())
+                            / max(abs(ic.mean()), 1e-30))
+                return scale, close.mean(), rel_mean, float(
+                    np.abs(ig - ic).max())
+
+            sw, cw, mw, dw = measure(whole_g, whole_c)
+            sk, ck, mk, dk = measure(kept_g, kept_c)
+            n_marked = int(rec.marked.sum())
+            print(f"cuda vs cpu {label} 16x16x16: whole images "
+                  f"{cw * 100:.2f}% of values within tolerance, mean rel "
+                  f"diff {mw:.3g}, max abs diff {dw:.3g} (scale {sw:.3g}); "
+                  f"{n_marked} of 4096 lanes marked (ties, grazed edges); "
+                  f"without them {ck * 100:.2f}% within tolerance, mean "
+                  f"rel diff {mk:.3g}, max abs diff {dk:.3g} (scale "
+                  f"{sk:.3g})", flush=True)
+            if (ck < 0.99 or mk > 1e-3 or sk <= 0.0 or n_marked > 409
+                    or not np.isfinite(whole_g).all()):
+                fail(f"cuda vs cpu {label}: outside tolerance")
+        # B5 against B2 on the card, phase 7's tolerance on every value
+        b2 = card_imgs["glass 2k"]
+        b5 = card_imgs["glass 2k through B5 (MI_STREAM_KERNEL=v3)"]
+        scale = float(np.abs(b2).max())
+        n_out = int((~np.isclose(b5, b2, rtol=1e-4,
+                                 atol=1e-4 * scale)).sum())
+        print(f"glass 2k 16x16x16, B5 (v3) vs B2 on the card: {n_out} of "
+              f"{b2.size} values outside tolerance, "
+              f"{int((b5 != b2).sum())} differ at all", flush=True)
+        if n_out:
+            fail("glass 2k: B5's image is not B2's")
+        print(f"card vs cpu, scene dialect: "
+              f"{time.perf_counter() - t_step:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2967,6 +3238,9 @@ def main() -> int:
     # ---- 10. the hero scene ----------------------------------------------
     hero = hero_phase(mi, reset_counts, read_counts, card)
 
+    # ---- 11. the scene dialect's surfaces and lights ----------------------
+    dialect = dialect_phase(mi, reset_counts, read_counts, card)
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     entries = [("intersect_bruteforce", B1_SOURCE, B1_TPU, b1,
@@ -2978,6 +3252,8 @@ def main() -> int:
                  times_l[row], launches_l[row], errs_l[row])
                 for row, _, name, line in ALTERNATES]
     kernels = []
+    # the launches of phase 11's renders, under the kernels they ran
+    dialect_rows = {"intersect_bruteforce": "B1", "intersect_v4": "B2"}
     for name, src, tpu, times, launches, errs_k in entries:
         for form in ("closest_hit", "any_hit"):
             k_ms, p_ms, (b_ms, b_by) = times[form]
@@ -2987,6 +3263,10 @@ def main() -> int:
                 "launches": launches[form], "max_abs_err": errs_k[form],
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None})
+            if name in dialect_rows:
+                for scene_name, counts in dialect.items():
+                    kernels[-1][f"launches_{scene_name}"] = counts[
+                        dialect_rows[name]][form]
     kernels += hero_entries(hero)
     print(f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -107,6 +107,22 @@ def load_file(path: str, device=None, **params) -> Scene:
                           device=device)
 
 
+def load_string(text: str, device=None, **params) -> Scene:
+    """Parse and build a scene from Mitsuba XML given as a string
+    (reference xml.cpp:1437 load_string); ``params`` override its
+    ``<default>`` values."""
+    str_params = {k: str(v) for k, v in params.items()}
+    return _load_dict(xml_to_dict(text, str_params, is_file=False),
+                      device=device)
+
+
+def dict_to_xml(*args, **kwargs):
+    """The JAX package's ``mi.dict_to_xml`` (its ``io/xml_writer.py``) is
+    not ported yet."""
+    raise NotImplementedError(
+        "dict_to_xml is not ported yet (ROADMAP Queue A item 3)")
+
+
 def render(scene: Scene, spp: int = 0, seed: int = 0, sensor=None,
            integrator=None, device=None) -> _torch.Tensor:
     """Render ``scene`` with its own integrator or ``integrator``; returns
@@ -118,6 +134,6 @@ def render(scene: Scene, spp: int = 0, seed: int = 0, sensor=None,
                         device=device)
 
 
-__all__ = ["load_file", "load_dict", "render", "Scene", "set_variant",
-           "variant", "variants", "set_device", "get_device", "xml_to_dict",
-           "__version__"]
+__all__ = ["load_file", "load_string", "load_dict", "dict_to_xml", "render",
+           "Scene", "set_variant", "variant", "variants", "set_device",
+           "get_device", "xml_to_dict", "__version__"]

@@ -1,6 +1,7 @@
 """BSDF plugins and the masked type dispatch (port of the JAX package's
 ``bsdfs/__init__.py``: diffuse, with a constant or textured reflectance,
-twosided, null, conductor, plastic and roughplastic).
+twosided, null, conductor, roughconductor, dielectric, thindielectric,
+roughdielectric, plastic, roughplastic, mask and blendbsdf).
 
 Each BSDF compiles to one row of a parameter table (type id + float
 params); ``eval_pdf_sample`` evaluates every type present in the scene over
@@ -9,6 +10,13 @@ shading frame (z = normal), as in the reference. The rows are the JAX
 package's, column for column, quirks included: a plastic row writes its
 specular sampling weight over the first specular-reflectance column and
 leaves the texture column at 0 (ROADMAP Queue C).
+
+``mask`` and ``blendbsdf`` rows name two nested rows and a mix weight:
+before the type dispatch, ``remap_wrapper_rows`` sends each of their lanes
+to one nested row, chosen by the lobe sample, and rescales that sample for
+the nested BSDF (the JAX package's stochastic row remapping). The scene
+compiler adds the nested rows and, for ``mask``, one shared plain ``null``
+row.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import torch
 
 from ..core import microfacet as mf
 from ..core import warp
-from ..core.fresnel import fresnel_conductor, fresnel_dielectric, reflect
+from ..core.fresnel import (fresnel_conductor, fresnel_dielectric, reflect,
+                            refract)
 from ..core.math import INV_PI
 from ..core.properties import Properties, register_plugin
 from ..core.vec import Vec3, dot, normalize, where3
@@ -30,19 +39,33 @@ from .ior_data import CONDUCTOR_IOR, CONDUCTOR_SPECTRA
 BSDF_DIFFUSE = 0
 BSDF_NULL = 1
 BSDF_CONDUCTOR = 2
+BSDF_DIELECTRIC = 3
+BSDF_ROUGHCONDUCTOR = 4
 BSDF_PLASTIC = 5
 BSDF_ROUGHPLASTIC = 6
+BSDF_ROUGHDIELECTRIC = 7
+BSDF_THINDIELECTRIC = 8
+BSDF_BLEND = 9
+BSDF_MASK = 10
 
 N_BSDF_PARAMS = 24
 # param columns (meaning depends on type)
 P_REFL = 0            # rgb reflectance / specular reflectance
 P_TWOSIDED = 3        # 1.0 if wrapped in `twosided`
-P_ETA = 4             # relative ior (plastic); rgb eta (conductor 4:7)
-P_K = 7               # rgb k (conductor 7:10); plastic: fdr_int, nonlinear
-P_ALPHA = 10          # roughness alpha; 11: plastic specular weight
-P_SPEC_TRANS = 11     # plastic specular reflectance 11:14 (11 overwritten)
+P_ETA = 4             # relative ior (plastic, dielectrics); rgb eta
+                      # (conductors 4:7)
+P_K = 7               # rgb k (conductors 7:10); plastic: fdr_int, nonlinear
+P_ALPHA = 10          # roughness alpha (alpha_u); 11: roughconductor's
+                      # alpha_v, plastic's specular weight
+P_SPEC_TRANS = 11     # rgb transmittance 11:14 (dielectrics); plastic
+                      # specular reflectance (11 overwritten)
+P_MF_DIST = 12        # roughconductor: 1.0 = beckmann, 0.0 = ggx
 P_REFL_TEX = 14       # texture id driving the reflectance (-1 = constant)
 P_NMAP_TEX = 15       # normal-map texture id (-1 = none)
+# mask / blendbsdf rows: the nested rows and the probability of row 1
+P_NESTED0 = 4
+P_NESTED1 = 5
+P_MIX = 6
 
 # lobe flags (static per row, mirrors reference BSDFFlags)
 FLAG_SMOOTH = 1       # has a smooth (non-delta) lobe => NEE applies
@@ -215,6 +238,150 @@ class Conductor(BSDF):
         return p
 
 
+@register_plugin("bsdf", "roughconductor")
+class RoughConductor(Conductor):
+    """Microfacet conductor (reference src/bsdfs/roughconductor.cpp): GGX
+    with visible-normal sampling, or Beckmann, anisotropic through
+    ``alpha_u`` / ``alpha_v``."""
+    type_id = BSDF_ROUGHCONDUCTOR
+    flags = FLAG_SMOOTH
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        dist = props.get_string("distribution", "ggx")
+        if dist not in ("ggx", "beckmann"):
+            raise RuntimeError(
+                f"roughconductor: unknown distribution '{dist}'")
+        self.distribution = dist
+        alpha = props.get_float("alpha", 0.1)
+        self.alpha_u = props.get_float("alpha_u", alpha)
+        self.alpha_v = props.get_float("alpha_v", alpha)
+
+    def params_row(self):
+        p = super().params_row()
+        p[P_ALPHA] = self.alpha_u
+        p[P_ALPHA + 1] = self.alpha_v
+        p[P_MF_DIST] = 1.0 if self.distribution == "beckmann" else 0.0
+        return p
+
+
+@register_plugin("bsdf", "dielectric")
+class Dielectric(BSDF):
+    """Smooth dielectric (reference src/bsdfs/dielectric.cpp). As in the
+    JAX package its row leaves the twosided column at 0."""
+    type_id = BSDF_DIELECTRIC
+    flags = FLAG_DELTA
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        int_ior = _parse_ior(props, "int_ior", "bk7")
+        ext_ior = _parse_ior(props, "ext_ior", "air")
+        self.eta = int_ior / ext_ior
+        self.specular_reflectance = _get_rgb(
+            props, "specular_reflectance", [1.0, 1.0, 1.0])
+        self.specular_transmittance = _get_rgb(
+            props, "specular_transmittance", [1.0, 1.0, 1.0])
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_REFL:P_REFL + 3] = self.specular_reflectance
+        p[P_ETA] = self.eta
+        p[P_SPEC_TRANS:P_SPEC_TRANS + 3] = self.specular_transmittance
+        return p
+
+
+@register_plugin("bsdf", "thindielectric")
+class ThinDielectric(Dielectric):
+    """Thin dielectric slab (reference src/bsdfs/thindielectric.cpp)."""
+    type_id = BSDF_THINDIELECTRIC
+    flags = FLAG_DELTA | FLAG_NULL
+
+
+@register_plugin("bsdf", "roughdielectric")
+class RoughDielectric(Dielectric):
+    """GGX rough dielectric (reference src/bsdfs/roughdielectric.cpp);
+    the ``distribution`` is read and GGX used, as in the JAX package."""
+    type_id = BSDF_ROUGHDIELECTRIC
+    flags = FLAG_SMOOTH
+
+    def __init__(self, props: Properties):
+        props.mark_queried("distribution")
+        alpha = props.get_float("alpha", 0.1)
+        super().__init__(props)
+        self.alpha = alpha
+
+    def params_row(self):
+        p = super().params_row()
+        p[P_ALPHA] = self.alpha
+        return p
+
+
+def _scalar_weight(props, key, default):
+    """A mix weight from a float, an ``rgb`` dict or a texture: its
+    mean, as the JAX package takes it (a texture's per-hit value is not
+    ported: ROADMAP Queue A item 10)."""
+    w = props.get(key, default)
+    if isinstance(w, dict):
+        w = float(np.mean(w.get("value")))
+    from ..textures import Texture
+    if isinstance(w, Texture):
+        w = float(np.mean(w.mean_rgb()))
+    return float(w)
+
+
+@register_plugin("bsdf", "mask")
+class Mask(BSDF):
+    """Opacity mask (reference src/bsdfs/mask.cpp): with probability
+    ``opacity`` the nested BSDF, else a pass-through null."""
+    type_id = BSDF_MASK
+    flags = FLAG_SMOOTH | FLAG_NULL | FLAG_DELTA
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.nested_bsdf = None
+        for _, v in props.objects():
+            if isinstance(v, BSDF):
+                self.nested_bsdf = v
+        if self.nested_bsdf is None:
+            raise RuntimeError("mask: requires a nested BSDF")
+        self.opacity = _scalar_weight(props, "opacity", 0.5)
+        self.flags = self.nested_bsdf.flags | FLAG_NULL | FLAG_DELTA
+        self.nested_index = -1      # assigned at scene compile
+        self.null_index = -1
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_NESTED0] = float(self.nested_index)
+        p[P_NESTED1] = float(self.null_index)
+        p[P_MIX] = 1.0 - self.opacity    # probability of the null row
+        return p
+
+
+@register_plugin("bsdf", "blendbsdf")
+class BlendBSDF(BSDF):
+    """Blend of two BSDFs (reference src/bsdfs/blendbsdf.cpp): the second
+    with probability ``weight``, else the first."""
+    type_id = BSDF_BLEND
+    flags = FLAG_SMOOTH
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        nested = [v for _, v in props.objects() if isinstance(v, BSDF)]
+        if len(nested) != 2:
+            raise RuntimeError("blendbsdf: requires exactly two nested BSDFs")
+        self.nested = nested
+        self.weight = _scalar_weight(props, "weight", 0.5)
+        self.flags = nested[0].flags | nested[1].flags
+        self.nested_indices = (-1, -1)
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_NESTED0] = float(self.nested_indices[0])
+        p[P_NESTED1] = float(self.nested_indices[1])
+        p[P_MIX] = self.weight      # probability of row 1
+        return p
+
+
 @register_plugin("bsdf", "plastic")
 class Plastic(BSDF):
     """Smooth plastic: a delta dielectric coat over a diffuse base
@@ -351,6 +518,206 @@ def _conductor_eval_pdf_sample(param, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y):
     true_ = torch.ones_like(ok)
     return BSDFSampleResult(Vec3(z, z, z), z, wo, weight, pdf,
                             torch.ones_like(z), true_, ~true_)
+
+
+def _roughconductor_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y):
+    """Microfacet conductor (reference roughconductor.cpp): GGX with VNDF
+    sampling, or on rows that set P_MF_DIST Beckmann with D(m) cos
+    sampling (the reference's sample_visible=false: the same estimator,
+    another variance)."""
+    ax = param(P_ALPHA)
+    ay = param(P_ALPHA + 1)
+    is_beck = param(P_MF_DIST) > 0.5
+    refl = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+
+    def F_of(cos_im):
+        return Vec3(
+            fresnel_conductor(cos_im, param(P_ETA), param(P_K)),
+            fresnel_conductor(cos_im, param(P_ETA + 1), param(P_K + 1)),
+            fresnel_conductor(cos_im, param(P_ETA + 2), param(P_K + 2)))
+
+    cos_i = wi.z
+    ok = cos_i > 0.0
+
+    # NEE eval / pdf: f cos_o = D F G / (4 cos_i), the cos_o cancels
+    cos_o = wo_nee.z
+    both = ok & (cos_o > 0.0)
+    h = normalize(wi + wo_nee)
+    D = torch.where(is_beck, mf.beckmann_D(h, ax, ay), mf.ggx_D(h, ax, ay))
+    G = torch.where(is_beck, mf.beckmann_G(wi, wo_nee, h, ax, ay),
+                    mf.ggx_G(wi, wo_nee, h, ax, ay))
+    val_scalar = torch.where(
+        both, D * G / torch.clamp(4.0 * cos_i, min=1e-12), 0.0)
+    val_nee = F_of(dot(wi, h)) * refl * val_scalar
+    pdf_m_nee = torch.where(is_beck, mf.beckmann_pdf(h, ax, ay),
+                            mf.ggx_pdf_visible(wi, h, ax, ay))
+    pdf_nee = torch.where(
+        both, pdf_m_nee / torch.clamp(4.0 * torch.abs(dot(wo_nee, h)),
+                                      min=1e-12), 0.0)
+
+    # sample
+    m_g, pdf_g = mf.ggx_sample_vndf(wi, ax, ay, s2x, s2y)
+    m_b, pdf_b = mf.beckmann_sample(ax, ay, s2x, s2y)
+    m = where3(is_beck, m_b, m_g)
+    pdf_m = torch.where(is_beck, pdf_b, pdf_g)
+    wo = Vec3(2.0 * dot(wi, m) * m.x - wi.x,
+              2.0 * dot(wi, m) * m.y - wi.y,
+              2.0 * dot(wi, m) * m.z - wi.z)
+    valid = ok & (wo.z > 0.0) & (pdf_m > 0.0)
+    pdf = torch.where(valid, pdf_m / torch.clamp(
+        4.0 * torch.abs(dot(wo, m)), min=1e-12), 0.0)
+    # f cos / pdf: F G2 / G1 for GGX's visible normals; Walter's
+    # F G |wi.m| / (cos_i m.z) for Beckmann's D cos sampling
+    w_ggx = mf.ggx_G(wi, wo, m, ax, ay) / torch.clamp(
+        mf.ggx_smith_g1(wi, m, ax, ay), min=1e-12)
+    w_beck = (mf.beckmann_G(wi, wo, m, ax, ay) * torch.abs(dot(wi, m))
+              / torch.clamp(cos_i * m.z, min=1e-12))
+    wscale = torch.where(valid, torch.where(is_beck, w_beck, w_ggx), 0.0)
+    weight = F_of(dot(wi, m)) * refl * wscale
+    false_ = torch.zeros_like(ok)
+    return BSDFSampleResult(val_nee, pdf_nee, wo, weight, pdf,
+                            torch.ones_like(cos_i), false_, false_)
+
+
+def _dielectric_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y):
+    """Smooth dielectric (reference dielectric.cpp): reflect or refract by
+    Fresnel; a refraction carries the radiance factor eta_ti^2 and returns
+    the relative ior eta_it that the path loop multiplies into eta."""
+    eta = param(P_ETA)
+    F, cos_t, eta_it, eta_ti = fresnel_dielectric(wi.z, eta)
+    pick_reflect = s1 <= F
+    wo = where3(pick_reflect, reflect(wi), refract(wi, cos_t, eta_ti))
+    pdf = torch.where(pick_reflect, F, 1.0 - F)
+    refl = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    trans = Vec3(param(P_SPEC_TRANS), param(P_SPEC_TRANS + 1),
+                 param(P_SPEC_TRANS + 2))
+    weight = where3(pick_reflect, refl, trans * (eta_ti * eta_ti))
+    out_eta = torch.where(pick_reflect, torch.ones_like(F), eta_it)
+    z = torch.zeros_like(F)
+    true_ = torch.ones_like(pick_reflect)
+    return BSDFSampleResult(Vec3(z, z, z), z, wo, weight, pdf, out_eta,
+                            true_, ~true_)
+
+
+def _thindielectric_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y):
+    """Thin slab (reference thindielectric.cpp): both interfaces folded
+    in (R' = 2R / (1 + R)); the transmitted ray goes straight on."""
+    eta = param(P_ETA)
+    F, _, _, _ = fresnel_dielectric(torch.abs(wi.z), eta)
+    R = torch.clamp(2.0 * F / (1.0 + F), max=1.0)
+    T = 1.0 - R
+    pick_reflect = s1 <= R
+    wo = where3(pick_reflect, reflect(wi), -wi)
+    pdf = torch.where(pick_reflect, R, T)
+    refl = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    trans = Vec3(param(P_SPEC_TRANS), param(P_SPEC_TRANS + 1),
+                 param(P_SPEC_TRANS + 2))
+    weight = where3(pick_reflect, refl, trans)
+    z = torch.zeros_like(F)
+    true_ = torch.ones_like(pick_reflect)
+    return BSDFSampleResult(Vec3(z, z, z), z, wo, weight, pdf,
+                            torch.ones_like(F), true_, ~true_)
+
+
+def _roughdielectric_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y):
+    """Reference roughdielectric.cpp: GGX reflection and refraction with
+    visible-normal sampling, the weight by the G2 / G1 identity; the
+    directions are worked in the frame of the side wi lies on."""
+    eta = param(P_ETA)
+    alpha = param(P_ALPHA)
+    refl_c = Vec3(param(P_REFL), param(P_REFL + 1), param(P_REFL + 2))
+    trans_c = Vec3(param(P_SPEC_TRANS), param(P_SPEC_TRANS + 1),
+                   param(P_SPEC_TRANS + 2))
+
+    out_side = wi.z >= 0.0
+    sgn = torch.where(out_side, 1.0, -1.0)
+    wi_u = Vec3(wi.x, wi.y, wi.z * sgn)
+
+    # sampling
+    m_u, pdf_m = mf.ggx_sample_vndf(wi_u, alpha, alpha, s2x, s2y)
+    cos_im = dot(wi_u, m_u)
+    F, cos_t, eta_it, eta_ti = fresnel_dielectric(
+        torch.where(out_side, cos_im, -cos_im), eta)
+    pick_reflect = s1 <= F
+    wo_r = Vec3(2.0 * cos_im * m_u.x - wi_u.x,
+                2.0 * cos_im * m_u.y - wi_u.y,
+                2.0 * cos_im * m_u.z - wi_u.z)
+    # refraction through m: -eta_ti wi + (eta_ti c - cos_t') m
+    c = cos_im
+    scale = eta_ti
+    cos_tm = torch.sqrt(torch.clamp(1.0 - scale * scale * (1.0 - c * c),
+                                    min=0.0))
+    wo_t = Vec3(-scale * wi_u.x + (scale * c - cos_tm) * m_u.x,
+                -scale * wi_u.y + (scale * c - cos_tm) * m_u.y,
+                -scale * wi_u.z + (scale * c - cos_tm) * m_u.z)
+    wo_u = where3(pick_reflect, wo_r, wo_t)
+    valid = ((pick_reflect & (wo_u.z > 0.0))
+             | ((~pick_reflect) & (wo_u.z < 0.0)))
+    # G2 with the refracted wo as it is (its smith_g1 sign rule holds for
+    # dot < 0, z < 0, as in the reference microfacet.h)
+    g2 = mf.ggx_G(wi_u, wo_u, m_u, alpha, alpha)
+    g1 = mf.ggx_smith_g1(wi_u, m_u, alpha, alpha)
+    wscale = torch.where(valid, g2 / torch.clamp(g1, min=1e-12), 0.0)
+    factor = torch.where(pick_reflect, 1.0, eta_ti * eta_ti)
+    weight = where3(pick_reflect, refl_c, trans_c) * (wscale * factor)
+    # refraction Jacobian |wo.m| eta_o^2 / (eta_i wi.m + eta_o wo.m)^2
+    wo_m = dot(wo_u, m_u)
+    denom_t = (cos_im + eta_it * wo_m)
+    jac_t = torch.abs(wo_m) * (eta_it * eta_it) / torch.clamp(
+        denom_t * denom_t, min=1e-12)
+    pdf = torch.where(
+        pick_reflect,
+        F * pdf_m / torch.clamp(4.0 * torch.abs(cos_im), min=1e-12),
+        (1.0 - F) * pdf_m * jac_t)
+    pdf = torch.where(valid, pdf, 0.0)
+
+    # NEE eval / pdf: reflection
+    wo_nee_u = Vec3(wo_nee.x, wo_nee.y, wo_nee.z * sgn)
+    same_hemi = wo_nee_u.z > 0.0
+    h_r = normalize(wi_u + wo_nee_u)
+    D_r = mf.ggx_D(h_r, alpha, alpha)
+    G_r = mf.ggx_G(wi_u, wo_nee_u, h_r, alpha, alpha)
+    F_r, _, _, _ = fresnel_dielectric(
+        torch.where(out_side, dot(wi_u, h_r), -dot(wi_u, h_r)), eta)
+    refl_scalar = torch.where(same_hemi & (wi_u.z > 0.0),
+                              F_r * D_r * G_r
+                              / torch.clamp(4.0 * wi_u.z, min=1e-12), 0.0)
+    pdf_nee_r = torch.where(
+        same_hemi,
+        F_r * mf.ggx_pdf_visible(wi_u, h_r, alpha, alpha)
+        / torch.clamp(4.0 * torch.abs(dot(wo_nee_u, h_r)), min=1e-12), 0.0)
+    # transmission: m = normalize(wi + eta wo) turned upward, the Jacobian
+    # eta^2 |wo.m| / (wi.m + eta wo.m)^2
+    h_t = normalize(Vec3(wi_u.x + eta_it * wo_nee_u.x,
+                         wi_u.y + eta_it * wo_nee_u.y,
+                         wi_u.z + eta_it * wo_nee_u.z))
+    h_t = where3(h_t.z < 0.0, Vec3(-h_t.x, -h_t.y, -h_t.z), h_t)
+    wi_m = dot(wi_u, h_t)
+    wo_m = dot(wo_nee_u, h_t)
+    t_ok = (~same_hemi) & (wi_u.z > 0.0) & (wi_m > 0.0) & (wo_m < 0.0)
+    F_t, _, _, _ = fresnel_dielectric(
+        torch.where(out_side, wi_m, -wi_m), eta)
+    D_t = mf.ggx_D(h_t, alpha, alpha)
+    G_t = mf.ggx_G(wi_u, wo_nee_u, h_t, alpha, alpha)
+    denom_nee = wi_m + eta_it * wo_m
+    inv_d2 = 1.0 / torch.clamp(denom_nee * denom_nee, min=1e-12)
+    trans_scalar = torch.where(
+        t_ok,
+        (1.0 - F_t) * D_t * G_t * torch.abs(wi_m * wo_m) * inv_d2
+        / torch.clamp(wi_u.z, min=1e-12), 0.0)
+    dwh_dwo = (eta_it * eta_it) * torch.abs(wo_m) * inv_d2
+    pdf_nee_t = torch.where(
+        t_ok,
+        (1.0 - F_t) * mf.ggx_pdf_visible(wi_u, h_t, alpha, alpha) * dwh_dwo,
+        0.0)
+    val_nee = refl_c * refl_scalar + trans_c * trans_scalar
+    pdf_nee = pdf_nee_r + pdf_nee_t
+
+    false_ = torch.zeros_like(pick_reflect)
+    out_eta = torch.where(pick_reflect, torch.ones_like(F), eta_it)
+    return BSDFSampleResult(val_nee, pdf_nee,
+                            Vec3(wo_u.x, wo_u.y, wo_u.z * sgn),
+                            weight, pdf, out_eta, false_, false_)
 
 
 def _plastic_diffuse(diff: Vec3, fdr_int, nonlinear, F_i, inv_eta_2):
@@ -493,9 +860,32 @@ _DISPATCH = {
     BSDF_DIFFUSE: _diffuse_eval_pdf_sample,
     BSDF_NULL: _null_eval_pdf_sample,
     BSDF_CONDUCTOR: _conductor_eval_pdf_sample,
+    BSDF_DIELECTRIC: _dielectric_eval_pdf_sample,
+    BSDF_ROUGHCONDUCTOR: _roughconductor_eval_pdf_sample,
     BSDF_PLASTIC: _plastic_eval_pdf_sample,
     BSDF_ROUGHPLASTIC: _roughplastic_eval_pdf_sample,
+    BSDF_ROUGHDIELECTRIC: _roughdielectric_eval_pdf_sample,
+    BSDF_THINDIELECTRIC: _thindielectric_eval_pdf_sample,
 }
+
+
+def remap_wrapper_rows(sa, lane_bsdf, s1):
+    """Lanes on a mask or blendbsdf row move to one of its nested rows,
+    row 1 with probability P_MIX, and the lobe sample is rescaled for the
+    nested BSDF (the choice does not depend on wo, so the estimator stays
+    unbiased). Returns (rows, lobe samples)."""
+    lane_bsdf = lane_bsdf.long()
+    lane_type = sa.bsdf_type[lane_bsdf]
+    is_wrap = (lane_type == BSDF_MASK) | (lane_type == BSDF_BLEND)
+    mix = sa.bsdf_params[P_MIX][lane_bsdf]
+    n0 = sa.bsdf_params[P_NESTED0][lane_bsdf].to(torch.int64)
+    n1 = sa.bsdf_params[P_NESTED1][lane_bsdf].to(torch.int64)
+    pick1 = s1 < mix
+    new_bsdf = torch.where(is_wrap, torch.where(pick1, n1, n0), lane_bsdf)
+    s1_re = torch.where(pick1, s1 / torch.clamp(mix, min=1e-8),
+                        (s1 - mix) / torch.clamp(1.0 - mix, min=1e-8))
+    new_s1 = torch.where(is_wrap, torch.clamp(s1_re, 0.0, 0.999999), s1)
+    return new_bsdf, new_s1
 
 
 def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
@@ -504,15 +894,21 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
     src/render/bsdf.cpp:168): every type present in the scene runs over the
     whole wavefront and the lane's own type is selected. ``tex_refl`` /
     ``tex_mask``: the textured reflectance and the lanes it replaces the
-    row's on, for the types in ``TEXTURED_TYPES``."""
+    row's on, for the types in ``TEXTURED_TYPES``. Lanes on a mask or
+    blendbsdf row first move to a nested row (``remap_wrapper_rows``)."""
     lane_bsdf = lane_bsdf.long()
+    present = sa.bsdf_types_present
+    if BSDF_MASK in present or BSDF_BLEND in present:
+        lane_bsdf, s1 = remap_wrapper_rows(sa, lane_bsdf, s1)
     lane_type = sa.bsdf_type[lane_bsdf]
 
     def param(j):
         return sa.bsdf_params[j][lane_bsdf]
 
     result = None
-    for tid in sa.bsdf_types_present:
+    for tid in present:
+        if tid in (BSDF_MASK, BSDF_BLEND):
+            continue          # no lane carries these types after the remap
         fn = _DISPATCH.get(int(tid))
         if fn is None:
             raise NotImplementedError(
@@ -533,9 +929,13 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
 
 
 __all__ = [
-    "BSDF", "Diffuse", "TwoSided", "Null", "Conductor", "Plastic",
-    "RoughPlastic", "BSDFSampleResult", "eval_pdf_sample", "N_BSDF_PARAMS",
+    "BSDF", "Diffuse", "TwoSided", "Null", "Conductor", "RoughConductor",
+    "Dielectric", "ThinDielectric", "RoughDielectric", "Plastic",
+    "RoughPlastic", "Mask", "BlendBSDF", "BSDFSampleResult",
+    "eval_pdf_sample", "remap_wrapper_rows", "N_BSDF_PARAMS",
     "FLAG_SMOOTH", "FLAG_DELTA", "FLAG_NULL", "BSDF_DIFFUSE", "BSDF_NULL",
-    "BSDF_CONDUCTOR", "BSDF_PLASTIC", "BSDF_ROUGHPLASTIC", "P_REFL",
+    "BSDF_CONDUCTOR", "BSDF_DIELECTRIC", "BSDF_ROUGHCONDUCTOR",
+    "BSDF_PLASTIC", "BSDF_ROUGHPLASTIC", "BSDF_ROUGHDIELECTRIC",
+    "BSDF_THINDIELECTRIC", "BSDF_BLEND", "BSDF_MASK", "P_REFL",
     "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "TEXTURED_TYPES",
 ]

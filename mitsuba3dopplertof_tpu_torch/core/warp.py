@@ -1,12 +1,12 @@
-"""Sampling warps used by the diffuse BSDF (port of the JAX package's
-``core/warp.py`` component-wise variants; reference
+"""Sampling warps of the diffuse BSDF and the constant emitter (port of
+the JAX package's ``core/warp.py`` component-wise variants; reference
 include/mitsuba/core/warp.h)."""
 
 from __future__ import annotations
 
 import torch
 
-from .math import PI, safe_sqrt
+from .math import PI, TWO_PI, safe_sqrt
 from .vec import Vec3
 
 
@@ -30,4 +30,12 @@ def cosine_hemisphere_c(sx, sy) -> Vec3:
     return Vec3(px, py, safe_sqrt(1.0 - px * px - py * py))
 
 
-__all__ = ["disk_concentric_c", "cosine_hemisphere_c"]
+def uniform_sphere_c(sx, sy) -> Vec3:
+    """Uniform direction on the unit sphere."""
+    z = 1.0 - 2.0 * sy
+    r = safe_sqrt(1.0 - z * z)
+    phi = TWO_PI * sx
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+__all__ = ["disk_concentric_c", "cosine_hemisphere_c", "uniform_sphere_c"]

@@ -1,6 +1,7 @@
 """Emitter plugins and emitter sampling (port of the JAX package's
-``emitters/__init__.py``: the point emitter, the area emitter on
-rectangles and meshes, and the envmap).
+``emitters/__init__.py``: the point, spot and directional emitters, the
+area emitter on rectangles, meshes and analytic spheres, and the constant
+and envmap environments).
 
 Sampling follows the masked type dispatch over the compiled emitter table;
 the uniform emitter choice replicates reference src/render/scene.cpp:170-188
@@ -12,23 +13,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import warp
 from ..core.math import mod
 from ..core.properties import Properties, register_plugin
 from ..core.vec import (Vec3, dot, cross, normalize, where3, cmat_lerp,
-                        cmat_apply_point, cmat_apply_vector)
+                        cmat_apply_point, cmat_apply_vector,
+                        coordinate_system)
 from ..render.types import DirectionSample
 
 # type ids (the JAX package's numbering)
 EMITTER_POINT = 0         # point light (delta position)
 EMITTER_AREA_RECT = 1     # area emitter on a static rectangle
+EMITTER_CONSTANT = 2      # uniform environment
 EMITTER_AREA_MESH = 3     # area emitter on any other mesh (CDF-sampled)
+EMITTER_DIRECTIONAL = 4   # delta direction
+EMITTER_SPOT = 5          # point light with an angular falloff
 EMITTER_ENVMAP = 6        # image-based environment light
+EMITTER_AREA_SPHERE = 9   # area emitter on an analytic sphere (cone-sampled)
 
 N_EMITTER_PARAMS = 16
-E_POS = 0          # point: position
-E_INTENSITY = 3    # point: rgb intensity / area: rgb radiance
+E_POS = 0          # point, spot: position / directional: direction /
+                   # sphere: world center
+E_INTENSITY = 3    # point, spot: rgb intensity / area, constant: rgb
+                   # radiance / directional: rgb irradiance
 E_AREA = 6         # total world-space surface area
-E_RAD_TEX = 8      # radiance texture id (-1 = constant)
+E_CUTOFF = 7       # spot: cos cutoff / sphere: world radius
+E_BEAM = 8         # spot: cos beam width
+E_RAD_TEX = 8      # area: radiance texture id (-1 = constant); the column
+                   # of E_BEAM, which only spots use
+E_SPH_SLOT = 9     # sphere: the animated sphere's slot in the sphere
+                   # table (-1 = static)
+E_AXIS = 9         # spot: its axis, 9:12
 
 
 class Emitter:
@@ -83,6 +98,77 @@ class AreaEmitter(Emitter):
         return p
 
 
+@register_plugin("emitter", "constant")
+class ConstantEmitter(Emitter):
+    """reference src/emitters/constant.cpp — uniform environment
+    radiance, NEE-sampled uniformly over the sphere of directions."""
+    type_id = EMITTER_CONSTANT
+    is_environment = True
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        self.radiance = _get_rgb(props, "radiance", [1.0, 1.0, 1.0])
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_INTENSITY:E_INTENSITY + 3] = self.radiance
+        return p
+
+
+@register_plugin("emitter", "directional")
+class DirectionalEmitter(Emitter):
+    """reference src/emitters/directional.cpp — irradiance from one
+    direction, a delta light: NEE always samples it and no ray hits it."""
+    type_id = EMITTER_DIRECTIONAL
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        if props.has_property("direction"):
+            d = props.get_vector("direction")
+        else:
+            d = props.get_transform("to_world", np.eye(4))[:3, 2]
+        self.direction = d / np.linalg.norm(d)
+        self.irradiance = _get_rgb(props, "irradiance", [1.0, 1.0, 1.0])
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_POS:E_POS + 3] = self.direction
+        p[E_INTENSITY:E_INTENSITY + 3] = self.irradiance
+        return p
+
+
+@register_plugin("emitter", "spot")
+class SpotEmitter(Emitter):
+    """reference src/emitters/spot.cpp — a point light along its +z axis
+    whose intensity falls off linearly in cos from the beam width to the
+    cutoff angle (degrees; the beam defaults to 3/4 of the cutoff), a
+    delta light."""
+    type_id = EMITTER_SPOT
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        m = props.get_transform("to_world", np.eye(4))
+        self.position = m[:3, 3]
+        self.direction = m[:3, 2] / np.linalg.norm(m[:3, 2])
+        self.intensity = _get_rgb(props, "intensity", [1.0, 1.0, 1.0])
+        cutoff = props.get_float("cutoff_angle", 20.0)
+        beam = props.get_float("beam_width", cutoff * 0.75)
+        self.cos_cutoff = float(np.cos(np.radians(cutoff)))
+        self.cos_beam = float(np.cos(np.radians(beam)))
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_POS:E_POS + 3] = self.position
+        p[E_INTENSITY:E_INTENSITY + 3] = self.intensity
+        p[E_CUTOFF] = self.cos_cutoff
+        p[E_BEAM] = self.cos_beam
+        p[E_AXIS:E_AXIS + 3] = self.direction
+        return p
+
+
 def _anim_matrix(sa, ii: int, time):
     """Per-lane keyframe lerp of instance ``ii`` at ``time``."""
     t0a, t1a = sa.inst_t0[ii], sa.inst_t1[ii]
@@ -90,6 +176,31 @@ def _anim_matrix(sa, ii: int, time):
     uu = torch.clamp((time - t0a) / torch.where(span != 0.0, span, 1.0),
                      0.0, 1.0)
     return cmat_lerp(sa.inst_cmat(0, ii), sa.inst_cmat(1, ii), uu)
+
+
+def _sphere_center_radius(sa, param, time):
+    """(world center, world radius) per lane of the sphere emitters the
+    lanes name: the row's, or for an animated sphere (E_SPH_SLOT >= 0)
+    the lerped keyframe position and the length of its first column at
+    ``time`` (or the row's where ``time`` is None)."""
+    c = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
+    r = param(E_CUTOFF)
+    if time is None or int(sa.n_spheres) == 0:
+        return c, r
+    slot = param(E_SPH_SLOT).to(torch.int32)
+    s_anim = slot >= 0
+    sl = torch.clamp(slot, min=0).long()
+    t0s = sa.sph_t0[sl]
+    span_s = sa.sph_t1[sl] - t0s
+    uu = torch.clamp((time - t0s) / torch.where(span_s != 0.0, span_s, 1.0),
+                     0.0, 1.0)
+
+    def lerp_c(j):
+        return (1.0 - uu) * sa.sph_m0c[j][sl] + uu * sa.sph_m1c[j][sl]
+    c = where3(s_anim, Vec3(lerp_c(3), lerp_c(7), lerp_c(11)), c)
+    l0, l4, l8 = lerp_c(0), lerp_c(4), lerp_c(8)
+    r = torch.where(s_anim, torch.sqrt(l0 * l0 + l4 * l4 + l8 * l8), r)
+    return c, r
 
 
 def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
@@ -128,7 +239,7 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             inv_dist = torch.rsqrt(dist2)
             dist = dist2 * inv_dist
             dirn = d * inv_dist
-            w = inv_dist * inv_dist
+            spec = inten * (inv_dist * inv_dist)
             ds = DirectionSample(p, Vec3(z, z, z), dirn, dist,
                                  torch.ones((n,), device=dev), ~false_,
                                  index)
@@ -151,6 +262,68 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                               0.0)
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
+            spec = inten * w
+            ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
+        elif tid == EMITTER_DIRECTIONAL:
+            # a delta direction: the sample lies twice the scene's
+            # bounding-sphere radius away
+            dl = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
+            dirn = Vec3(-dl.x, -dl.y, -dl.z)
+            dist = torch.full((n,), 2.0, device=dev) * sa.bsphere_radius
+            spec = inten
+            ds = DirectionSample(ref_p + dirn * dist, dl, dirn, dist,
+                                 torch.ones((n,), device=dev), ~false_,
+                                 index)
+        elif tid == EMITTER_SPOT:
+            pos = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
+            axis = Vec3(param(E_AXIS), param(E_AXIS + 1), param(E_AXIS + 2))
+            d = pos - ref_p
+            dist2 = torch.clamp(dot(d, d), min=1e-20)
+            inv_dist = torch.rsqrt(dist2)
+            dist = dist2 * inv_dist
+            dirn = d * inv_dist
+            # falloff (reference spot.cpp falloff_curve): 1 inside the
+            # beam, linear in cos down to 0 at the cutoff
+            cos_a = -dot(dirn, axis)
+            cc = param(E_CUTOFF)
+            cb = param(E_BEAM)
+            fall = torch.clamp((cos_a - cc) / torch.clamp(cb - cc, min=1e-6),
+                               0.0, 1.0)
+            spec = inten * (inv_dist * inv_dist * fall)
+            ds = DirectionSample(pos, Vec3(z, z, z), dirn, dist,
+                                 torch.where(cos_a > cc, 1.0, 0.0), ~false_,
+                                 index)
+        elif tid == EMITTER_AREA_SPHERE:
+            # uniform in the cone the sphere subtends (reference
+            # src/shapes/sphere.cpp sample_direction), pdf 1 / (2 pi (1 -
+            # cos_theta_max)); an animated sphere's cone is centred at its
+            # lerped position at the ray's time
+            c, r = _sphere_center_radius(sa, param, ref_time)
+            dc = c - ref_p
+            dc2 = torch.clamp(dot(dc, dc), min=1e-20)
+            inv_dc = torch.rsqrt(dc2)
+            dc_len = dc2 * inv_dc
+            dcn = dc * inv_dc
+            outside = dc_len > r * (1.0 + 1e-4)
+            sin2_max = torch.clamp(r * r / dc2, 0.0, 1.0)
+            cos_max = torch.sqrt(torch.clamp(1.0 - sin2_max, min=0.0))
+            cos_t = (1.0 - s_y) + s_y * cos_max
+            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+            phi = 2.0 * np.pi * s_x
+            bx, by = coordinate_system(dcn)
+            dirn = (bx * (torch.cos(phi) * sin_t)
+                    + by * (torch.sin(phi) * sin_t) + dcn * cos_t)
+            # distance to the near side of the sphere along dirn
+            under = r * r - dc2 * (1.0 - cos_t * cos_t)
+            dist = dc_len * cos_t - torch.sqrt(torch.clamp(under, min=0.0))
+            dist = torch.clamp(dist, min=1e-6)
+            p = ref_p + dirn * dist
+            nrm = (p - c) * (1.0 / torch.clamp(r, min=1e-9))
+            pdf = torch.where(outside, 1.0 / torch.clamp(
+                2.0 * np.pi * (1.0 - cos_max), min=1e-12), 0.0)
+            w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
+                            0.0)
+            spec = inten * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
         elif tid == EMITTER_AREA_MESH:
             # triangle-CDF area sampling over the host mesh (reference
@@ -207,16 +380,23 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             dirn = d * (1.0 / dist)
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
+            spec = inten * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
+        elif tid == EMITTER_CONSTANT:
+            dirn = warp.uniform_sphere_c(s_x, s_y)
+            dist = torch.full((n,), 2.0, device=dev) * sa.bsphere_radius
+            spec = inten * (4.0 * np.pi)
+            ds = DirectionSample(ref_p + dirn * dist, -dirn, dirn, dist,
+                                 torch.full((n,), 1.0 / (4.0 * np.pi),
+                                            device=dev), false_, index)
         elif tid == EMITTER_ENVMAP:
-            ds, w = envmap_sample_direction(sa, ref_p, s_x, s_y)
+            # its spec is already the radiance over the pdf
+            ds, spec = envmap_sample_direction(sa, ref_p, s_x, s_y)
             ds = ds._replace(emitter=index)
         else:
             raise NotImplementedError(
                 f"emitter type {tid} is not ported yet "
-                "(ROADMAP Queue A items 5 and 10)")
-        # the envmap's w is already its radiance over its pdf
-        spec = w if tid == EMITTER_ENVMAP else inten * w
+                "(ROADMAP Queue A item 10)")
         if best is None:
             best = (ds, spec)
         else:
@@ -244,18 +424,35 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
     lane_type = sa.emitter_type[idx]
     pdf = torch.zeros_like(ds.dist)
     for tid in sa.emitter_types_present:
-        if tid == EMITTER_POINT:
-            # a delta light: a BSDF-sampled direction never reaches it
+        if tid in (EMITTER_POINT, EMITTER_SPOT, EMITTER_DIRECTIONAL):
+            # delta lights: a BSDF-sampled direction never reaches them
             pdf = torch.where(lane_type == tid, 0.0, pdf)
             continue
         if tid == EMITTER_ENVMAP:
             pdf = torch.where(lane_type == tid,
                               envmap_pdf_direction(sa, ds.d), pdf)
             continue
+        if tid == EMITTER_CONSTANT:
+            pdf = torch.where(lane_type == tid, 1.0 / (4.0 * np.pi), pdf)
+            continue
+        if tid == EMITTER_AREA_SPHERE:
+            # the cone's pdf, seen from the reference point
+            c, r = _sphere_center_radius(
+                sa, lambda j: sa.emitter_params[j][idx], time)
+            ref = ds.p - ds.d * ds.dist
+            dcx, dcy, dcz = c.x - ref.x, c.y - ref.y, c.z - ref.z
+            dc2 = torch.clamp(dcx * dcx + dcy * dcy + dcz * dcz, min=1e-20)
+            sin2_max = torch.clamp(r * r / dc2, 0.0, 1.0)
+            cos_max = torch.sqrt(torch.clamp(1.0 - sin2_max, min=0.0))
+            outside = dc2 > (r * r) * (1.0 + 1e-4)
+            p = torch.where(outside, 1.0 / torch.clamp(
+                2.0 * np.pi * (1.0 - cos_max), min=1e-12), 0.0)
+            pdf = torch.where(lane_type == tid, p, pdf)
+            continue
         if tid not in (EMITTER_AREA_RECT, EMITTER_AREA_MESH):
             raise NotImplementedError(
                 f"emitter type {tid} is not ported yet "
-                "(ROADMAP Queue A items 5 and 10)")
+                "(ROADMAP Queue A item 10)")
         area = sa.emitter_params[E_AREA][idx]
         dist2 = ds.dist * ds.dist
         cos_theta = -dot(ds.d, ds.n)
@@ -445,6 +642,23 @@ def envmap_sample_direction(sa, ref_p: Vec3, s_x, s_y):
     return ds, L * w
 
 
+def environment_eval(sa, d: Vec3) -> Vec3:
+    """Radiance of the scene's environment (envmap or constant) in world
+    directions ``d``: what a ray that escapes sees."""
+    if sa.env_kind == "envmap":
+        return envmap_eval(sa, d)
+    r, g, b = sa.env_radiance
+    return Vec3.full(d.x.shape[0], r, g, b, device=d.x.device)
+
+
+def environment_pdf_direction(sa, d: Vec3):
+    """Solid-angle pdf of the environment's own NEE sampling drawing
+    ``d`` (before the emitter choice)."""
+    if sa.env_kind == "envmap":
+        return envmap_pdf_direction(sa, d)
+    return torch.full_like(d.x, 1.0 / (4.0 * np.pi))
+
+
 def envmap_pdf_direction(sa, d: Vec3):
     """Solid-angle pdf of ``envmap_sample_direction`` drawing ``d``."""
     flat, v = _env_texel(sa, d)
@@ -456,9 +670,13 @@ def envmap_pdf_direction(sa, d: Vec3):
 
 
 __all__ = [
-    "Emitter", "PointEmitter", "AreaEmitter", "EnvmapEmitter",
+    "Emitter", "PointEmitter", "AreaEmitter", "ConstantEmitter",
+    "DirectionalEmitter", "SpotEmitter", "EnvmapEmitter",
     "sample_direction", "pdf_direction", "eval_emitter_hit", "envmap_eval",
+    "environment_eval", "environment_pdf_direction",
     "envmap_sample_direction", "envmap_pdf_direction", "build_alias",
     "N_EMITTER_PARAMS", "EMITTER_POINT", "EMITTER_AREA_RECT",
-    "EMITTER_AREA_MESH", "EMITTER_ENVMAP", "E_POS", "E_INTENSITY", "E_AREA",
+    "EMITTER_CONSTANT", "EMITTER_AREA_MESH", "EMITTER_DIRECTIONAL",
+    "EMITTER_SPOT", "EMITTER_ENVMAP", "EMITTER_AREA_SPHERE", "E_POS",
+    "E_INTENSITY", "E_AREA", "E_CUTOFF", "E_BEAM", "E_SPH_SLOT",
 ]

@@ -440,7 +440,7 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
             if has_env:
                 # rays that escape see the environment
                 miss_env = (~si.valid) & active
-                em_val = where3(miss_env, em_mod.envmap_eval(sa, ray.d),
+                em_val = where3(miss_env, em_mod.environment_eval(sa, ray.d),
                                 em_val)
                 emit_mask = active & ((lane_emitter >= 0) | miss_env)
             else:
@@ -457,7 +457,7 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
             if has_env:
                 # NEE samples the environment too: escaped rays are
                 # MIS-weighted against it
-                env_pdf = em_mod.envmap_pdf_direction(sa, ray.d) * (
+                env_pdf = em_mod.environment_pdf_direction(sa, ray.d) * (
                     1.0 / max(sa.n_emitters, 1))
                 em_pdf = torch.where(miss_env & ~prev_bsdf_delta, env_pdf,
                                      em_pdf)

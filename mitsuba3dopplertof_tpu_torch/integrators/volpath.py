@@ -317,7 +317,7 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
             miss_env = (~si.valid) & active & ~hit_med
             mis_emitter = lane_emitter
             if has_env:
-                em_val = where3(miss_env, em_mod.envmap_eval(sa, ray.d),
+                em_val = where3(miss_env, em_mod.environment_eval(sa, ray.d),
                                 em_val)
                 emit_mask = (lane_emitter >= 0) | miss_env
                 # escaped lanes carry the environment's index, so that

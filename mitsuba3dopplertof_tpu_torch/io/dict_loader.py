@@ -23,11 +23,9 @@ _CATEGORIES = ["integrator", "sensor", "sampler", "film", "rfilter", "shape",
 # plugins of the JAX package that the port does not have yet, by the
 # ROADMAP.md Queue A item that ports them
 _DEFERRED = {
-    "ROADMAP Queue A item 3": ("ply", "serialized", "shapegroup",
-                               "instance"),
     "ROADMAP Queue A item 10": ("rayleigh", "blendphase", "tabphase",
                                 "sggx", "mesh_attribute", "volume",
-                                "constant"),
+                                "projector", "directionalarea"),
     "ROADMAP Queue A item 11": ("specfilm",),
 }
 
@@ -86,9 +84,10 @@ class _Builder:
 def load_dict(d: Dict[str, Any], device=None):
     """Build a Scene (for {'type':'scene', ...}) or a single plugin object.
     ``device`` is where the scene's tables live once compiled (default:
-    the package device, see ``set_device``). Shape groups and instances
-    are not ported yet (ROADMAP Queue A item 3)."""
-    from ..shapes import Shape
+    the package device, see ``set_device``). A top-level shapegroup is not
+    rendered; each instance expands into one shape per child of its
+    group."""
+    from ..shapes import Instance, Shape, ShapeGroup
     from ..emitters import Emitter
     from ..sensors import Sensor
     from ..integrators import Integrator
@@ -109,7 +108,15 @@ def load_dict(d: Dict[str, Any], device=None):
             continue
         obj = builder.build(dict(v), key_hint=key)
 
-        if isinstance(obj, Shape):
+        if isinstance(obj, Instance):
+            for child in obj.group.children:
+                inst = _expanded_instance(obj, child)
+                shapes.append(inst)
+                if inst.emitter is not None:
+                    emitters.append(inst.emitter)
+        elif isinstance(obj, ShapeGroup):
+            continue
+        elif isinstance(obj, Shape):
             shapes.append(obj)
             if obj.emitter is not None:
                 emitters.append(obj.emitter)
@@ -125,6 +132,29 @@ def load_dict(d: Dict[str, Any], device=None):
     if not sensors:
         raise RuntimeError("Scene contains no sensor")
     return Scene(shapes, emitters, sensors, integrator, device=device)
+
+
+def _expanded_instance(inst, child):
+    """A shallow copy of a shapegroup child placed by the instance: its
+    to_world is the instance's (possibly animated) transform composed with
+    the child's own at its first keyframe (reference
+    src/shapes/instance.cpp and shapegroup nesting). The copy shares the
+    child's mesh and BSDF, and gets its own copy of the child's emitter."""
+    import copy
+    from ..core.transform import AnimatedTransform
+    new = copy.copy(child)
+    cm = (child.to_world.static_matrix if not child.to_world.animated
+          else child.to_world.matrices()[0])
+    it = inst.to_world
+    if it.animated:
+        new.to_world = AnimatedTransform(
+            keyframes=[(t, m @ cm) for t, m in it.keyframes])
+    else:
+        new.to_world = AnimatedTransform(static_matrix=it.static_matrix @ cm)
+    if new.emitter is not None:
+        new.emitter = copy.copy(new.emitter)
+        new.emitter.shape = new
+    return new
 
 
 __all__ = ["load_dict"]

@@ -1,6 +1,8 @@
 """Scene assembly and compilation into device SoA tables (port of the JAX
-package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs,
-textures, emitters, environment and media the port has, ``build_si``,
+package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs
+(with the wrappers' nested rows and the shared null row of ``mask``),
+textures, emitters (area lights on spheres included), the constant and
+envmap environments and media the port has, ``build_si``,
 ``ray_intersect`` and ``ray_test``).
 
 The host compiles the shape graph into flat component-wise triangle /
@@ -180,21 +182,42 @@ class Scene:
         return self._compiled[str(dev)]
 
     def _compile_host(self):
-        from ..bsdfs import Diffuse, P_NMAP_TEX
+        from ..bsdfs import BlendBSDF, Diffuse, Mask, Null, P_NMAP_TEX
         from ..core.properties import Properties
-        from ..emitters import E_AREA, EMITTER_AREA_MESH, N_EMITTER_PARAMS
+        from ..emitters import (E_AREA, E_CUTOFF, E_POS, E_SPH_SLOT,
+                                EMITTER_AREA_MESH, EMITTER_AREA_SPHERE,
+                                N_EMITTER_PARAMS)
         from ..ops.intersect_stream import chunk_aabbs
         from ..shapes import RectangleShape
 
         # --- BSDF table (deduplicated by identity) -----------------------
         bsdf_objs: List[Any] = []
         bsdf_index: Dict[int, int] = {}
+
+        def add_bsdf(b):
+            if id(b) not in bsdf_index:
+                bsdf_index[id(b)] = len(bsdf_objs)
+                bsdf_objs.append(b)
+            return bsdf_index[id(b)]
+
         for sh in self.shapes:
             if sh.bsdf is None:
                 sh.bsdf = Diffuse(Properties("diffuse"))
-            if id(sh.bsdf) not in bsdf_index:
-                bsdf_index[id(sh.bsdf)] = len(bsdf_objs)
-                bsdf_objs.append(sh.bsdf)
+            add_bsdf(sh.bsdf)
+        # wrappers: their nested rows join the table, and every mask
+        # shares one plain null row (the JAX package's order: the shapes'
+        # rows, then each wrapper's nested rows; nested wrappers are not
+        # expanded again)
+        null_row = None
+        for b in list(bsdf_objs):
+            if isinstance(b, Mask):
+                b.nested_index = add_bsdf(b.nested_bsdf)
+                if null_row is None:
+                    null_row = add_bsdf(Null(Properties("null")))
+                b.null_index = null_row
+            elif isinstance(b, BlendBSDF):
+                b.nested_indices = (add_bsdf(b.nested[0]),
+                                    add_bsdf(b.nested[1]))
 
         # --- texture table + bitmap atlas --------------------------------
         from ..textures import N_TEX_PARAMS, T_ATLAS, TEX_BITMAP
@@ -241,16 +264,28 @@ class Scene:
         emitter_rows, emitter_types, emitter_mats = [], [], []
         mesh_emitter_shapes = {}     # emitter idx -> shape (CDF built later)
         for ei, em in enumerate(self.emitters):
-            if getattr(em.shape, "is_analytic_sphere", False):
-                raise NotImplementedError(
-                    "area emitters on spheres are not ported yet "
-                    "(ROADMAP Queue A item 5)")
             row = em.params_row()
             etype = em.type_id
             m0 = np.eye(4)           # emitters without a shape (point)
             if hasattr(em, "to_world") and em.shape is None:
                 m0 = np.asarray(em.to_world, np.float64)     # envmap
-            if em.shape is not None:
+            if em.shape is not None and getattr(
+                    em.shape, "is_analytic_sphere", False):
+                # cone-sampled (sphere.cpp): the world center and radius;
+                # an animated sphere names its sphere-table slot so that
+                # its cone follows the keyframe lerp at each lane's time
+                m0 = em.shape.to_world.matrices()[0]
+                etype = EMITTER_AREA_SPHERE
+                r_w = float(np.linalg.norm(m0[:3, 0]))
+                row[E_POS:E_POS + 3] = m0[:3, 3]
+                row[E_CUTOFF] = r_w
+                row[E_AREA] = 4.0 * np.pi * r_w * r_w
+                slot = sum(1 for s_ in
+                           self.shapes[:self.shapes.index(em.shape)]
+                           if getattr(s_, "is_analytic_sphere", False))
+                row[E_SPH_SLOT] = (float(slot) if em.shape.to_world.animated
+                                   else -1.0)
+            elif em.shape is not None:
                 m0 = em.shape.to_world.matrices()[0]
                 row[E_AREA] = float(np.sum(em.shape.mesh.surface_areas(m0)))
                 if (not isinstance(em.shape, RectangleShape)
@@ -285,11 +320,11 @@ class Scene:
         if env is not None:
             from ..emitters import EnvmapEmitter
             env_index = self.emitters.index(env)
-            if not isinstance(env, EnvmapEmitter):
-                raise NotImplementedError(
-                    f"environment emitter '{env.plugin_name}' is not ported "
-                    "yet (ROADMAP Queue A item 10)")
-            env_kind = "envmap"
+            # the constant environment needs no tables: its radiance is
+            # env_radiance
+            env_kind = ("envmap" if isinstance(env, EnvmapEmitter)
+                        else "constant")
+        if env_kind == "envmap":
             env_img = env.image
             env_pdf = env.texel_pdf.reshape(-1)
             env_cdf = env.texel_cdf

@@ -1,14 +1,21 @@
 """Shape plugins (port of the JAX package's ``shapes/__init__.py``: the
-triangle-mesh base, rectangle, cube, OBJ meshes and the analytic sphere).
+triangle-mesh base, rectangle, cube, disk, cylinder, OBJ, PLY and
+``.serialized`` meshes, the analytic sphere, shapegroup, instance and
+merge).
 
 Every shape is an indexed triangle mesh in object space (or an analytic
 unit sphere) plus a possibly animated to_world transform, so static and
-animated shapes compile into the same tables. Reference plugins:
-src/shapes/{rectangle,cube,obj,sphere}.cpp.
+animated shapes compile into the same tables. The disk and the cylinder
+are tessellated as the JAX package tessellates them. An instance expands
+at load time into one shape per child of its group, with the composed
+transform (``io/dict_loader.py``). Reference plugins:
+src/shapes/{rectangle,cube,disk,cylinder,obj,ply,serialized,sphere,
+shapegroup,instance,merge}.cpp.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -22,13 +29,18 @@ class Mesh:
 
     def __init__(self, vertices: np.ndarray, faces: np.ndarray,
                  normals: Optional[np.ndarray] = None,
-                 uvs: Optional[np.ndarray] = None):
+                 uvs: Optional[np.ndarray] = None,
+                 attributes: Optional[dict] = None):
         self.vertices = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
         self.faces = np.asarray(faces, dtype=np.int64).reshape(-1, 3)
         self.normals = (np.asarray(normals, dtype=np.float64).reshape(-1, 3)
                         if normals is not None else None)
         self.uvs = (np.asarray(uvs, dtype=np.float64).reshape(-1, 2)
                     if uvs is not None else None)
+        # named per-vertex attributes, e.g. {"vertex_color": (V, 3)}
+        # (reference mesh.cpp add_attribute); no texture reads them yet
+        # (mesh_attribute, ROADMAP Queue A item 10)
+        self.attributes = dict(attributes or {})
 
     @property
     def n_triangles(self) -> int:
@@ -78,6 +90,8 @@ class Shape:
                     self.exterior_medium = v
                 else:
                     self.interior_medium = v
+            elif isinstance(v, Shape):
+                continue          # children of a shapegroup or a merge
             else:
                 raise NotImplementedError(
                     f"shape child '{key}' of kind {v.plugin_category} is not "
@@ -119,6 +133,39 @@ def make_cube() -> Mesh:
     return Mesh(v, f, n, uv)
 
 
+def make_disk(subdiv: int = 64) -> Mesh:
+    """Unit disk in the XY plane, normal +Z, as a fan of ``subdiv``
+    triangles (reference src/shapes/disk.cpp)."""
+    ang = np.linspace(0, 2 * math.pi, subdiv, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], axis=-1)
+    verts = np.concatenate([[[0.0, 0.0, 0.0]], rim], axis=0)
+    faces = [[0, 1 + i, 1 + (i + 1) % subdiv] for i in range(subdiv)]
+    n = np.tile([[0.0, 0.0, 1.0]], (len(verts), 1))
+    uv = 0.5 * (verts[:, :2] + 1.0)
+    return Mesh(verts, np.asarray(faces), n, uv)
+
+
+def make_cylinder(subdiv: int = 64) -> Mesh:
+    """Open cylinder along +Z, radius 1, z in [0, 1], ``2 subdiv``
+    triangles with radial normals (reference src/shapes/cylinder.cpp)."""
+    ang = np.linspace(0, 2 * math.pi, subdiv, endpoint=False)
+    c, s = np.cos(ang), np.sin(ang)
+    bot = np.stack([c, s, np.zeros_like(ang)], axis=-1)
+    top = np.stack([c, s, np.ones_like(ang)], axis=-1)
+    verts = np.concatenate([bot, top], axis=0)
+    normals = np.concatenate([np.stack([c, s, np.zeros_like(ang)],
+                                       axis=-1)] * 2, axis=0)
+    faces = []
+    for i in range(subdiv):
+        j = (i + 1) % subdiv
+        faces.append([i, j, subdiv + j])
+        faces.append([i, subdiv + j, subdiv + i])
+    uv = np.concatenate([
+        np.stack([ang / (2 * math.pi), np.zeros_like(ang)], axis=-1),
+        np.stack([ang / (2 * math.pi), np.ones_like(ang)], axis=-1)], axis=0)
+    return Mesh(verts, np.asarray(faces), normals, uv)
+
+
 @register_plugin("shape", "rectangle")
 class RectangleShape(Shape):
     def __init__(self, props: Properties):
@@ -131,6 +178,20 @@ class CubeShape(Shape):
     def __init__(self, props: Properties):
         super().__init__(props)
         self.mesh = make_cube()
+
+
+@register_plugin("shape", "disk")
+class DiskShape(Shape):
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.mesh = make_disk()
+
+
+@register_plugin("shape", "cylinder")
+class CylinderShape(Shape):
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.mesh = make_cylinder()
 
 
 @register_plugin("shape", "obj")
@@ -170,5 +231,102 @@ class SphereShape(Shape):
                 static_matrix=base.static_matrix @ local)
 
 
-__all__ = ["Shape", "Mesh", "make_rectangle", "make_cube", "RectangleShape",
-           "CubeShape", "ObjShape", "SphereShape"]
+@register_plugin("shape", "ply")
+class PlyShape(Shape):
+    """Triangle mesh from a PLY file (reference src/shapes/ply.cpp)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..core.fresolver import resolve_filename
+        from ..io.mesh_loaders import load_ply
+        filename = resolve_filename(props.get_string("filename"))
+        props.mark_queried("face_normals")
+        self.mesh = load_ply(filename)
+
+
+@register_plugin("shape", "serialized")
+class SerializedShape(Shape):
+    """Shape ``shape_index`` of a Mitsuba ``.serialized`` file (reference
+    src/shapes/serialized.cpp)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..core.fresolver import resolve_filename
+        from ..io.mesh_loaders import load_serialized
+        filename = resolve_filename(props.get_string("filename"))
+        shape_index = props.get_int("shape_index", 0)
+        props.mark_queried("face_normals")
+        self.mesh = load_serialized(filename, shape_index)
+
+
+@register_plugin("shape", "shapegroup")
+class ShapeGroup(Shape):
+    """Shapes for instancing (reference src/shapes/shapegroup.cpp): the
+    group itself is never rendered; each instance of it expands into its
+    children at load time."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.children = [v for _, v in props.objects()
+                         if isinstance(v, Shape)]
+
+
+@register_plugin("shape", "instance")
+class Instance(Shape):
+    """A shapegroup placed by a possibly animated transform (reference
+    src/shapes/instance.cpp, with the fork's animated transform,
+    instance.cpp:62-63, 155-250)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.group = None
+        for _, v in props.objects():
+            if isinstance(v, ShapeGroup):
+                self.group = v
+        if self.group is None:
+            raise RuntimeError("instance: requires a shapegroup child/ref")
+
+
+@register_plugin("shape", "merge")
+class MergeShape(Shape):
+    """Child meshes concatenated into one triangle soup in world space at
+    each child's first keyframe (reference src/shapes/merge.cpp). As in the
+    JAX package the merged mesh keeps no normals or uvs, and takes the
+    first child's BSDF unless it has its own."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        children = [v for _, v in props.objects() if isinstance(v, Shape)]
+        if not children:
+            raise RuntimeError("merge: requires child shapes")
+        verts, faces, base = [], [], 0
+        for ch in children:
+            if ch.mesh is None:
+                raise RuntimeError("merge: analytic children not supported")
+            m0 = (ch.to_world.static_matrix if not ch.to_world.animated
+                  else ch.to_world.matrices()[0])
+            v = ch.mesh.vertices @ m0[:3, :3].T + m0[:3, 3]
+            verts.append(v)
+            faces.append(ch.mesh.faces + base)
+            base += v.shape[0]
+        self.mesh = Mesh(np.concatenate(verts), np.concatenate(faces))
+        if children[0].bsdf is not None and self.bsdf is None:
+            self.bsdf = children[0].bsdf
+
+
+@register_plugin("shape", "blender")
+class BlenderShape(Shape):
+    """reference src/shapes/blender.cpp imports in-memory Blender meshes:
+    only meaningful inside a Blender process, so it raises, as in the JAX
+    package."""
+
+    def __init__(self, props: Properties):
+        raise RuntimeError(
+            "shape type 'blender' imports in-memory Blender meshes and is "
+            "only available inside Blender; export to PLY/OBJ instead")
+
+
+__all__ = ["Shape", "Mesh", "make_rectangle", "make_cube", "make_disk",
+           "make_cylinder", "RectangleShape", "CubeShape", "DiskShape",
+           "CylinderShape", "ObjShape", "PlyShape", "SerializedShape",
+           "SphereShape", "ShapeGroup", "Instance", "MergeShape"]

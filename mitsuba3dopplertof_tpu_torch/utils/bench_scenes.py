@@ -1,9 +1,10 @@
-"""The large-scene benchmark scenes of the JAX package's
-``scripts/bench_suite.py`` as scene dicts for ``load_dict``: an animated
-UV-sphere mesh (2k, 10k, 40k or 100k triangles) under a point light,
-rendered with ``dopplertofpath`` and a correlated sampler, and a static
-50k-triangle mesh rendered with ``path``. The OBJ writer is the port's own
-copy of ``uvsphere_obj``.
+"""The benchmark scenes of the JAX package's ``scripts/bench_suite.py`` as
+scene dicts for ``load_dict``: an animated UV-sphere mesh (2k, 10k, 40k or
+100k triangles) under a point light, rendered with ``dopplertofpath`` and
+a correlated sampler; a static 50k-triangle mesh rendered with ``path``;
+and the deep-path row, a sphere light in a diffuse box. The OBJ writer is
+the port's own copy of ``uvsphere_obj``; the PLY writer writes the same
+sphere.
 
     path = "sphere_144x140.obj"
     write_uv_sphere_obj(path, 144, 140)        # 40,320 triangles
@@ -23,28 +24,54 @@ ANIMATED_SIZES = {"2k": (32, 32), "10k": (72, 70), "40k": (144, 140),
 STATIC_SIZE = (160, 158)          # the static 50k scene
 
 
-def write_uv_sphere_obj(path: str, nu: int, nv: int) -> int:
-    """Write a unit UV sphere of ``2 nu nv`` triangles as an OBJ file
-    (vertices to 6 decimals; the pole rows give zero-area triangles).
-    Returns the triangle count."""
-    lines = []
-    for j in range(nv + 1):
-        for i in range(nu):
-            th, ph = np.pi * j / nv, 2 * np.pi * i / nu
-            lines.append(f"v {np.sin(th)*np.cos(ph):.6f} {np.cos(th):.6f} "
-                         f"{np.sin(th)*np.sin(ph):.6f}")
+def uv_sphere_grid(nu: int, nv: int) -> tuple[np.ndarray, np.ndarray]:
+    """The unit UV sphere's ``(nv + 1) nu`` vertices (float64, row ``j``
+    at polar angle ``pi j / nv``) and its ``2 nu nv`` triangles (0-based;
+    the pole rows give zero-area triangles)."""
+    j, i = np.meshgrid(np.arange(nv + 1), np.arange(nu), indexing="ij")
+    th, ph = np.pi * j / nv, 2 * np.pi * i / nu
+    verts = np.stack([np.sin(th) * np.cos(ph), np.cos(th),
+                      np.sin(th) * np.sin(ph)], -1).reshape(-1, 3)
+    j, i = np.meshgrid(np.arange(nv), np.arange(nu), indexing="ij")
+    a, b = j * nu + i, j * nu + (i + 1) % nu
+    c, d = (j + 1) * nu + (i + 1) % nu, (j + 1) * nu + i
+    tris = np.stack([np.stack([a, b, c], -1), np.stack([a, c, d], -1)],
+                    2).reshape(-1, 3)
+    return verts, tris
 
-    def vid(i, j):
-        return j * nu + (i % nu) + 1
-    for j in range(nv):
-        for i in range(nu):
-            a, b, c, d = vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), \
-                vid(i, j + 1)
-            lines.append(f"f {a} {b} {c}")
-            lines.append(f"f {a} {c} {d}")
+
+def write_uv_sphere_obj(path: str, nu: int, nv: int) -> int:
+    """Write the unit UV sphere of ``2 nu nv`` triangles as an OBJ file
+    (vertices to 6 decimals). Returns the triangle count."""
+    verts, tris = uv_sphere_grid(nu, nv)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"f {a} {b} {c}" for a, b, c in tris + 1]
     with open(path, "w") as f:
         f.write("\n".join(lines))
-    return 2 * nu * nv
+    return len(tris)
+
+
+def write_uv_sphere_ply(path: str, nu: int, nv: int) -> int:
+    """Write the unit UV sphere of ``2 nu nv`` triangles as a binary
+    little-endian PLY file: float32 positions and normals (the normal of a
+    unit sphere's vertex is its position), uchar/int face lists. Returns
+    the triangle count."""
+    verts, tris = uv_sphere_grid(nu, nv)
+    names = ("x", "y", "z", "nx", "ny", "nz")
+    vert = np.empty(len(verts), [(c, "<f4") for c in names])
+    for k, c in enumerate("xyz"):
+        vert[c] = vert["n" + c] = verts[:, k]
+    face = np.empty(len(tris), [("n", "u1"), ("idx", "<i4", (3,))])
+    face["n"] = 3
+    face["idx"] = tris
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(verts)}\n"
+            + "".join(f"property float {c}\n" for c in names)
+            + f"element face {len(tris)}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(head.encode("ascii") + vert.tobytes() + face.tobytes())
+    return len(tris)
 
 
 def _floor_and_light(tf):
@@ -88,6 +115,32 @@ def animated_mesh_scene(obj_path: str, spp: int, res: int = 256, tf=None,
     }
 
 
+def deep_path_scene(spp: int, res: int = 256, tf=None) -> dict:
+    """bench_suite ``deep_path_scene`` as written: a 3x-scaled two-sided
+    diffuse cube (12 triangles) lit from inside by a sphere of radius 0.4
+    carrying an area light of radiance 12, ``path`` with max_depth 48 and
+    rr_depth 5, an independent sampler."""
+    tf = tf or _tf
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 48, "rr_depth": 5},
+        "box": {"type": "cube", "to_world": tf.scale([3.0] * 3),
+                "bsdf": {"type": "twosided",
+                         "nested": {"type": "diffuse",
+                                    "reflectance": {"type": "rgb",
+                                                    "value": 0.6}}}},
+        "light": {"type": "sphere", "radius": 0.4,
+                  "to_world": tf.translate([0, 2.2, 0]),
+                  "emitter": {"type": "area",
+                              "radiance": {"type": "rgb", "value": 12.0}}},
+        "sensor": {"type": "perspective", "fov": 60,
+                   "to_world": tf.look_at([0, 0, -2.6], [0, 0, 0],
+                                          [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+    }
+
+
 def static_mesh_scene(obj_path: str, spp: int, res: int = 256,
                       tf=None) -> dict:
     """bench_suite ``static_mesh_scene``: the mesh at rest, ``path`` with
@@ -106,5 +159,6 @@ def static_mesh_scene(obj_path: str, spp: int, res: int = 256,
     }
 
 
-__all__ = ["write_uv_sphere_obj", "animated_mesh_scene", "static_mesh_scene",
+__all__ = ["uv_sphere_grid", "write_uv_sphere_obj", "write_uv_sphere_ply",
+           "animated_mesh_scene", "static_mesh_scene", "deep_path_scene",
            "ANIMATED_SIZES", "STATIC_SIZE"]

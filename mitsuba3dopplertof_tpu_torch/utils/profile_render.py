@@ -205,8 +205,18 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
           f"{', '.join(f'{w:.3f}' for w in warm)} s (median {med:.3f} s = "
           f"{W * H * spp / med / 1e6:.3f} Msamples/s); launches per render "
           f"{launches}", flush=True)
+    device_breakdown(mi, scene, spp, med, top)
 
+
+def device_breakdown(mi, scene, spp: int, wall_s: float,
+                     top: int = 8) -> float:
+    """One warm render of ``scene`` under torch.profiler: its device
+    kernel time by group, the phases' spans, the large-scene query
+    kernels' launches in order and B1's launches by query, printed; the
+    busy share is the device time over ``wall_s``, a warm render's wall
+    time without the profiler. Returns the idle share (1 - busy)."""
     from torch.profiler import ProfilerActivity, profile
+    med = wall_s
     t0 = time.perf_counter()
     labels = []
     with _marked_lists(), _labelled_queries(labels), profile(
@@ -289,6 +299,7 @@ def _profile(mi, name: str, scene_name: str, top: int) -> None:
     elif b1:
         print(f"  B1 by query: not measured ({len(b1)} launches, "
               f"{len(labels)} queries)", flush=True)
+    return 1.0 - total / 1e3 / med
 
 
 def main(argv) -> int:

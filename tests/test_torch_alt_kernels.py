@@ -48,6 +48,7 @@ from torch_adversarial_rays import (adversarial_rays, ballot_rays,
 from torch_port_helpers import (F32_ULP, assert_t_prim, both_rays,
                                 build_mixed_scene, jax_mesh_render,
                                 shell_rays)
+from torch_threads import shared_cores  # noqa: F401 (autouse)
 
 # MI_STREAM_KERNEL value -> (kernel row, port module, wrapper, plain version)
 ROUTES = {

@@ -25,6 +25,8 @@ from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
 from mitsuba3dopplertof_tpu_torch.render.types import DirectionSample as TDS
 from mitsuba3dopplertof_tpu_torch.sensors import sample_ray_kind
 
+from torch_threads import shared_cores  # noqa: F401 (autouse)
+
 N = 4096
 
 

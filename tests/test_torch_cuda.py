@@ -29,7 +29,8 @@ from mitsuba3dopplertof_tpu_torch.ops.intersect_mxu import payload_from_prim
 from mitsuba3dopplertof_tpu_torch.ops.ray_binning import binned
 from mitsuba3dopplertof_tpu_torch.render.types import Ray
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
-    animated_mesh_scene, static_mesh_scene, write_uv_sphere_obj)
+    ANIMATED_SIZES, animated_mesh_scene, deep_path_scene, static_mesh_scene,
+    write_uv_sphere_obj, write_uv_sphere_ply)
 
 from torch_adversarial_rays import (adversarial_rays, ballot_rays,
                                     equal_t_tables, equal_t_v2_tables,
@@ -783,3 +784,65 @@ def test_mini_hero_on_card_matches_cpu(cuda, tmp_path, integrator):
     assert scale > 0.0 and np.isfinite(g).all()
     assert np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale).mean() >= 0.99
     assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())
+
+
+def _dialect_loader(scene, tmp_path):
+    """(loader by device, the kernel row of its render) of chip_smoke.py's
+    phase 11 scenes at 16x16 x 16 spp: the deep-path row (B1) or the
+    glass scene with the 2k sphere (B2, and B1's sphere pass)."""
+    if scene == "deep_path":
+        return (lambda dev: mt.load_dict(deep_path_scene(16, 16),
+                                         device=dev)), ik
+    import sys
+    sys.path.insert(0, ROOT)
+    from chip_smoke import glass_dict
+    ply = str(tmp_path / "sphere_32x32.ply")
+    write_uv_sphere_ply(ply, *ANIMATED_SIZES["2k"])
+    return (lambda dev: mt.load_dict(glass_dict(ply, 16, 16),
+                                     device=dev)), v4
+
+
+@pytest.mark.parametrize("scene", ["deep_path", "glass"])
+def test_dialect_scene_on_card_matches_cpu(cuda, tmp_path, scene):
+    """chip_smoke.py's phase 11 scenes at 16x16 x 16 spp, card against
+    CPU as that phase holds them: the lanes whose paths meet a tie or
+    graze an edge (marked on the CPU, torch_ties.TieRecorder; at most
+    10%) left out of both films, >= 99% of values within rtol 1e-4,
+    atol 1e-4 * max|cpu|, the mean within 1e-3; the deep-path scene
+    through B1, the glass scene through B2 with B1's sphere pass."""
+    from torch_ties import TieRecorder
+    load, mod = _dialect_loader(scene, tmp_path)
+    rec = TieRecorder(16 * 16 * 16, "cpu")
+    with rec.hooked():
+        mt.render(load("cpu"), spp=16, seed=0)
+    assert int(rec.marked.sum()) <= 0.1 * rec.marked.numel()
+    imgs = []
+    with rec.dropped():
+        for dev in (cuda, "cpu"):
+            ik.reset_launch_counts()
+            v4.reset_launch_counts()
+            imgs.append(mt.render(load(dev), spp=16, seed=0).cpu().numpy())
+            if dev is cuda:
+                assert min(mod.LAUNCHES_BY_FORM.values()) > 0
+                assert min(ik.LAUNCHES_BY_FORM.values()) > 0
+                if mod is ik:
+                    assert v4.LAUNCHES == 0
+    g, c = imgs
+    scale = np.abs(c).max()
+    assert scale > 0.0 and np.isfinite(g).all()
+    assert np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale).mean() >= 0.99
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())
+
+
+def test_glass_scene_v3_route_gives_b2_image(cuda, tmp_path, monkeypatch):
+    """The glass scene with the 2k sphere on the card through B5
+    (MI_STREAM_KERNEL=v3) gives B2's image within phase 7's tolerance
+    (every value within rtol 1e-4, atol 1e-4 * max)."""
+    load, _ = _dialect_loader("glass", tmp_path)
+    b2 = mt.render(load(cuda), spp=16, seed=0).cpu().numpy()
+    monkeypatch.setenv("MI_STREAM_KERNEL", "v3")
+    v3.reset_launch_counts()
+    b5 = mt.render(load(cuda), spp=16, seed=0).cpu().numpy()
+    assert min(v3.LAUNCHES_BY_FORM.values()) > 0
+    scale = np.abs(b2).max()
+    assert np.isclose(b5, b2, rtol=1e-4, atol=1e-4 * scale).all()

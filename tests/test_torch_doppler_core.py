@@ -24,6 +24,8 @@ import mitsuba3dopplertof_tpu_torch as mt
 from mitsuba3dopplertof_tpu import samplers as js
 from mitsuba3dopplertof_tpu.core import rng as jrng
 
+from torch_threads import shared_cores  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
 N = 256

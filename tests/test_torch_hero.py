@@ -32,6 +32,7 @@ from mitsuba3dopplertof_tpu_torch.utils import hero_scene as th
 from torch_port_helpers import (MINI_HERO, fresh_hero_report,
                                 jax_python_obj_loader, mini_hero_dict)
 from torch_ties import TieRecorder
+from torch_threads import shared_cores  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -132,8 +133,8 @@ def test_hero_renders_in_a_process_without_jax():
     a fresh interpreter that imports neither jax nor the JAX package
     builds the hero's assets with the port, and renders the full-size
     scene on the CPU (asked for) at 8x8 x 2 spp with dopplertofpath and
-    with volpath (the interpreter of ``fresh_import_report``, shared with
-    the port's import tests)."""
+    with volpath (an interpreter of its own: the port's import checks run
+    in one that renders nothing)."""
     assert fresh_hero_report() == (
         "(8, 8, 3) cpu True True", "(8, 8, 3) cpu True True",
         "['knot.obj', 'marble.exr', 'sky.exr', 'smoke.vol', 'sphere.obj']",

@@ -38,6 +38,7 @@ from mitsuba3dopplertof_tpu_torch.core.properties import Properties
 
 from torch_port_helpers import (jax_mini_hero_scene, mini_hero_dict,
                                 mini_hero_dir)
+from torch_threads import shared_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # PIZ-compressed EXRs written by OpenEXR (the JAX package's native shim):
@@ -377,7 +378,7 @@ def test_grid_density_matches_jax():
 
 @pytest.mark.parametrize("kind", ["rayleigh", "sggx", "tabphase",
                                   "blendphase", "mesh_attribute", "volume",
-                                  "constant"])
+                                  "directionalarea"])
 def test_deferred_plugins_name_item_10(kind):
     with pytest.raises(NotImplementedError, match="item 10"):
         mt.load_dict({"type": kind})

@@ -38,6 +38,8 @@ from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
                                                        from_jax_scene_arrays)
 from mitsuba3dopplertof_tpu_torch.render.types import Ray as TRay
 
+from torch_threads import shared_cores  # noqa: F401 (autouse)
+
 CANONICAL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scenes", "canonical", "scene.xml")
 

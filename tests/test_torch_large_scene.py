@@ -51,6 +51,7 @@ from torch_port_helpers import (F32_ULP, assert_t_prim as _assert_t_prim,
                                 fresh_import_report, jax_mesh_render,
                                 mixed_dict as _mixed_dict,
                                 shell_rays as _rays)
+from torch_threads import shared_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's oracle under one jit: compiled once for the mixed scene

@@ -19,6 +19,7 @@ from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
                                                        from_jax_scene_arrays)
 
 from torch_port_helpers import fresh_import_report
+from torch_threads import shared_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
@@ -161,8 +162,8 @@ def test_scene_parameters():
 
 def test_import_pulls_in_no_jax():
     """Importing the port, every module of it, pulls in neither jax nor the
-    JAX package (one fresh interpreter per test process, shared with
-    tests/test_torch_large_scene.py)."""
+    JAX package (one fresh interpreter that renders nothing, once per test
+    process, shared with tests/test_torch_large_scene.py)."""
     assert fresh_import_report()[1] == "[]"
 
 
@@ -171,8 +172,8 @@ def test_unported_features_name_their_roadmap_item():
         mt.set_variant("cuda_spectral")
     assert mt.set_variant("cuda_rgb") == "cuda_rgb"
     with pytest.raises(NotImplementedError, match="item 10"):
-        mt.load_dict({"type": "spot"})
+        mt.load_dict({"type": "projector"})
     with pytest.raises(NotImplementedError, match="item 3"):
-        mt.load_dict({"type": "ply", "filename": "x.ply"})
+        mt.dict_to_xml({"type": "scene"}, "scene.xml")
     with pytest.raises(NotImplementedError, match="item 11"):
         mt.load_dict({"type": "specfilm"})

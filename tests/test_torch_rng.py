@@ -11,6 +11,8 @@ import torch
 from mitsuba3dopplertof_tpu.core import rng as jrng
 from mitsuba3dopplertof_tpu_torch.core import rng as trng
 
+from torch_threads import shared_cores  # noqa: F401 (autouse)
+
 N = 1 << 16
 
 

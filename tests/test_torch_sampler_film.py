@@ -17,6 +17,8 @@ from mitsuba3dopplertof_tpu import samplers as js
 from mitsuba3dopplertof_tpu.core import rng as jrng
 from mitsuba3dopplertof_tpu_torch import films as tfilms
 
+from torch_threads import shared_cores  # noqa: F401 (autouse)
+
 N = 4096
 
 

@@ -22,6 +22,8 @@ from mitsuba3dopplertof_tpu_torch import films as tfilms
 from mitsuba3dopplertof_tpu_torch.core import transform as ttf
 from mitsuba3dopplertof_tpu_torch.sensors import sample_ray_kind
 
+from torch_threads import shared_cores  # noqa: F401 (autouse)
+
 N = 512
 
 

@@ -3,8 +3,9 @@
 mixed static + animated scene of tests/test_mxu_kernel.py compiled by both
 packages, rays made with numpy for both, the (t, prim) criterion, and the
 JAX package's render of the 2k animated-mesh scene that both files hold
-the port's renders against. Imports both packages; only the port's tests
-import it."""
+the port's renders against; the fresh interpreters of the port's import
+checks and of the hero's render without jax; the mini hero. Imports both
+packages; only the port's tests import it."""
 
 import contextlib
 import functools
@@ -33,68 +34,81 @@ from mitsuba3dopplertof_tpu_torch.render.types import Ray as TRay
 from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
     animated_mesh_scene, write_uv_sphere_obj)
 
+from torch_threads import threads_per_worker
+
 F32_ULP = 2.0 ** -23
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# what a fresh interpreter runs: the port's import checks alone, or the
+# hero's render with the port alone
+_IMPORT_CHECK = (
+    "import sys, pkgutil, importlib, torch\n"
+    "import mitsuba3dopplertof_tpu_torch as mi\n"
+    "for m in pkgutil.walk_packages(mi.__path__, mi.__name__ + '.'):\n"
+    "    importlib.import_module(m.name)\n"
+    "print(mi.get_device().type)\n"
+    "print(sorted(m for m in sys.modules if m == 'jax' or "
+    "m.startswith(('jax.', 'mitsuba3dopplertof_tpu.')) "
+    "or m == 'mitsuba3dopplertof_tpu'))\n"
+    "if not torch.cuda.is_available():\n"
+    "    try:\n"
+    "        mi.load_file('scenes/canonical/scene.xml')\n"
+    "        print('loaded')\n"
+    "    except RuntimeError as e:\n"
+    "        print('raised' if 'CUDA' in str(e) else e)\n"
+    "else:\n"
+    "    print('raised')\n")
+_HERO_RENDER = (
+    "import os, shutil, sys, tempfile, torch\n"
+    "import mitsuba3dopplertof_tpu_torch as mi\n"
+    "from mitsuba3dopplertof_tpu_torch.utils.hero_scene import "
+    "hero_scene_dict\n"
+    "mi.set_device('cpu')\n"
+    "d = tempfile.mkdtemp(prefix='torch_port_hero_')\n"
+    "for integ in (None, {'type': 'volpath', 'max_depth': 6}):\n"
+    "    img = mi.render(mi.load_dict(hero_scene_dict(\n"
+    "        res=8, spp=2, cache_dir=d, integrator=integ)))\n"
+    "    print(tuple(img.shape), img.device.type, "
+    "bool(torch.isfinite(img).all()), bool((img != 0).any()))\n"
+    "print(sorted(os.listdir(d)))\n"
+    "shutil.rmtree(d)\n"
+    "print(sorted(m for m in sys.modules if m == 'jax' or "
+    "m.startswith(('jax.', 'mitsuba3dopplertof_tpu.')) "
+    "or m == 'mitsuba3dopplertof_tpu'))\n")
+
+
 @functools.lru_cache(maxsize=None)
-def _fresh_process():
-    """One fresh interpreter a test process (the port's import checks and
-    the hero's render without jax share it): the lines it prints."""
-    code = (
-        "import os, shutil, sys, pkgutil, importlib, tempfile, torch\n"
-        "import mitsuba3dopplertof_tpu_torch as mi\n"
-        "for m in pkgutil.walk_packages(mi.__path__, mi.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "def jax_modules():\n"
-        "    return sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'mitsuba3dopplertof_tpu.')) "
-        "or m == 'mitsuba3dopplertof_tpu')\n"
-        "print(mi.get_device().type)\n"
-        "print(jax_modules())\n"
-        "if not torch.cuda.is_available():\n"
-        "    try:\n"
-        "        mi.load_file('scenes/canonical/scene.xml')\n"
-        "        print('loaded')\n"
-        "    except RuntimeError as e:\n"
-        "        print('raised' if 'CUDA' in str(e) else e)\n"
-        "else:\n"
-        "    print('raised')\n"
-        "from mitsuba3dopplertof_tpu_torch.utils.hero_scene import "
-        "hero_scene_dict\n"
-        "mi.set_device('cpu')\n"
-        "d = tempfile.mkdtemp(prefix='torch_port_hero_')\n"
-        "for integ in (None, {'type': 'volpath', 'max_depth': 6}):\n"
-        "    img = mi.render(mi.load_dict(hero_scene_dict(\n"
-        "        res=8, spp=2, cache_dir=d, integrator=integ)))\n"
-        "    print(tuple(img.shape), img.device.type, "
-        "bool(torch.isfinite(img).all()), bool((img != 0).any()))\n"
-        "print(sorted(os.listdir(d)))\n"
-        "shutil.rmtree(d)\n"
-        "print(jax_modules())\n")
+def _fresh_process(code: str):
+    """The lines that a fresh interpreter running ``code`` prints, once
+    per test process and code."""
+    # the test process's share of the cores (tests/torch_threads.py)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, OMP_NUM_THREADS=str(
+                             threads_per_worker())))
     assert out.returncode == 0, out.stderr[-2000:]
     return tuple(out.stdout.split("\n"))
 
 
 def fresh_import_report():
-    """A fresh interpreter imports every module of the port; the lines it
-    prints, once per process: the default device's type, the modules of
-    jax and of the JAX package in ``sys.modules`` (a list, empty if the
-    port pulls in none), and whether loading a scene on the default device
-    raised for want of a card ("raised" also with a card)."""
-    return _fresh_process()[:3]
+    """A fresh interpreter imports every module of the port and renders
+    nothing; the lines it prints, once per process: the default device's
+    type, the modules of jax and of the JAX package in ``sys.modules`` (a
+    list, empty if the port pulls in none), and whether loading a scene on
+    the default device raised for want of a card ("raised" also with a
+    card)."""
+    return _fresh_process(_IMPORT_CHECK)[:3]
 
 
 def fresh_hero_report():
-    """The same interpreter then builds the hero's assets with the port in
-    a temporary directory and renders the full-size hero on the CPU
+    """A fresh interpreter imports the port, builds the hero's assets with
+    it in a temporary directory and renders the full-size hero on the CPU
     (asked for) at 8x8 x 2 spp with dopplertofpath and with volpath: per
-    render (shape, device type, all finite, any nonzero), the assets'
-    file names, and the modules of jax and of the JAX package in
+    render (shape, device type, all finite, any nonzero), the assets' file
+    names, and the modules of jax and of the JAX package in
     ``sys.modules`` after the renders."""
-    return _fresh_process()[3:7]
+    return _fresh_process(_HERO_RENDER)[:4]
 
 
 def sphere_obj(path, nu, nv):
