@@ -134,10 +134,29 @@ phase raises on failure:
      lanes left out, as in phase 10): the deep-path scene, and the glass
      scene with the 2k sphere through B2 and through MI_STREAM_KERNEL=v3,
      whose image must be B2's within phase 7's tolerance;
- 12. a JSON line with the kernels (B2 twice more: on the hero's
+ 12. the rgb variant's other integrators, each timed warm after a
+     one-pass warm-up with its launches: moment around the canonical
+     dopplertofpath at 256x256 x 1024 spp through B1 (its RGB the plain
+     render's bit for bit, m2 >= mean^2), ptracer on the canonical scene
+     (max_depth 4, 1024 light paths a pixel: the JAX package's
+     bench_suite.py:218-223 row) through B1, aov (depth, position, shading
+     normal, albedo) around dopplertofpath and direct on the hero scene
+     at 256x256 x 64 spp through B2, volpathmis on the volpath row
+     (bench_suite.py:95-116) at the largest of 256, 64 and 16 spp that
+     fits 15 s, and the principled scene (``principled_dict``: the 40k
+     sphere principled, a pplastic floor, a principledthin pane) at
+     256x256 x 256 spp through B2, with the launches and device time of
+     one BSDF dispatch with and without the principled family; the card
+     against the CPU at 16x16 x 16 spp with phase 8's criteria: moment,
+     aov (box filter, alpha; triangle and instance ids equal; shading
+     normal and uv on the pixels every sample of which hit), direct,
+     use_nee=false, volpathmis, the principled scene with the 2k sphere
+     through B2 and through MI_STREAM_KERNEL=v3 (marked lanes left out),
+     and ptracer on the projector / directionalarea scene;
+ 13. a JSON line with the kernels (B2 twice more: on the hero's
      wavefronts; B1's and B2's entries carry their launches in phase 11's
-     renders as ``launches_deep_path`` and ``launches_glass``), then the
-     contract line {"ok": true, "device": {...}}.
+     and 12's renders as ``launches_<scene>``), then the contract line
+     {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
 input read once, each output written once) over the card's memory rate and
@@ -2456,6 +2475,448 @@ def dialect_phase(mi, reset, read, card) -> dict:
     return launches
 
 
+# the rgb variant's other integrators (phase 12)
+INTEG_RES = 256
+MOMENT_SPP = 1024               # the canonical scene's own spp
+PTRACER_SPP = 1024              # bench_suite.py:218-223's row
+HERO_AOV_SPP = 64
+PRINCIPLED_SPP = 256
+VOLPATHMIS_SPPS = (256, 64, 16)
+VOLPATHMIS_BUDGET_S = 15.0      # volpathmis' warm render at most
+HERO_AOVS = "dd:depth,pp:position,nn:sh_normal,aa:albedo"
+# aov's card-vs-CPU image: RGB, alpha, then these AOVs; the triangle and
+# instance ids at 4:6, the shading normal and uv at 13:18
+AOV_CHECK = ("pi:prim_index,si:shape_index,dd:depth,pp:position,aa:albedo,"
+             "nn:sh_normal,uv:uv")
+AOV_IDS, AOV_HIT_ONLY = slice(4, 6), slice(13, 18)
+
+
+def aov_check_dict(mi) -> dict:
+    """The canonical scene at 16x16 x 16 spp with a box filter and an
+    alpha channel, for aov's card-vs-CPU check: the scene has no
+    environment, so a pixel's alpha is 1 exactly where every one of its
+    samples hit."""
+    d = canonical_dict(mi, rfilter={"type": "box"}, spp=16, resx=16,
+                       resy=16)
+    cam = next(v for v in d.values()
+               if isinstance(v, dict) and v.get("type") == "perspective")
+    next(v for v in cam.values() if isinstance(v, dict)
+         and v.get("type") == "hdrfilm")["pixel_format"] = "rgba"
+    return d
+
+
+def aov_compared(img_g, img_c):
+    """The values of aov's card-vs-CPU image that are compared: all but
+    the shading normal and uv of the pixels where a sample missed (on a
+    missed lane they are the query's payload: triangle 0's in the plain
+    versions, the kernel's own on the card; ROADMAP Queue C). Returns
+    (mask of the image's shape, mask of the pixels every sample of which
+    hit on both sides)."""
+    import numpy as np
+    hit = (img_g[..., 3] == 1.0) & (img_c[..., 3] == 1.0)
+    keep = np.ones(img_c.shape, dtype=bool)
+    keep[~hit, AOV_HIT_ONLY] = False
+    return keep, hit
+
+
+def principled_dict(mesh: str, spp: int, res: int) -> dict:
+    """The principled scene, built here (not a published scene): the
+    animated mesh scene of utils/bench_scenes.py (its camera, shutter,
+    correlated sampler, point light and dopplertofpath) with its sphere
+    (the OBJ file ``mesh``) made ``principled`` (base_color [0.8, 0.35,
+    0.2], metallic 0.3, roughness 0.3, sheen 0.3, clearcoat 0.5,
+    anisotropic 0.4), the floor ``pplastic`` (alpha 0.1), a
+    ``principledthin`` pane (spec_trans 0.5, diff_trans 0.6) and a
+    rectangle area light."""
+    from mitsuba3dopplertof_tpu_torch.core import transform as tf
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
+        animated_mesh_scene
+    d = animated_mesh_scene(mesh, spp, res)
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+    d["mesh"]["bsdf"] = {"type": "principled",
+                         "base_color": rgb([0.8, 0.35, 0.2]),
+                         "metallic": 0.3, "roughness": 0.3, "sheen": 0.3,
+                         "clearcoat": 0.5, "anisotropic": 0.4}
+    d["floor"]["bsdf"] = {"type": "pplastic", "alpha": 0.1,
+                          "diffuse_reflectance": rgb([0.5, 0.55, 0.6])}
+    d["pane"] = {"type": "rectangle",
+                 "to_world": tf.translate([-1.6, -0.3, 0.8])
+                 @ tf.rotate([0, 1, 0], 30) @ tf.scale([0.6, 0.8, 1]),
+                 "bsdf": {"type": "principledthin",
+                          "base_color": rgb([0.3, 0.6, 0.8]),
+                          "roughness": 0.2, "spec_trans": 0.5,
+                          "diff_trans": 0.6}}
+    d["panel"] = {"type": "rectangle",
+                  "to_world": tf.translate([1.5, 2.5, -1.0])
+                  @ tf.rotate([1, 0, 0], 90) @ tf.scale([0.5, 0.5, 1]),
+                  "emitter": {"type": "area", "radiance": rgb(8.0)}}
+    return d
+
+
+def ptracer_emitters_dict(spp: int, tf=None, projector_image=None) -> dict:
+    """The light tracer's test scene: a diffuse floor under an area-lit
+    panel, a projector and a collimated directionalarea rectangle (the
+    emitters of the JAX package's tests/test_ptracer_emitters.py:200-230,
+    in one scene), a 16x16 perspective camera with a box filter,
+    ``ptracer`` with max_depth 3. ``tf``: the transform module of the
+    package that loads the dict (default: the port's). ``projector_image``: a texture dict for the
+    projector's image (default: a constant irradiance of 25)."""
+    from mitsuba3dopplertof_tpu_torch.core import transform as port_tf
+    tf = tf or port_tf
+
+    def rgb(v):
+        return {"type": "rgb", "value": v}
+    return {
+        "type": "scene",
+        "integrator": {"type": "ptracer", "max_depth": 3},
+        "sensor": {"type": "perspective", "fov": 60,
+                   "to_world": tf.look_at([0, 1.5, -3], [0, 0, 0],
+                                          [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": 16, "height": 16,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "floor": {"type": "rectangle",
+                  "to_world": tf.rotate([1, 0, 0], -90)
+                  @ tf.scale([3, 3, 1]),
+                  "bsdf": {"type": "diffuse", "reflectance": rgb(0.7)}},
+        "panel": {"type": "rectangle",
+                  "to_world": tf.translate([1.2, 1.0, 0.5])
+                  @ tf.rotate([1, 0, 0], 90) @ tf.scale([0.3, 0.3, 1]),
+                  "emitter": {"type": "area",
+                              "radiance": rgb([4.0, 3.0, 2.0])}},
+        "proj": {"type": "projector",
+                 "to_world": tf.look_at([0, 3, 0], [0, 0, 0], [0, 0, 1]),
+                 "fov": 40.0,
+                 "irradiance": projector_image or rgb(25.0)},
+        "beam": {"type": "rectangle",
+                 "to_world": tf.translate([-0.8, 2, 0])
+                 @ tf.rotate([1, 0, 0], 90) @ tf.scale([0.5, 0.5, 1]),
+                 "emitter": {"type": "directionalarea",
+                             "radiance": rgb(5.0)}},
+    }
+
+
+def integrators_phase(mi, reset, read, card) -> dict:
+    """Phase 12: the rgb variant's other integrators on the card, each
+    render timed warm after a one-pass warm-up, the launches read around
+    the timed render: moment around the canonical dopplertofpath (256x256
+    x 1024 spp, B1; its RGB against the plain render of the same seed, its
+    m2 >= mean^2), ptracer on the canonical scene (max_depth 4, 1024 light
+    paths a pixel, B1), aov and direct on the hero scene (256x256 x 64
+    spp, B2), volpathmis on the volpath row (the largest of 256, 64 and 16
+    spp that fits VOLPATHMIS_BUDGET_S), the principled scene (the 40k
+    sphere, 256x256 x 256 spp, B2) with the launches and device time of
+    one principled BSDF dispatch on a 2^20-lane wavefront; then the card
+    against the CPU at 16x16 x 16 spp with phase 8's criteria: moment,
+    aov (box filter: its triangle and instance ids exact, its shading
+    normal and uv compared on the pixels all hit), direct,
+    use_nee=false, volpathmis, the principled scene with the 2k sphere
+    through B2 and MI_STREAM_KERNEL=v3 (the lanes that meet a tie or
+    graze an edge left out of both films), and ptracer on the projector /
+    directionalarea scene. Returns the timed renders' launches by scene
+    and kernel row."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mitsuba3dopplertof_tpu_torch import bsdfs
+    from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
+        ANIMATED_SIZES, volpath_scene, write_uv_sphere_obj)
+    from mitsuba3dopplertof_tpu_torch.utils.hero_scene import (
+        hero_assets, hero_scene_dict)
+    res = INTEG_RES
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="integrators_")
+    launches = {}
+    try:
+        objs = {}
+        for size in ("40k", "2k"):
+            objs[size] = os.path.join(tmp, f"sphere_{size}.obj")
+            write_uv_sphere_obj(objs[size], *ANIMATED_SIZES[size])
+        hero_assets(tmp)
+
+        def hero(spp, integ=None):
+            d = hero_scene_dict(res=res, spp=spp, cache_dir=tmp)
+            if integ == "aov":
+                d["integrator"] = {"type": "aov", "aovs": HERO_AOVS,
+                                   "nested": d["integrator"]}
+            elif integ is not None:
+                d["integrator"] = dict(integ)
+            return mi.load_dict(d)
+
+        def timed(tag, scene, spp, warm_spp, integ, rows, n_ch=3):
+            """A warm-up render at ``warm_spp``, then the timed render
+            with the launches read around it; ``rows``: the kernels and
+            forms it must launch (no other)."""
+            kw = {} if integ is None else {"integrator": integ}
+            mi.render(scene, spp=warm_spp, seed=0, **kw)
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            img = mi.render(scene, spp=spp, seed=0, **kw)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            counts = read()
+            if tuple(img.shape) != (res, res, n_ch):
+                fail(f"{tag}: image shape {tuple(img.shape)}")
+            if not bool(torch.isfinite(img).all()) or not bool(
+                    (img[..., :3] != 0).any()):
+                fail(f"{tag}: image not finite or all zero")
+            for row, c in counts.items():
+                for form, n in c.items():
+                    if (n > 0) != (form in rows.get(row, ())):
+                        fail(f"{tag}: launches {counts}")
+            print(f"render {tag} {res}x{res}x{spp}: warm {warm_s:.3f} s = "
+                  f"{res * res * spp / warm_s / 1e6:.3f} Msamples/s "
+                  f"({card}); launches " + ", ".join(
+                      f"{row} {counts[row]}" for row in rows)
+                  + f"; image mean {float(img[..., :3].mean()):.6g}, max "
+                  f"|v| {float(img[..., :3].abs().max()):.6g}", flush=True)
+            return img, {row: counts[row] for row in rows}, warm_s
+
+        both = ("closest_hit", "any_hit")
+        # ---- moment around the canonical dopplertofpath ----------------
+        canon = mi.load_file(CANONICAL, resx=res, resy=res)
+        plain = mi.render(canon, spp=MOMENT_SPP, seed=0)
+        img, launches["moment"], _ = timed(
+            "canonical moment (dopplertofpath) through B1", canon,
+            MOMENT_SPP, 16, mi.load_dict({"type": "moment",
+                                          "nested": canon.integrator}),
+            {"B1": both}, n_ch=6)
+        rgb, m2 = img[..., :3], img[..., 3:]
+        same = bool(torch.equal(rgb, plain))
+        # m2 >= mean^2 per pixel, to rounding (the filter's weights are
+        # positive: Jensen)
+        short = float((rgb * rgb * (1.0 - 1e-5) - m2).clamp(min=0).max())
+        print(f"moment: RGB equal to the plain render bit for bit: {same} "
+              f"(max diff {float((rgb - plain).abs().max()):.3g}); m2 "
+              f"below mean^2 by at most {short:.3g}; m2 mean "
+              f"{float(m2.mean()):.6g}", flush=True)
+        if not same or short > 0.0:
+            fail("moment: RGB is not the plain render or m2 < mean^2")
+        del img, rgb, m2, plain
+
+        # ---- ptracer on the canonical scene ----------------------------
+        _, launches["ptracer"], _ = timed(
+            "canonical ptracer (max_depth 4, light paths per pixel)", canon,
+            PTRACER_SPP, 16, mi.load_dict({"type": "ptracer",
+                                           "max_depth": 4}),
+            {"B1": both})
+        del canon
+
+        # ---- aov and direct on the hero scene ---------------------------
+        scene = hero(HERO_AOV_SPP, "aov")
+        img, launches["hero_aov"], _ = timed(
+            f"hero aov ({HERO_AOVS}) around dopplertofpath through B2",
+            scene, HERO_AOV_SPP, 16, None, {"B2": both}, n_ch=13)
+        depth = img[..., 3]
+        print(f"hero aov: depth in [{float(depth.min()):.4g}, "
+              f"{float(depth.max()):.4g}], albedo mean "
+              f"{float(img[..., 10:13].mean()):.4g}", flush=True)
+        if float(depth.max()) <= 0.0:
+            fail("hero aov: no depth")
+        del img, depth, scene
+        _, launches["hero_direct"], _ = timed(
+            "hero direct through B2", hero(HERO_AOV_SPP, {"type": "direct"}),
+            HERO_AOV_SPP, 16, None, {"B2": both})
+
+        # ---- volpathmis on the volpath row -------------------------------
+        d = volpath_scene(16, res)
+        d["integrator"] = dict(d["integrator"], type="volpathmis")
+        scene = mi.load_dict(d)
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        spp_v = next((s for s in VOLPATHMIS_SPPS
+                      if probe_s * s / 16 <= VOLPATHMIS_BUDGET_S), 16)
+        print(f"volpathmis probe 16 spp: warm {probe_s:.3f} s; rendering "
+              f"at {spp_v} spp", flush=True)
+        _, launches["volpathmis"], _ = timed(
+            "volpath row (volpathmis, homogeneous medium) through B1",
+            scene, spp_v, 16, None, {"B1": ("closest_hit",)})
+        del scene
+
+        # ---- the principled scene ---------------------------------------
+        scene = mi.load_dict(principled_dict(objs["40k"], PRINCIPLED_SPP,
+                                             res))
+        sa = scene.compile()
+        print(f"principled scene: {sa.n_static_tris} static and "
+              f"{sa.n_anim_tris} animated triangles; BSDF types "
+              f"{sa.bsdf_types_present}, emitter types "
+              f"{sa.emitter_types_present}", flush=True)
+        _, launches["principled"], _ = timed(
+            "principled 40k (dopplertofpath) through B2", scene,
+            PRINCIPLED_SPP, 16, None, {"B2": both})
+        # one BSDF dispatch over a strip pass's wavefront: every type of
+        # the scene runs on every lane (the masked dispatch)
+        n = WAVEFRONT
+        g = torch.Generator(device=sa.device).manual_seed(0)
+        u = lambda: torch.rand(n, device=sa.device, generator=g)
+        wi = Vec3(u() - 0.5, u() - 0.5, u() - 0.3)
+        wo = Vec3(u() - 0.5, u() - 0.5, u() - 0.3)
+        lane = torch.randint(0, int(sa.bsdf_type.shape[0]), (n,),
+                             device=sa.device, generator=g)
+        s1, s2x, s2y = u(), u(), u()
+        from torch.profiler import ProfilerActivity, profile
+        for types in ((bsdfs.BSDF_PRINCIPLED, bsdfs.BSDF_PRINCIPLED_THIN,
+                       bsdfs.BSDF_ROUGHPLASTIC), (bsdfs.BSDF_ROUGHPLASTIC,)):
+            saved = sa.bsdf_types_present
+            sa.bsdf_types_present = types
+            try:
+                bsdfs.eval_pdf_sample(sa, lane, wi, wo, s1, s2x, s2y)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    bsdfs.eval_pdf_sample(sa, lane, wi, wo, s1, s2x, s2y)
+                    torch.cuda.synchronize()
+            finally:
+                sa.bsdf_types_present = saved
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation
+                    and e.self_device_time_total > 0]
+            n_launch = sum(e.count for e in kern)
+            dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+            print(f"BSDF dispatch over {n} lanes, types {types}: "
+                  f"{n_launch} kernel launches, {dev_ms:.3f} ms of device "
+                  f"time ({card})", flush=True)
+        del scene, sa
+
+        # ---- the card against the CPU at 16x16 x 16 spp -------------------
+        t_step = time.perf_counter()
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from torch_ties import TieRecorder
+
+        def canon16(dv):
+            return mi.load_file(CANONICAL, spp=16, resx=16, resy=16,
+                                device=dv)
+
+        def canon_aov(dv):
+            return mi.load_dict(aov_check_dict(mi), device=dv)
+
+        def with_integ(load, integ=None):
+            """(scene, integrator) on a device; None: the scene's own."""
+            def f(dv):
+                sc = load(dv)
+                if integ is None:
+                    return sc, None
+                return sc, mi.load_dict(
+                    integ(sc) if callable(integ) else dict(integ))
+            return f
+
+        def principled16(dv):
+            return mi.load_dict(principled_dict(objs["2k"], 16, 16),
+                                device=dv)
+
+        cases = (
+            ("canonical moment", with_integ(canon16, lambda sc: {
+                "type": "moment", "nested": sc.integrator}), {}, "B1",
+             False),
+            ("canonical aov (box filter, alpha)", with_integ(canon_aov, {
+                "type": "aov", "aovs": AOV_CHECK,
+                "nested": {"type": "path", "max_depth": 4}}), {}, "B1",
+             False),
+            ("canonical direct", with_integ(canon16, {"type": "direct"}),
+             {}, "B1", False),
+            ("canonical path use_nee=false", with_integ(canon16, {
+                "type": "path", "max_depth": 4, "use_nee": False}), {},
+             "B1", False),
+            ("volpath row volpathmis", with_integ(
+                lambda dv: mi.load_dict(volpath_scene(16, 16), device=dv),
+                {"type": "volpathmis", "max_depth": 6}), {}, "B1", False),
+            ("principled 2k", with_integ(principled16), {}, "B2", True),
+            ("principled 2k through B5 (MI_STREAM_KERNEL=v3)",
+             with_integ(principled16), {"MI_STREAM_KERNEL": "v3"}, "B5",
+             True),
+            ("ptracer projector + directionalarea", with_integ(
+                lambda dv: mi.load_dict(ptracer_emitters_dict(16),
+                                        device=dv),
+                {"type": "ptracer", "max_depth": 3}), {}, "B1", False))
+        cpu = {}
+        for label, load, env, row, ties in cases:
+            key = label.split(" through")[0]
+            if key not in cpu:
+                sc, integ = load("cpu")
+                if ties:
+                    rec = TieRecorder(16 * 16 * 16, "cpu")
+                    with rec.hooked():
+                        mi.render(sc, spp=16, seed=0, integrator=integ)
+                    with rec.dropped():
+                        img_c = mi.render(load("cpu")[0], spp=16, seed=0,
+                                          integrator=integ).numpy()
+                else:
+                    rec = None
+                    img_c = mi.render(sc, spp=16, seed=0,
+                                      integrator=integ).numpy()
+                cpu[key] = (rec, img_c)
+            rec, img_c = cpu[key]
+            os.environ.update(env)
+            try:
+                sc, integ = load(None)
+                reset()
+                if rec is not None:
+                    with rec.dropped():
+                        img_g = mi.render(sc, spp=16, seed=0,
+                                          integrator=integ).cpu().numpy()
+                else:
+                    img_g = mi.render(sc, spp=16, seed=0,
+                                      integrator=integ).cpu().numpy()
+                counts = read()
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            if counts[row]["closest_hit"] <= 0:
+                fail(f"{label} card vs cpu: launches {counts}")
+            scale = float(np.abs(img_c).max())
+            close = np.isclose(img_g, img_c, rtol=1e-4, atol=1e-4 * scale)
+            keep = np.ones(img_c.shape, dtype=bool)
+            extra = ""
+            if label.startswith("canonical aov"):
+                keep, hit = aov_compared(img_g, img_c)
+                # triangle and instance ids: box-filtered means of equal
+                # integers, exact
+                ids_equal = bool(np.array_equal(img_g[..., AOV_IDS],
+                                                img_c[..., AOV_IDS]))
+                on_hit = close[hit][:, AOV_HIT_ONLY].mean()
+                on_miss = (close[~hit][:, AOV_HIT_ONLY].mean()
+                           if (~hit).any() else 1.0)
+                extra = (f"; prim_index and shape_index equal: {ids_equal}"
+                         f"; sh_normal and uv within tolerance on "
+                         f"{on_hit * 100:.2f}% of the values of the "
+                         f"{int(hit.sum())} pixels all hit, "
+                         f"{on_miss * 100:.2f}% on the others")
+                if not ids_equal or hit.mean() < 0.5 or on_hit < 0.99:
+                    fail("aov card vs cpu: the index channels differ, or "
+                         "sh_normal / uv on the pixels all hit")
+            close = close[keep]
+            rel_mean = (abs(img_g[keep].mean() - img_c[keep].mean())
+                        / max(abs(img_c[keep].mean()), 1e-30))
+            marked = ("" if rec is None else
+                      f"; {int(rec.marked.sum())} of 4096 lanes marked "
+                      "(ties, grazed edges) left out of both films")
+            print(f"cuda vs cpu {label} 16x16x16: {close.mean() * 100:.2f}% "
+                  f"of values within tolerance, mean rel diff "
+                  f"{rel_mean:.3g}, max abs diff "
+                  f"{float(np.abs(img_g - img_c)[keep].max()):.3g} (scale "
+                  f"{scale:.3g}){marked}{extra}", flush=True)
+            if (close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0
+                    or not np.isfinite(img_g).all()
+                    or (rec is not None and rec.marked.sum() > 409)):
+                fail(f"cuda vs cpu {label}: outside tolerance")
+        print(f"card vs cpu, integrators: "
+              f"{time.perf_counter() - t_step:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3241,6 +3702,9 @@ def main() -> int:
     # ---- 11. the scene dialect's surfaces and lights ----------------------
     dialect = dialect_phase(mi, reset_counts, read_counts, card)
 
+    # ---- 12. the rgb variant's other integrators ---------------------------
+    integrators = integrators_phase(mi, reset_counts, read_counts, card)
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     entries = [("intersect_bruteforce", B1_SOURCE, B1_TPU, b1,
@@ -3252,7 +3716,8 @@ def main() -> int:
                  times_l[row], launches_l[row], errs_l[row])
                 for row, _, name, line in ALTERNATES]
     kernels = []
-    # the launches of phase 11's renders, under the kernels they ran
+    # the launches of phase 11's and 12's renders, under the kernels they
+    # ran
     dialect_rows = {"intersect_bruteforce": "B1", "intersect_v4": "B2"}
     for name, src, tpu, times, launches, errs_k in entries:
         for form in ("closest_hit", "any_hit"):
@@ -3264,9 +3729,11 @@ def main() -> int:
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None})
             if name in dialect_rows:
-                for scene_name, counts in dialect.items():
-                    kernels[-1][f"launches_{scene_name}"] = counts[
-                        dialect_rows[name]][form]
+                for scene_name, counts in (*dialect.items(),
+                                           *integrators.items()):
+                    if dialect_rows[name] in counts:
+                        kernels[-1][f"launches_{scene_name}"] = counts[
+                            dialect_rows[name]][form]
     kernels += hero_entries(hero)
     print(f"wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

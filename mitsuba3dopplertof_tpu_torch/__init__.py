@@ -37,6 +37,8 @@ from . import textures as _textures        # noqa: F401
 from . import media as _media              # noqa: F401
 from . import volumes as _volumes          # noqa: F401
 from .integrators import volpath as _volpath  # noqa: F401
+from .integrators import extras as _extras    # noqa: F401
+from .integrators import ptracer as _ptracer  # noqa: F401
 
 from .core.fresolver import file_resolver
 from .io.dict_loader import load_dict as _load_dict

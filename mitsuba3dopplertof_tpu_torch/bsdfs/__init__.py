@@ -1,7 +1,9 @@
 """BSDF plugins and the masked type dispatch (port of the JAX package's
 ``bsdfs/__init__.py``: diffuse, with a constant or textured reflectance,
 twosided, null, conductor, roughconductor, dielectric, thindielectric,
-roughdielectric, plastic, roughplastic, mask and blendbsdf).
+roughdielectric, plastic, roughplastic, pplastic, principled,
+principledthin, mask and blendbsdf; the principled lobes are in
+``bsdfs/principled_impl.py``).
 
 Each BSDF compiles to one row of a parameter table (type id + float
 params); ``eval_pdf_sample`` evaluates every type present in the scene over
@@ -47,6 +49,8 @@ BSDF_ROUGHDIELECTRIC = 7
 BSDF_THINDIELECTRIC = 8
 BSDF_BLEND = 9
 BSDF_MASK = 10
+BSDF_PRINCIPLED = 11
+BSDF_PRINCIPLED_THIN = 17
 
 N_BSDF_PARAMS = 24
 # param columns (meaning depends on type)
@@ -66,6 +70,21 @@ P_NMAP_TEX = 15       # normal-map texture id (-1 = none)
 P_NESTED0 = 4
 P_NESTED1 = 5
 P_MIX = 6
+# principled / principledthin columns (the JAX package's slot reuse)
+P_PR_AX = 5           # GGX alpha_x (anisotropic-corrected)
+P_PR_AY = 6           # GGX alpha_y
+P_METALLIC = 7        # metallic
+P_SPECTUNE = 8        # spec_tint
+P_PR_SHEEN = 9        # sheen
+P_PR_SHEENTINT = 11   # sheen_tint
+P_PR_FLAT = 12        # flatness (fake subsurface blend)
+P_PR_CC = 13          # clearcoat (thin: diff_trans)
+P_PR_CCGLOSS = 18     # clearcoat_gloss (thin: diffuse transmittance rate)
+P_PR_STRANS = 19      # spec_trans
+P_PR_DSRATE = 20      # diffuse_reflectance_sampling_rate
+P_PR_SSRATE = 21      # main_specular_sampling_rate (thin: spec reflectance)
+P_PR_CSRATE = 22      # clearcoat_sampling_rate (thin: spec transmittance)
+P_PR_ROUGH = 23       # raw roughness (retro / fake subsurface term)
 
 # lobe flags (static per row, mirrors reference BSDFFlags)
 FLAG_SMOOTH = 1       # has a smooth (non-delta) lobe => NEE applies
@@ -73,7 +92,8 @@ FLAG_DELTA = 2        # sampling may return a delta lobe
 FLAG_NULL = 4         # null transmission lobe
 
 # types whose eval takes the (tex_refl, tex_mask) reflectance override
-TEXTURED_TYPES = (BSDF_DIFFUSE, BSDF_PLASTIC, BSDF_ROUGHPLASTIC)
+TEXTURED_TYPES = (BSDF_DIFFUSE, BSDF_PLASTIC, BSDF_ROUGHPLASTIC,
+                  BSDF_PRINCIPLED, BSDF_PRINCIPLED_THIN)
 
 # named IORs (reference src/render/ior.h subset)
 IOR_NAMES = {
@@ -443,6 +463,126 @@ class RoughPlastic(Plastic):
     def params_row(self):
         p = super().params_row()
         p[P_ALPHA] = self.alpha
+        return p
+
+
+@register_plugin("bsdf", "pplastic")
+class PPlastic(RoughPlastic):
+    """Polarized plastic (reference src/bsdfs/pplastic.cpp): in the rgb
+    variant the lobes of roughplastic, a GGX coat built from ``alpha``
+    (pplastic.cpp:170-175) over the diffuse base, and its row."""
+
+
+@register_plugin("bsdf", "principled")
+class Principled(BSDF):
+    """Principled BSDF (reference src/bsdfs/principled.cpp, Burley 2012 /
+    2015): diffuse + retro-reflection + fake subsurface (flatness), sheen
+    with tint, anisotropic GGX main specular with the metallic / spec_tint
+    Schlick blend, GTR1 clearcoat and the rough-dielectric transmission
+    lobe (spec_trans), with the one-to-one eta <-> specular mapping
+    (principled.cpp:224-239). ``base_color`` may be a texture."""
+    type_id = BSDF_PRINCIPLED
+    flags = FLAG_SMOOTH
+    thin = False
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.base_color = _get_rgb(props, "base_color", [0.5, 0.5, 0.5])
+        self.reflectance_tex = _get_texture(props, "base_color")
+        self.tex_index = -1
+        self.roughness = props.get_float("roughness", 0.5)
+        self.metallic = props.get_float("metallic", 0.0)
+        self.anisotropic = props.get_float("anisotropic", 0.0)
+        self.spec_tint = props.get_float("spec_tint", 0.0)
+        self.sheen = props.get_float("sheen", 0.0)
+        self.sheen_tint = props.get_float("sheen_tint", 0.0)
+        self.flatness = props.get_float("flatness", 0.0)
+        self.clearcoat = props.get_float("clearcoat", 0.0)
+        self.clearcoat_gloss = props.get_float("clearcoat_gloss", 0.0)
+        self.spec_trans = props.get_float("spec_trans", 0.0)
+        self.diff_srate = props.get_float(
+            "diffuse_reflectance_sampling_rate", 1.0)
+        self.spec_srate = props.get_float(
+            "main_specular_sampling_rate", 1.0)
+        self.cc_srate = props.get_float("clearcoat_sampling_rate", 1.0)
+        # eta and specular are one-to-one (principled.cpp:222-239)
+        if props.has_property("eta") and props.has_property("specular"):
+            raise ValueError(
+                "principled: specify either 'eta' or 'specular', not both")
+        if props.has_property("eta"):
+            eta = props.get_float("eta")
+            if self.spec_trans > 0.0 and eta == 1.0:
+                eta = 1.001        # eta = 1 cannot transmit
+        elif self.thin:
+            eta = 1.5              # thin: no specular mapping
+        else:
+            spec = props.get_float("specular", 0.5)
+            if self.spec_trans > 0.0 and spec == 0.0:
+                spec = 1e-3
+            eta = 2.0 / (1.0 - np.sqrt(0.08 * spec)) - 1.0
+        self.eta = float(eta)
+
+    def params_row(self):
+        r2 = self.roughness * self.roughness
+        if self.anisotropic > 0.0:
+            aspect = float(np.sqrt(1.0 - 0.9 * self.anisotropic))
+            ax, ay = max(1e-3, r2 / aspect), max(1e-3, r2 * aspect)
+        else:
+            ax = ay = max(1e-3, r2)
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_REFL:P_REFL + 3] = self.base_color
+        p[P_TWOSIDED] = 1.0 if self.two_sided else 0.0
+        p[P_ETA] = self.eta
+        p[P_PR_AX] = ax
+        p[P_PR_AY] = ay
+        p[P_METALLIC] = self.metallic
+        p[P_SPECTUNE] = self.spec_tint
+        p[P_PR_SHEEN] = self.sheen
+        p[P_ALPHA] = max(r2, 1e-3)
+        p[P_PR_SHEENTINT] = self.sheen_tint
+        p[P_PR_FLAT] = self.flatness
+        p[P_PR_CC] = self.clearcoat
+        p[P_PR_CCGLOSS] = self.clearcoat_gloss
+        p[P_PR_STRANS] = self.spec_trans
+        p[P_PR_DSRATE] = self.diff_srate
+        p[P_PR_SSRATE] = self.spec_srate
+        p[P_PR_CSRATE] = self.cc_srate
+        p[P_PR_ROUGH] = self.roughness
+        p[P_REFL_TEX] = float(self.tex_index)
+        return p
+
+
+@register_plugin("bsdf", "principledthin")
+class PrincipledThin(Principled):
+    """reference src/bsdfs/principledthin.cpp: the thin-sheet variant,
+    with GGX specular reflection, specular "transmission" (reflect and
+    flip with the Burley-2015 scaled roughness, :360-380), diffuse
+    reflection (+retro, fake subsurface, sheen) and diffuse transmission
+    (diff_trans in [0, 2]); no metallic or clearcoat, two-sided by
+    nature."""
+    type_id = BSDF_PRINCIPLED_THIN
+    thin = True
+
+    def __init__(self, props: Properties):
+        self.diff_trans = props.get_float("diff_trans", 0.0)
+        self.dt_srate = props.get_float(
+            "diffuse_transmittance_sampling_rate", 1.0)
+        self.sr_srate = props.get_float(
+            "specular_reflectance_sampling_rate", 1.0)
+        self.st_srate = props.get_float(
+            "specular_transmittance_sampling_rate", 1.0)
+        super().__init__(props)
+
+    def params_row(self):
+        p = super().params_row()
+        # column reuse: clearcoat = diff_trans, its gloss = that lobe's
+        # rate, the clearcoat rate = spec transmittance's, the main
+        # specular rate = spec reflectance's
+        p[P_PR_CC] = self.diff_trans
+        p[P_PR_CCGLOSS] = self.dt_srate
+        p[P_PR_SSRATE] = self.sr_srate
+        p[P_PR_CSRATE] = self.st_srate
+        p[P_TWOSIDED] = 0.0          # symmetric by construction
         return p
 
 
@@ -869,6 +1009,12 @@ _DISPATCH = {
 }
 
 
+from .principled_impl import (principled_eval_pdf_sample,  # noqa: E402
+                              principledthin_eval_pdf_sample)
+_DISPATCH[BSDF_PRINCIPLED] = principled_eval_pdf_sample
+_DISPATCH[BSDF_PRINCIPLED_THIN] = principledthin_eval_pdf_sample
+
+
 def remap_wrapper_rows(sa, lane_bsdf, s1):
     """Lanes on a mask or blendbsdf row move to one of its nested rows,
     row 1 with probability P_MIX, and the lobe sample is rescaled for the
@@ -931,11 +1077,13 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
 __all__ = [
     "BSDF", "Diffuse", "TwoSided", "Null", "Conductor", "RoughConductor",
     "Dielectric", "ThinDielectric", "RoughDielectric", "Plastic",
-    "RoughPlastic", "Mask", "BlendBSDF", "BSDFSampleResult",
+    "RoughPlastic", "PPlastic", "Principled", "PrincipledThin", "Mask",
+    "BlendBSDF", "BSDFSampleResult",
     "eval_pdf_sample", "remap_wrapper_rows", "N_BSDF_PARAMS",
     "FLAG_SMOOTH", "FLAG_DELTA", "FLAG_NULL", "BSDF_DIFFUSE", "BSDF_NULL",
     "BSDF_CONDUCTOR", "BSDF_DIELECTRIC", "BSDF_ROUGHCONDUCTOR",
     "BSDF_PLASTIC", "BSDF_ROUGHPLASTIC", "BSDF_ROUGHDIELECTRIC",
-    "BSDF_THINDIELECTRIC", "BSDF_BLEND", "BSDF_MASK", "P_REFL",
+    "BSDF_THINDIELECTRIC", "BSDF_BLEND", "BSDF_MASK", "BSDF_PRINCIPLED",
+    "BSDF_PRINCIPLED_THIN", "P_REFL",
     "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "TEXTURED_TYPES",
 ]

@@ -1,7 +1,7 @@
 """Emitter plugins and emitter sampling (port of the JAX package's
-``emitters/__init__.py``: the point, spot and directional emitters, the
-area emitter on rectangles, meshes and analytic spheres, and the constant
-and envmap environments).
+``emitters/__init__.py``: the point, spot, directional and projector
+emitters, the area emitter on rectangles, meshes and analytic spheres, the
+directionalarea emitter, and the constant and envmap environments).
 
 Sampling follows the masked type dispatch over the compiled emitter table;
 the uniform emitter choice replicates reference src/render/scene.cpp:170-188
@@ -20,6 +20,7 @@ from ..core.vec import (Vec3, dot, cross, normalize, where3, cmat_lerp,
                         cmat_apply_point, cmat_apply_vector,
                         coordinate_system)
 from ..render.types import DirectionSample
+from ..textures import eval_texture
 
 # type ids (the JAX package's numbering)
 EMITTER_POINT = 0         # point light (delta position)
@@ -29,6 +30,9 @@ EMITTER_AREA_MESH = 3     # area emitter on any other mesh (CDF-sampled)
 EMITTER_DIRECTIONAL = 4   # delta direction
 EMITTER_SPOT = 5          # point light with an angular falloff
 EMITTER_ENVMAP = 6        # image-based environment light
+EMITTER_PROJECTOR = 7     # textured spot through a frustum (delta position)
+EMITTER_DIRECTIONALAREA = 8   # area emitter along its normal only (delta
+                              # direction): ptracer transports it
 EMITTER_AREA_SPHERE = 9   # area emitter on an analytic sphere (cone-sampled)
 
 N_EMITTER_PARAMS = 16
@@ -37,8 +41,9 @@ E_POS = 0          # point, spot: position / directional: direction /
 E_INTENSITY = 3    # point, spot: rgb intensity / area, constant: rgb
                    # radiance / directional: rgb irradiance
 E_AREA = 6         # total world-space surface area
-E_CUTOFF = 7       # spot: cos cutoff / sphere: world radius
-E_BEAM = 8         # spot: cos beam width
+E_CUTOFF = 7       # spot: cos cutoff / sphere: world radius /
+                   # projector: tan of the half field of view
+E_BEAM = 8         # spot: cos beam width / projector: texture id
 E_RAD_TEX = 8      # area: radiance texture id (-1 = constant); the column
                    # of E_BEAM, which only spots use
 E_SPH_SLOT = 9     # sphere: the animated sphere's slot in the sphere
@@ -167,6 +172,57 @@ class SpotEmitter(Emitter):
         p[E_BEAM] = self.cos_beam
         p[E_AXIS:E_AXIS + 3] = self.direction
         return p
+
+
+@register_plugin("emitter", "projector")
+class ProjectorEmitter(Emitter):
+    """reference src/emitters/projector.cpp — a point light projecting an
+    image (a bitmap texture, or a constant ``irradiance``) through a
+    square perspective frustum of field of view ``fov`` along its +z axis;
+    a delta light. Its row keeps the JAX package's column 9 (the first
+    entry of the inverse rotation); the frustum's rotation is the
+    emitter's matrix."""
+    type_id = EMITTER_PROJECTOR
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..bsdfs import _get_rgb
+        from ..textures import Texture
+        m = props.get_transform("to_world", np.eye(4))
+        self.position = m[:3, 3]
+        self.to_world = m
+        self.scale = props.get_float("scale", 1.0)
+        fov = props.get_float("fov", 45.0)
+        self.tan_half = float(np.tan(np.radians(fov) * 0.5))
+        self.irradiance_tex = None
+        for _, v in props.objects():
+            if isinstance(v, Texture):
+                self.irradiance_tex = v
+        if props.has_property("irradiance"):
+            self.irradiance = _get_rgb(props, "irradiance", [1, 1, 1])
+        elif self.irradiance_tex is not None:
+            self.irradiance = np.asarray(self.irradiance_tex.mean_rgb())
+        else:
+            self.irradiance = np.ones(3)
+        self.tex_index = -1   # assigned at scene compile
+
+    def params_row(self):
+        p = np.zeros(N_EMITTER_PARAMS)
+        p[E_POS:E_POS + 3] = self.position
+        p[E_INTENSITY:E_INTENSITY + 3] = self.irradiance * self.scale
+        p[E_CUTOFF] = self.tan_half
+        p[E_BEAM] = float(self.tex_index)
+        p[9] = np.linalg.inv(self.to_world[:3, :3])[0, 0]
+        return p
+
+
+@register_plugin("emitter", "directionalarea")
+class DirectionalAreaEmitter(AreaEmitter):
+    """reference src/emitters/directionalarea.cpp — an area emitter that
+    radiates only along its surface normal (delta in direction): a camera
+    ray never sees it and NEE cannot sample it; ``ptracer`` transports it
+    as a collimated source."""
+    type_id = EMITTER_DIRECTIONALAREA
 
 
 def _anim_matrix(sa, ii: int, time):
@@ -393,6 +449,37 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             # its spec is already the radiance over the pdf
             ds, spec = envmap_sample_direction(sa, ref_p, s_x, s_y)
             ds = ds._replace(emitter=index)
+        elif tid == EMITTER_PROJECTOR:
+            pos = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
+            d = pos - ref_p
+            dist2 = torch.clamp(dot(d, d), min=1e-20)
+            inv_dist = torch.rsqrt(dist2)
+            dist = dist2 * inv_dist
+            dirn = d * inv_dist
+            # the direction from the projector to the point, in its space
+            lx = -(mrow(0) * dirn.x + mrow(4) * dirn.y + mrow(8) * dirn.z)
+            ly = -(mrow(1) * dirn.x + mrow(5) * dirn.y + mrow(9) * dirn.z)
+            lz = -(mrow(2) * dirn.x + mrow(6) * dirn.y + mrow(10) * dirn.z)
+            th = param(E_CUTOFF)
+            lzc = torch.clamp(lz, min=1e-6)
+            u = 0.5 * (1.0 - lx / lzc / th)
+            v = 0.5 * (1.0 - ly / lzc / th)
+            inside = ((lz > 1e-6) & (u >= 0) & (u < 1) & (v >= 0)
+                      & (v < 1))
+            base = inten
+            if int(sa.n_textures) > 0:
+                texid = param(E_BEAM).to(torch.int32)
+                base = where3(texid >= 0, eval_texture(sa, texid, u, v),
+                              base)
+            spec = base * (inv_dist * inv_dist
+                           * torch.where(inside, 1.0, 0.0))
+            ds = DirectionSample(pos, Vec3(z, z, z), dirn, dist,
+                                 torch.where(inside, 1.0, 0.0), ~false_,
+                                 index)
+        elif tid == EMITTER_DIRECTIONALAREA:
+            # a delta direction: NEE cannot sample it (directionalarea.cpp)
+            spec = Vec3(z, z, z)
+            ds = DirectionSample(spec, spec, spec, z, z, ~false_, index)
         else:
             raise NotImplementedError(
                 f"emitter type {tid} is not ported yet "
@@ -424,7 +511,8 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
     lane_type = sa.emitter_type[idx]
     pdf = torch.zeros_like(ds.dist)
     for tid in sa.emitter_types_present:
-        if tid in (EMITTER_POINT, EMITTER_SPOT, EMITTER_DIRECTIONAL):
+        if tid in (EMITTER_POINT, EMITTER_SPOT, EMITTER_DIRECTIONAL,
+                   EMITTER_PROJECTOR, EMITTER_DIRECTIONALAREA):
             # delta lights: a BSDF-sampled direction never reaches them
             pdf = torch.where(lane_type == tid, 0.0, pdf)
             continue
@@ -490,9 +578,13 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
 
 def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter):
     """Radiance of an emitter hit by a ray (reference area.cpp eval:82-90):
-    front side only. ``towards`` points from the surface to the viewer."""
+    front side only. ``towards`` points from the surface to the viewer. A
+    directionalarea emitter shows nothing to a ray (its emission is a
+    delta in direction)."""
     idx = torch.clamp(lane_emitter, min=0).long()
     ok = (lane_emitter >= 0) & (dot(si_n, towards) > 0.0)
+    if EMITTER_DIRECTIONALAREA in sa.emitter_types_present:
+        ok = ok & (sa.emitter_type[idx] != EMITTER_DIRECTIONALAREA)
     inten = Vec3(sa.emitter_params[E_INTENSITY][idx],
                  sa.emitter_params[E_INTENSITY + 1][idx],
                  sa.emitter_params[E_INTENSITY + 2][idx])
@@ -671,12 +763,14 @@ def envmap_pdf_direction(sa, d: Vec3):
 
 __all__ = [
     "Emitter", "PointEmitter", "AreaEmitter", "ConstantEmitter",
-    "DirectionalEmitter", "SpotEmitter", "EnvmapEmitter",
+    "DirectionalEmitter", "SpotEmitter", "EnvmapEmitter", "ProjectorEmitter",
+    "DirectionalAreaEmitter",
     "sample_direction", "pdf_direction", "eval_emitter_hit", "envmap_eval",
     "environment_eval", "environment_pdf_direction",
     "envmap_sample_direction", "envmap_pdf_direction", "build_alias",
     "N_EMITTER_PARAMS", "EMITTER_POINT", "EMITTER_AREA_RECT",
     "EMITTER_CONSTANT", "EMITTER_AREA_MESH", "EMITTER_DIRECTIONAL",
-    "EMITTER_SPOT", "EMITTER_ENVMAP", "EMITTER_AREA_SPHERE", "E_POS",
+    "EMITTER_SPOT", "EMITTER_ENVMAP", "EMITTER_AREA_SPHERE",
+    "EMITTER_PROJECTOR", "EMITTER_DIRECTIONALAREA", "E_POS",
     "E_INTENSITY", "E_AREA", "E_CUTOFF", "E_BEAM", "E_SPH_SLOT",
 ]

@@ -1,6 +1,6 @@
 """Film plugins and image accumulation (port of the JAX package's
 ``films/__init__.py``: hdrfilm, ``block_create``, ``filter_reach``,
-``block_splat_wavefront`` and ``develop``).
+``block_splat_wavefront``, ``block_splat_scatter`` and ``develop``).
 
 The reference accumulates weighted samples with atomic scatter_reduce
 (src/render/imageblock.cpp:119-127,174-400) and develops rgb = value /
@@ -189,10 +189,35 @@ def block_splat_wavefront(block, rfilter, pos_x, pos_y, values: List,
     return block
 
 
+def block_splat_scatter(block, px, py, values: List, active, W: int, H: int):
+    """Add records that land in arbitrary pixels (the light tracer's
+    ImageBlock::put, reference imageblock.cpp:119-127) to
+    ``block[c, py, px]`` (in place; returned). ``values`` is C (N,)
+    channel tensors; inactive records add nothing.
+
+    The JAX package sorts the records by pixel and takes each pixel's sum
+    as the difference of one float32 running sum over the whole pass at
+    its segment's ends. That difference carries the rounding of the
+    running sum up to the segment: at 2^20 records over 256 x 256 pixels
+    its error is about 1% of the mean pixel, against 6e-7 for a direct
+    sum (tests/test_torch_ptracer.py). So the port adds each
+    record into its pixel with one ``index_add_``: in record order on the
+    CPU, by atomic adds (in no fixed order) on the card."""
+    C = len(values)
+    npix = W * H
+    # inactive records go to a spare pixel past the image
+    pid = torch.where(active, py * W + px, npix).to(torch.int64)
+    vals = torch.stack([torch.where(active, v, 0.0) for v in values])
+    acc = torch.zeros((C, npix + 1), device=px.device).index_add_(1, pid,
+                                                                   vals)
+    block[:C, :H] += acc[:, :npix].reshape(C, H, W)
+    return block
+
+
 def develop(block, has_alpha: bool, weight_idx: int = None):
     """value / weight per channel (reference hdrfilm.cpp:305+), the weight
     channel dropped; pixels of zero weight develop to 0. Returns (H, W,
-    C-1)."""
+    C-1): RGB[A], then the integrator's AOVs."""
     if weight_idx is None:
         weight_idx = 4 if has_alpha else 3
     w = block[weight_idx]
@@ -203,4 +228,4 @@ def develop(block, has_alpha: bool, weight_idx: int = None):
 
 
 __all__ = ["Film", "HDRFilm", "block_create", "filter_reach",
-           "block_splat_wavefront", "develop"]
+           "block_splat_wavefront", "block_splat_scatter", "develop"]

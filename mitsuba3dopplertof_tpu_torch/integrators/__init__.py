@@ -1,9 +1,11 @@
 """Integrator plugins and render orchestration (port of the JAX package's
 ``integrators/__init__.py``: ``SamplingIntegrator.render`` with strip
-passes, timeout, ``cancel()`` and checkpoints, the rgb sample body, the MIS
-path loop with environment emission, textured reflectance and null
-crossings, ``path``, ``dopplertofpath``, ``velocity`` and ``depth``;
-``volpath`` is in ``integrators/volpath.py``).
+passes, timeout, ``cancel()``, checkpoints and AOV channels, the rgb sample
+body, the MIS path loop with environment emission, textured reflectance,
+null crossings and ``use_nee``, ``path``, ``dopplertofpath``, ``velocity``
+and ``depth``; ``volpath`` and ``volpathmis`` are in
+``integrators/volpath.py``, ``direct``, ``aov`` and ``moment`` in
+``integrators/extras.py``, ``ptracer`` in ``integrators/ptracer.py``).
 
   * render orchestration (wavefront sizing, passes, film)
       — reference src/render/integrator.cpp:104-347
@@ -81,6 +83,11 @@ class Integrator:
         return self._cancel or (self.timeout > 0.0
                                 and _time.time() - start_time > self.timeout)
 
+    def aov_names(self):
+        """The names of the channels this integrator adds after the film's
+        own (aov and moment have some)."""
+        return []
+
 
 class SamplingIntegrator(Integrator):
     """Adds the fork's Doppler/time-sampling parameters
@@ -108,6 +115,8 @@ class SamplingIntegrator(Integrator):
         self.samples_per_pass = props.get_int("samples_per_pass", -1)
 
     def sample(self, sa, sampler, state, ray: Ray, active):
+        """(spectrum, valid, sampler state, AOV channels): one channel
+        tensor per name of ``aov_names()``, so an empty list for most."""
         raise NotImplementedError
 
     def render(self, scene, sensor=None, seed: int = 0, spp: int = 0,
@@ -165,7 +174,8 @@ class SamplingIntegrator(Integrator):
         sampler.set_samples_per_wavefront(spp_per_pass)
         sa = scene.compile(device)
         state = sampler.seed(seed, n_lanes, device=sa.device)
-        n_channels = film.channel_count
+        # the film's channels, then the integrator's AOVs
+        n_channels = film.channel_count + len(self.aov_names())
         if strip_mode:
             # canvas: filter-reach pads + whole strips (a ragged last strip
             # renders inactive lanes); the center [pad, pad+H) is the image
@@ -236,9 +246,10 @@ class SamplingIntegrator(Integrator):
 
 def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
     """The per-lane sample body: pixel decode, sampler draws, camera ray,
-    integrator, film channels (rgb variant). Returns ``sample_wavefront(sa,
-    state, lane, active) -> (values, put_x, put_y, active, state)`` with
-    ``lane`` the global lane ids (lane // spp = pixel, row-major)."""
+    integrator, film channels (rgb variant; an integrator's AOVs follow
+    RGB, alpha and the weight). Returns ``sample_wavefront(sa, state, lane,
+    active) -> (values, put_x, put_y, active, state)`` with ``lane`` the
+    global lane ids (lane // spp = pixel, row-major)."""
     sensor_params = sensor.device_params()
     lens_params = (sensor.device_lens_params()
                    if hasattr(sensor, "device_lens_params") else None)
@@ -290,16 +301,16 @@ def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
 
         ray, ray_weight = sample_ray_kind(sensor_params, lens_params, time,
                                           adj_x, adj_y, ap_x, ap_y)
-        spec, valid, state = integrator.sample(sa, sampler, state, ray,
-                                               active)
+        spec, valid, state, aovs = integrator.sample(sa, sampler, state, ray,
+                                                     active)
         spec = spec * ray_weight
 
         one = torch.ones((n,), device=lane.device)
         if has_alpha:
             values = [spec.x, spec.y, spec.z, torch.where(valid, 1.0, 0.0),
-                      one]
+                      one] + aovs
         else:
-            values = [spec.x, spec.y, spec.z, one]
+            values = [spec.x, spec.y, spec.z, one] + aovs
         # box filter: accumulate into the sample's own pixel
         # (imageblock.cpp:471)
         put_x = px if rfilter.is_box else sx
@@ -352,9 +363,10 @@ class MonteCarloIntegrator(SamplingIntegrator):
         self.rr_depth = props.get_int("rr_depth", 5)
         if self.rr_depth <= 0:
             raise RuntimeError("rr_depth must be > 0")
-        if not props.get_bool("use_nee", True):
-            raise NotImplementedError(
-                "use_nee=false is not ported yet (ROADMAP Queue A item 10)")
+        # pure BSDF sampling with use_nee=false (the reference's
+        # prb_basic): no emitter draws are used, no shadow rays, and
+        # emitter hits are not MIS-weighted
+        self.use_nee = props.get_bool("use_nee", True)
 
     @property
     def loop_iterations(self) -> int:
@@ -400,7 +412,8 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
                               device=dev)
     pcd = integrator.path_correlation_depth
     depth_cap = min(integrator.max_depth, 2 ** 31 - 1)
-    nee_on = sa.n_emitters > 0
+    any_emission = sa.n_emitters > 0
+    nee_on = any_emission and integrator.use_nee
 
     def weight_fn(t, pl):
         if modulation_weight is None:
@@ -434,7 +447,7 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
         lane_emitter = torch.where(
             si.valid, sa.inst_emitter[torch.clamp(si.inst, min=0).long()],
             -1)
-        if nee_on:
+        if any_emission:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
                                              lane_emitter)
             if has_env:
@@ -446,21 +459,26 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
             else:
                 emit_mask = active & (lane_emitter >= 0)
             # MIS pdf of NEE sampling this hit from the previous vertex
-            d_seg = si.p - prev_p
-            dist = torch.sqrt(torch.clamp(dot(d_seg, d_seg), min=1e-20))
-            ds_hit = DirectionSample(
-                p=si.p, n=si.sh_n, d=d_seg * (1.0 / dist), dist=dist,
-                pdf=zero, delta=torch.zeros_like(active),
-                emitter=lane_emitter)
-            em_pdf = torch.where(prev_bsdf_delta, 0.0, em_mod.pdf_direction(
-                sa, ds_hit, prim=si.prim, time=ray.time))
-            if has_env:
-                # NEE samples the environment too: escaped rays are
-                # MIS-weighted against it
-                env_pdf = em_mod.environment_pdf_direction(sa, ray.d) * (
-                    1.0 / max(sa.n_emitters, 1))
-                em_pdf = torch.where(miss_env & ~prev_bsdf_delta, env_pdf,
-                                     em_pdf)
+            # (without NEE the hit is weighted 1)
+            em_pdf = zero
+            if nee_on:
+                d_seg = si.p - prev_p
+                dist = torch.sqrt(torch.clamp(dot(d_seg, d_seg), min=1e-20))
+                ds_hit = DirectionSample(
+                    p=si.p, n=si.sh_n, d=d_seg * (1.0 / dist), dist=dist,
+                    pdf=zero, delta=torch.zeros_like(active),
+                    emitter=lane_emitter)
+                em_pdf = torch.where(prev_bsdf_delta, 0.0,
+                                     em_mod.pdf_direction(
+                                         sa, ds_hit, prim=si.prim,
+                                         time=ray.time))
+                if has_env:
+                    # NEE samples the environment too: escaped rays are
+                    # MIS-weighted against it
+                    env_pdf = em_mod.environment_pdf_direction(
+                        sa, ray.d) * (1.0 / max(sa.n_emitters, 1))
+                    em_pdf = torch.where(miss_env & ~prev_bsdf_delta,
+                                         env_pdf, em_pdf)
             mis_bsdf = mis_weight(prev_bsdf_pdf, em_pdf)
             lw = weight_fn(ray.time, path_length)
             scale = torch.where(emit_mask, mis_bsdf * lw, 0.0)
@@ -530,7 +548,7 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
                   ray.time, new_ray.maxt)
 
     spec = where3(valid_ray, result, Vec3(zero, zero, zero))
-    return spec, valid_ray, state
+    return spec, valid_ray, state, []
 
 
 @register_plugin("integrator", "path")
@@ -616,7 +634,7 @@ class VelocityIntegrator(MonteCarloIntegrator):
                     - torch.where(si1.valid, si1.t, 0.0)) / self.time
         valid = si1.valid & si2.valid
         v = torch.where(valid, velocity, 0.0)
-        return Vec3(v, v, v), valid, state
+        return Vec3(v, v, v), valid, state, []
 
 
 @register_plugin("integrator", "depth")
@@ -626,7 +644,7 @@ class DepthIntegrator(SamplingIntegrator):
     def sample(self, sa, sampler, state, ray, active):
         si = ray_intersect(sa, ray, active)
         v = torch.where(si.valid, si.t, 0.0)
-        return Vec3(v, v, v), si.valid, state
+        return Vec3(v, v, v), si.valid, state, []
 
 
 __all__ = [

@@ -229,6 +229,13 @@ class VolPathIntegrator(MonteCarloIntegrator):
         return _volpath_loop(self, sa, sampler, state, ray, active)
 
 
+@register_plugin("integrator", "volpathmis")
+class VolPathMISIntegrator(VolPathIntegrator):
+    """reference volpathmis.cpp, the spectral-MIS variant: in the rgb
+    variant its estimator is volpath's, and so is its class (the JAX
+    package's subclass overrides nothing)."""
+
+
 def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
@@ -461,7 +468,7 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
                   torch.full((n,), float("inf"), device=dev))
 
     spec = where3(valid_ray, result, Vec3(zero, zero, zero))
-    return spec, valid_ray, state
+    return spec, valid_ray, state, []
 
 
 __all__ = ["VolPathIntegrator"]

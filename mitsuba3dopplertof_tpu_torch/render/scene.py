@@ -185,7 +185,8 @@ class Scene:
         from ..bsdfs import BlendBSDF, Diffuse, Mask, Null, P_NMAP_TEX
         from ..core.properties import Properties
         from ..emitters import (E_AREA, E_CUTOFF, E_POS, E_SPH_SLOT,
-                                EMITTER_AREA_MESH, EMITTER_AREA_SPHERE,
+                                EMITTER_AREA_MESH, EMITTER_AREA_RECT,
+                                EMITTER_AREA_SPHERE,
                                 N_EMITTER_PARAMS)
         from ..ops.intersect_stream import chunk_aabbs
         from ..shapes import RectangleShape
@@ -223,17 +224,27 @@ class Scene:
         from ..textures import N_TEX_PARAMS, T_ATLAS, TEX_BITMAP
         tex_objs: List[Any] = []
         tex_index: Dict[int, int] = {}
+
+        def add_tex(t):
+            if id(t) not in tex_index:
+                tex_index[id(t)] = len(tex_objs)
+                tex_objs.append(t)
+            return tex_index[id(t)]
+
         for b in bsdf_objs:
             t = getattr(b, "reflectance_tex", None)
             if t is None and hasattr(b, "nested"):
                 t = getattr(b.nested, "reflectance_tex", None)
             if t is not None:
-                if id(t) not in tex_index:
-                    tex_index[id(t)] = len(tex_objs)
-                    tex_objs.append(t)
-                b.tex_index = tex_index[id(t)]
+                b.tex_index = add_tex(t)
                 if hasattr(b, "nested"):
                     b.nested.tex_index = b.tex_index
+        for em in self.emitters:
+            # the projector's image (area emitters with a texture are not
+            # ported: their constructor raises)
+            t = getattr(em, "irradiance_tex", None)
+            if t is not None:
+                em.tex_index = add_tex(t)
         tex_rows, tex_types, tex_h, atlas = [], [], [], []
         atlas_off = 0
         for t in tex_objs:
@@ -288,7 +299,8 @@ class Scene:
             elif em.shape is not None:
                 m0 = em.shape.to_world.matrices()[0]
                 row[E_AREA] = float(np.sum(em.shape.mesh.surface_areas(m0)))
-                if (not isinstance(em.shape, RectangleShape)
+                if etype == EMITTER_AREA_RECT and (
+                        not isinstance(em.shape, RectangleShape)
                         or em.shape.to_world.animated):
                     # animated rect emitters also take the mesh-CDF path
                     # so their sampled points follow the keyframe lerp

@@ -2,7 +2,8 @@
 scene dicts for ``load_dict``: an animated UV-sphere mesh (2k, 10k, 40k or
 100k triangles) under a point light, rendered with ``dopplertofpath`` and
 a correlated sampler; a static 50k-triangle mesh rendered with ``path``;
-and the deep-path row, a sphere light in a diffuse box. The OBJ writer is
+the deep-path row, a sphere light in a diffuse box; and the volpath row, a
+homogeneous medium in a cube. The OBJ writer is
 the port's own copy of ``uvsphere_obj``; the PLY writer writes the same
 sphere.
 
@@ -135,6 +136,34 @@ def deep_path_scene(spp: int, res: int = 256, tf=None) -> dict:
                               "radiance": {"type": "rgb", "value": 12.0}}},
         "sensor": {"type": "perspective", "fov": 60,
                    "to_world": tf.look_at([0, 0, -2.6], [0, 0, 0],
+                                          [0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+    }
+
+
+def volpath_scene(spp: int, res: int = 256, tf=None) -> dict:
+    """bench_suite ``volpath_scene`` as written: a 1.2-scaled cube with a
+    null BSDF holding a homogeneous medium (sigma_t 1.5, albedo 0.8) over
+    a floor, lit by a point light, ``volpath`` with max_depth 6, an
+    independent sampler."""
+    tf = tf or _tf
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": 6},
+        "medium_box": {"type": "cube",
+                       "to_world": tf.scale([1.2] * 3),
+                       "bsdf": {"type": "null"},
+                       "interior": {"type": "homogeneous",
+                                    "sigma_t": {"type": "rgb", "value": 1.5},
+                                    "albedo": {"type": "rgb", "value": 0.8}}},
+        "floor": {"type": "rectangle",
+                  "to_world": tf.translate([0, -1.5, 0])
+                  @ tf.rotate([1, 0, 0], -90) @ tf.scale([6, 6, 1])},
+        "light": {"type": "point", "position": [0, 4, -4],
+                  "intensity": {"type": "rgb", "value": 40.0}},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": tf.look_at([0, 0.5, -4], [0, 0, 0],
                                           [0, 1, 0]),
                    "film": {"type": "hdrfilm", "width": res, "height": res},
                    "sampler": {"type": "independent", "sample_count": spp}},

@@ -846,3 +846,98 @@ def test_glass_scene_v3_route_gives_b2_image(cuda, tmp_path, monkeypatch):
     assert min(v3.LAUNCHES_BY_FORM.values()) > 0
     scale = np.abs(b2).max()
     assert np.isclose(b5, b2, rtol=1e-4, atol=1e-4 * scale).all()
+
+
+def _chip_smoke():
+    import sys
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke
+
+
+def _canonical_integrator(integ):
+    """A loader of (the canonical stand-in at 16x16 x 16 spp, the
+    integrator ``integ``; nested "own": around the scene's own); aov's
+    scene has a box filter and an alpha channel
+    (``chip_smoke.aov_check_dict``)."""
+    def load(dev):
+        chip_smoke = _chip_smoke()
+        scene = (mt.load_dict(chip_smoke.aov_check_dict(mt), device=dev)
+                 if integ.get("type") == "aov"
+            else mt.load_file(CANONICAL, device=dev, spp=16, resx=16,
+                              resy=16))
+        d = dict(integ)
+        if d.get("nested") == "own":
+            d["nested"] = scene.integrator
+        return scene, mt.load_dict(d, device=dev)
+    return load
+
+
+def _new_path(case, tmp_path):
+    """(loader of (scene, integrator or None), kernel module, whether to
+    leave tie lanes out) of a phase-12 path at 16x16 x 16 spp."""
+    chip_smoke = _chip_smoke()
+    if case == "principled":
+        obj = str(tmp_path / "sphere_2k.obj")
+        write_uv_sphere_obj(obj, *ANIMATED_SIZES["2k"])
+        return (lambda dev: (mt.load_dict(chip_smoke.principled_dict(
+            obj, 16, 16), device=dev), None)), v4, True
+    if case == "ptracer":
+        return (lambda dev: (mt.load_dict(
+            chip_smoke.ptracer_emitters_dict(16), device=dev), None)), ik, \
+            False
+    integ = {"moment": {"type": "moment", "nested": "own"},
+             "aov": {"type": "aov", "aovs": chip_smoke.AOV_CHECK,
+                     "nested": {"type": "path", "max_depth": 4}},
+             "direct": {"type": "direct"}}[case]
+    return _canonical_integrator(integ), ik, False
+
+
+@pytest.mark.parametrize("case", ["moment", "aov", "direct", "ptracer",
+                                  "principled"])
+def test_new_path_on_card_matches_cpu(cuda, tmp_path, case):
+    """chip_smoke.py's phase 12 paths at 16x16 x 16 spp, card against CPU
+    with phase 8's criteria (>= 99% of values within rtol 1e-4, atol 1e-4
+    * max|cpu|, the mean within 1e-3): moment, aov (box filter; its
+    triangle and instance ids equal), direct and ptracer (the projector /
+    directionalarea scene) through B1; the principled scene with the 2k
+    sphere through B2, the lanes that meet a tie or graze an edge left out
+    of both films (torch_ties.TieRecorder, at most 10% of the lanes).
+    aov's shading normal and uv are compared on the pixels every sample of
+    which hit, at least half of them (on a missed lane they are the
+    query's payload: triangle 0's in the plain versions, the kernel's own
+    on the card); its other channels everywhere."""
+    import contextlib
+    from torch_ties import TieRecorder
+    load, mod, ties = _new_path(case, tmp_path)
+    ctx = contextlib.nullcontext()
+    if ties:
+        rec = TieRecorder(16 * 16 * 16, "cpu")
+        with rec.hooked():
+            scene, integ = load("cpu")
+            mt.render(scene, spp=16, seed=0, integrator=integ)
+        assert int(rec.marked.sum()) <= 0.1 * rec.marked.numel()
+        ctx = rec.dropped()
+    imgs = []
+    with ctx:
+        for dev in (cuda, "cpu"):
+            mod.reset_launch_counts()
+            scene, integ = load(dev)
+            imgs.append(mt.render(scene, spp=16, seed=0,
+                                  integrator=integ).cpu().numpy())
+            if dev is cuda:
+                assert mod.LAUNCHES_BY_FORM["closest_hit"] > 0
+    g, c = imgs
+    scale = np.abs(c).max()
+    assert scale > 0.0 and np.isfinite(g).all()
+    close = np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale)
+    keep = np.ones(c.shape, dtype=bool)
+    if case == "aov":
+        chip_smoke = _chip_smoke()
+        keep, hit = chip_smoke.aov_compared(g, c)
+        assert np.array_equal(g[..., chip_smoke.AOV_IDS],
+                              c[..., chip_smoke.AOV_IDS])
+        assert hit.mean() >= 0.5
+        assert close[hit][:, chip_smoke.AOV_HIT_ONLY].mean() >= 0.99
+    assert close[keep].mean() >= 0.99
+    assert abs(g[keep].mean() - c[keep].mean()) <= 1e-3 * abs(c[keep].mean())

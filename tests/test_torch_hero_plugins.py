@@ -378,7 +378,7 @@ def test_grid_density_matches_jax():
 
 @pytest.mark.parametrize("kind", ["rayleigh", "sggx", "tabphase",
                                   "blendphase", "mesh_attribute", "volume",
-                                  "directionalarea"])
+                                  "normalmap"])
 def test_deferred_plugins_name_item_10(kind):
     with pytest.raises(NotImplementedError, match="item 10"):
         mt.load_dict({"type": kind})

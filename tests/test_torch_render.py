@@ -2,7 +2,10 @@
 16x16 x 16 spp, seed 0, rendered by the PyTorch port on the CPU against the
 JAX package on the CPU, with dopplertofpath (the main path; a correlation
 image of scale ~1e-5) and with path (an O(1) image that shows errors the
-Doppler image's scale hides). Also: strip-pass renders equal single-pass
+Doppler image's scale hides). The JAX package renders them through
+``moment`` and ``aov`` (whose RGB channels are the plain renders, bit for
+bit), and the port's moment and aov channels are held against theirs.
+Also: strip-pass renders equal single-pass
 renders bit for bit, ``MI_SPP_SLICE_PASSES`` slices spp as in the JAX
 package, the port compiles the JAX package's tables, and the port never
 imports jax."""
@@ -25,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = os.path.join(ROOT, "scenes", "canonical", "scene.xml")
 SIZE = dict(spp=16, resx=16, resy=16)
 PATH = {"type": "path", "max_depth": 4}
+AOVS = "dd:depth,nn:sh_normal,aa:albedo,pi:prim_index"
 
 # Pixels allowed outside the tolerance because a float tie flipped a
 # branch (a near-tie hit, a Russian-roulette draw equal to its threshold):
@@ -42,10 +46,17 @@ def _cpu():
 
 
 def _render_jax(integrator):
+    """The JAX package's render with ``integrator`` wrapped: dopplertofpath
+    (the scene's own) in ``moment``, path in ``aov``. The first three
+    channels are the plain render's, bit for bit (checked in the JAX
+    package before the fixture took them: no other JAX render is made)."""
     scene = mj.load_file(CANONICAL, **SIZE)
-    kw = {} if integrator == "dopplertofpath" else {
-        "integrator": mj.load_dict(dict(PATH))}
-    return np.asarray(mj.render(scene, spp=16, seed=0, **kw))
+    if integrator == "dopplertofpath":
+        wrapped = {"type": "moment", "nested": scene.integrator}
+    else:
+        wrapped = {"type": "aov", "aovs": AOVS, "nested": dict(PATH)}
+    return np.asarray(mj.render(scene, spp=16, seed=0,
+                                integrator=mj.load_dict(wrapped)))
 
 
 def _render_port(integrator, **render_kw):
@@ -56,9 +67,15 @@ def _render_port(integrator, **render_kw):
 
 
 @pytest.fixture(scope="module")
-def jax_images():
+def jax_renders():
     # each JAX render compiles for ~10 s: share them across the module
     return {k: _render_jax(k) for k in ("dopplertofpath", "path")}
+
+
+@pytest.fixture(scope="module")
+def jax_images(jax_renders):
+    # the RGB channels
+    return {k: v[..., :3] for k, v in jax_renders.items()}
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +117,59 @@ def test_standin_golden(jax_images, port_images):
         assert img.shape == golden.shape
         assert np.allclose(img, golden, atol=2e-6, rtol=1e-4), \
             float(np.abs(img - golden).max())
+
+
+def test_moment_matches_jax(jax_renders, port_images):
+    """moment around the scene's dopplertofpath: the port's RGB is its
+    plain render bit for bit, and its second-moment channels agree with
+    the JAX package's at the section 2 tolerance; m2 >= mean^2 per pixel
+    up to rounding (a pixel's mean of squares is at least the square of
+    its filtered mean). Strip passes carry the AOV channels as they carry
+    RGB: the image in 4-row strips equals the single pass bit for bit."""
+    scene = mt.load_file(CANONICAL, device="cpu", **SIZE)
+    moment = mt.load_dict({"type": "moment", "nested": scene.integrator})
+    img = moment.render(scene, spp=16, seed=0).numpy()
+    strips = moment.render(scene, spp=16, seed=0, max_lanes=1024).numpy()
+    assert np.array_equal(strips, img)
+    ref = jax_renders["dopplertofpath"]
+    assert img.shape == ref.shape == (16, 16, 6)
+    assert np.array_equal(img[..., :3], port_images["dopplertofpath"])
+    m2, m2_ref = img[..., 3:], ref[..., 3:]
+    scale = np.abs(m2_ref).max()
+    assert scale > 0.0
+    np.testing.assert_allclose(m2, m2_ref, rtol=1e-4, atol=1e-4 * scale)
+    assert (m2 >= img[..., :3] ** 2 * (1.0 - 1e-5) - 1e-30).all()
+
+
+def test_aov_matches_jax(jax_renders, port_images, monkeypatch):
+    """aov (depth, shading normal, albedo, triangle id) around path: the
+    port's RGB is its plain path render bit for bit, and each AOV channel
+    agrees with the JAX package's at the section 2 tolerance of that
+    channel's scale. With MI_SPP_SLICE_PASSES and 1,024 lanes a pass (4
+    spp slices), the slices carry the AOV channels as they carry RGB: the
+    RGB is the sliced path render's bit for bit, the depth channel that
+    of a sliced depth render."""
+    scene = mt.load_file(CANONICAL, device="cpu", **SIZE)
+    aov = mt.load_dict({"type": "aov", "aovs": AOVS, "nested": dict(PATH)})
+    img = aov.render(scene, spp=16, seed=0).numpy()
+    monkeypatch.setenv("MI_SPP_SLICE_PASSES", "1")
+    sliced = aov.render(scene, spp=16, seed=0, max_lanes=1024).numpy()
+    path_sliced = mt.load_dict(dict(PATH)).render(
+        scene, spp=16, seed=0, max_lanes=1024).numpy()
+    depth_sliced = mt.load_dict({"type": "depth"}).render(
+        scene, spp=16, seed=0, max_lanes=1024).numpy()
+    assert not np.array_equal(path_sliced, port_images["path"])
+    assert np.array_equal(sliced[..., :3], path_sliced)
+    np.testing.assert_allclose(sliced[..., 3], depth_sliced[..., 0],
+                               rtol=1e-6, atol=1e-6)
+    ref = jax_renders["path"]
+    assert img.shape == ref.shape == (16, 16, 3 + 1 + 3 + 3 + 1)
+    assert np.array_equal(img[..., :3], port_images["path"])
+    for c in range(3, img.shape[-1]):
+        scale = np.abs(ref[..., c]).max()
+        assert scale > 0.0, c
+        np.testing.assert_allclose(img[..., c], ref[..., c], rtol=1e-4,
+                                   atol=1e-4 * scale, err_msg=str(c))
 
 
 @pytest.mark.parametrize("integrator", ["dopplertofpath", "path"])
@@ -172,7 +242,7 @@ def test_unported_features_name_their_roadmap_item():
         mt.set_variant("cuda_spectral")
     assert mt.set_variant("cuda_rgb") == "cuda_rgb"
     with pytest.raises(NotImplementedError, match="item 10"):
-        mt.load_dict({"type": "projector"})
+        mt.load_dict({"type": "bumpmap"})
     with pytest.raises(NotImplementedError, match="item 3"):
         mt.dict_to_xml({"type": "scene"}, "scene.xml")
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -94,17 +94,19 @@ class TieRecorder:
 
     @contextlib.contextmanager
     def hooked(self):
-        """Record every query of the path loop and of volpath while the
-        context is open."""
+        """Record every query of the integrators (the path loop, volpath,
+        direct, aov, ptracer) while the context is open."""
         from mitsuba3dopplertof_tpu_torch import integrators as pi
-        from mitsuba3dopplertof_tpu_torch.integrators import volpath as vp
-        saved = [(m, k, getattr(m, k)) for m in (pi, vp)
+        from mitsuba3dopplertof_tpu_torch.integrators import (
+            extras as ex, ptracer as pt, volpath as vp)
+        mods = (pi, vp, ex, pt)
+        saved = [(m, k, getattr(m, k)) for m in mods
                  for k in ("ray_intersect", "ray_test")]
         # a module that binds the queries itself would escape the hooks
         for name, m in list(sys.modules.items()):
             if (name.startswith("mitsuba3dopplertof_tpu_torch.")
                     and name != "mitsuba3dopplertof_tpu_torch.render.scene"
-                    and m not in (pi, vp)
+                    and m not in mods
                     and any(getattr(m, k, None) is f for _, k, f in saved)):
                 raise RuntimeError(f"TieRecorder: {name} binds a ray "
                                    "query that it does not hook")
