@@ -153,9 +153,19 @@ phase raises on failure:
      use_nee=false, volpathmis, the principled scene with the 2k sphere
      through B2 and through MI_STREAM_KERNEL=v3 (marked lanes left out),
      and ptracer on the projector / directionalarea scene;
- 13. a JSON line with the kernels (B2 twice more: on the hero's
-     wavefronts; B1's and B2's entries carry their launches in phase 11's
-     and 12's renders as ``launches_<scene>``), then the contract line
+ 13. textured surfaces and lights and the other phases
+     (utils/textured_scenes.py, assets written by the port into a temp
+     dir), each timed warm with its launches: the surface scene (normalmap,
+     bumpmap, a volume texture, checkerboard rectangle and bitmap sphere
+     lights; dopplertofpath 256x256 x 64, B1), the 40k vertex-coloured
+     sphere under mesh_attribute below a 2k textured mesh light (256x256
+     x 64, B2), the media scene (rayleigh, blendphase, tabphase, sggx with
+     a varying S grid; volpath, the spp a probe fits in 15 s); card
+     against CPU at 16x16 x 16 (the surface scene also with direct, aov
+     and ptracer; the mesh light with the 2k sphere);
+ 14. a JSON line with the kernels (B2 twice more: on the hero's
+     wavefronts; B1's and B2's entries carry their launches in phase 11's,
+     12's and 13's renders as ``launches_<scene>``), then the contract line
      {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
@@ -2598,6 +2608,39 @@ def ptracer_emitters_dict(spp: int, tf=None, projector_image=None) -> dict:
     }
 
 
+def timed_render(mi, reset, read, card, res, tag, scene, spp, warm_spp,
+                 integ, rows, n_ch=3):
+    """A warm-up render of ``scene`` at ``warm_spp``, then the timed render
+    at ``spp`` (``integ``: an integrator in place of the scene's, or None)
+    with the launches read around it; ``rows``: the kernels and forms it
+    must launch (no other). Returns (image, launches by row, warm s)."""
+    import torch
+    kw = {} if integ is None else {"integrator": integ}
+    mi.render(scene, spp=warm_spp, seed=0, **kw)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    img = mi.render(scene, spp=spp, seed=0, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = read()
+    if tuple(img.shape) != (res, res, n_ch):
+        fail(f"{tag}: image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()) or not bool(
+            (img[..., :3] != 0).any()):
+        fail(f"{tag}: image not finite or all zero")
+    for row, c in counts.items():
+        for form, n in c.items():
+            if (n > 0) != (form in rows.get(row, ())):
+                fail(f"{tag}: launches {counts}")
+    print(f"render {tag} {res}x{res}x{spp}: warm {warm_s:.3f} s = "
+          f"{res * res * spp / warm_s / 1e6:.3f} Msamples/s ({card}); "
+          "launches " + ", ".join(f"{row} {counts[row]}" for row in rows)
+          + f"; image mean {float(img[..., :3].mean()):.6g}, max |v| "
+          f"{float(img[..., :3].abs().max()):.6g}", flush=True)
+    return img, {row: counts[row] for row in rows}, warm_s
+
+
 def integrators_phase(mi, reset, read, card) -> dict:
     """Phase 12: the rgb variant's other integrators on the card, each
     render timed warm after a one-pass warm-up, the launches read around
@@ -2648,34 +2691,8 @@ def integrators_phase(mi, reset, read, card) -> dict:
             return mi.load_dict(d)
 
         def timed(tag, scene, spp, warm_spp, integ, rows, n_ch=3):
-            """A warm-up render at ``warm_spp``, then the timed render
-            with the launches read around it; ``rows``: the kernels and
-            forms it must launch (no other)."""
-            kw = {} if integ is None else {"integrator": integ}
-            mi.render(scene, spp=warm_spp, seed=0, **kw)
-            torch.cuda.synchronize()
-            reset()
-            t0 = time.perf_counter()
-            img = mi.render(scene, spp=spp, seed=0, **kw)
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-            counts = read()
-            if tuple(img.shape) != (res, res, n_ch):
-                fail(f"{tag}: image shape {tuple(img.shape)}")
-            if not bool(torch.isfinite(img).all()) or not bool(
-                    (img[..., :3] != 0).any()):
-                fail(f"{tag}: image not finite or all zero")
-            for row, c in counts.items():
-                for form, n in c.items():
-                    if (n > 0) != (form in rows.get(row, ())):
-                        fail(f"{tag}: launches {counts}")
-            print(f"render {tag} {res}x{res}x{spp}: warm {warm_s:.3f} s = "
-                  f"{res * res * spp / warm_s / 1e6:.3f} Msamples/s "
-                  f"({card}); launches " + ", ".join(
-                      f"{row} {counts[row]}" for row in rows)
-                  + f"; image mean {float(img[..., :3].mean()):.6g}, max "
-                  f"|v| {float(img[..., :3].abs().max()):.6g}", flush=True)
-            return img, {row: counts[row] for row in rows}, warm_s
+            return timed_render(mi, reset, read, card, res, tag, scene,
+                                spp, warm_spp, integ, rows, n_ch)
 
         both = ("closest_hit", "any_hit")
         # ---- moment around the canonical dopplertofpath ----------------
@@ -2914,6 +2931,153 @@ def integrators_phase(mi, reset, read, card) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+TEXTURED_RES = 256
+TEXTURED_SPP = 64               # the surface and mesh-light renders
+MEDIA_SPPS = (256, 128, 64, 32, 16)
+MEDIA_BUDGET_S = 15.0           # the media scene's warm render at most
+
+
+def textured_phase(mi, reset, read, card) -> dict:
+    """Phase 13: the textured-surface, textured-emitter and phase plugins
+    on the card (scenes of utils/textured_scenes.py, their assets written
+    here), each render timed warm after a one-pass warm-up with the
+    launches read around the timed render: (a) the surface scene
+    (normalmap wall, bumpmap roughplastic floor, volume-textured panel,
+    checkerboard rectangle light, bitmap sphere light; dopplertofpath,
+    256x256 x 64 spp, B1); (b) the 40k animated sphere as a vertex-coloured
+    PLY under mesh_attribute, below a 2k-triangle grid light with a bitmap
+    radiance (256x256 x 64, B2); (c) the media scene (rayleigh,
+    blendphase, tabphase, sggx with a varying S grid; volpath at 256x256,
+    the largest of MEDIA_SPPS whose warm render a 16 spp probe puts within
+    MEDIA_BUDGET_S). Then the card against the CPU at 16x16 x 16 spp with
+    phase 8's criteria: (a) with dopplertofpath, direct, aov and ptracer,
+    (b) with the 2k sphere, (c), the lanes that meet a tie or graze an
+    edge left out of both films. Returns the timed renders' launches by
+    scene and kernel row."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mitsuba3dopplertof_tpu_torch.utils import textured_scenes as ts
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import \
+        ANIMATED_SIZES
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_ties import TieRecorder
+    res = TEXTURED_RES
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="textured_")
+    launches = {}
+    try:
+        assets = ts.write_surface_assets(tmp)
+        sggx = os.path.join(tmp, "sggx.vol")
+        ts.write_sggx_vol(sggx)
+        light = os.path.join(tmp, "light_2k.ply")
+        n_light = ts.write_light_grid_ply(light, 32)
+        spheres = {}
+        for size in ("40k", "2k"):
+            spheres[size] = os.path.join(tmp, f"sphere_{size}.ply")
+            ts.write_colored_sphere_ply(spheres[size], *ANIMATED_SIZES[size])
+
+        def surface(spp, r, dv=None):
+            return mi.load_dict(ts.surface_scene(assets, spp, r), device=dv)
+
+        def mesh_light(size, spp, r, dv=None):
+            return mi.load_dict(ts.mesh_light_scene(
+                spheres[size], light, assets["glow"], spp, r), device=dv)
+
+        def media(spp, r, dv=None):
+            return mi.load_dict(ts.media_scene(sggx, spp, r), device=dv)
+
+        def timed(tag, scene, spp, rows):
+            _, counts, _ = timed_render(mi, reset, read, card, res, tag,
+                                        scene, spp, 16, None, rows)
+            return counts
+
+        both = ("closest_hit", "any_hit")
+        scene = surface(TEXTURED_SPP, res)
+        sa = scene.compile()
+        print(f"surface scene: {sa.n_static_tris} static and "
+              f"{sa.n_anim_tris} animated triangles, {sa.n_spheres} sphere; "
+              f"texture types {sa.tex_types_present}, normal maps "
+              f"{sa.any_nmap}", flush=True)
+        launches["surface"] = timed(
+            "surface (normalmap, bumpmap, volume, textured lights; "
+            "dopplertofpath) through B1", scene, TEXTURED_SPP, {"B1": both})
+        scene = mesh_light("40k", TEXTURED_SPP, res)
+        sa = scene.compile()
+        print(f"mesh-light scene: {sa.n_static_tris} static ({n_light} of "
+              f"the light) and {sa.n_anim_tris} animated triangles; "
+              f"mesh_attr {tuple(sa.mesh_attr.shape)}", flush=True)
+        launches["mesh_light"] = timed(
+            "40k mesh_attribute + 2k textured mesh light (dopplertofpath) "
+            "through B2", scene, TEXTURED_SPP, {"B2": both})
+        scene = media(16, res)
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        spp_m = next((s for s in MEDIA_SPPS
+                      if probe_s * s / 16 <= MEDIA_BUDGET_S), 16)
+        print(f"media probe 16 spp: warm {probe_s:.3f} s; rendering at "
+              f"{spp_m} spp", flush=True)
+        launches["media"] = timed(
+            "media (rayleigh, blendphase, tabphase, sggx grid; volpath) "
+            "through B1", scene, spp_m, {"B1": ("closest_hit",)})
+        del scene, sa
+
+        # ---- the card against the CPU at 16x16 x 16 spp -------------------
+        t_step = time.perf_counter()
+        integs = {"direct": {"type": "direct"},
+                  "aov": {"type": "aov", "aovs": "aa:albedo,dd:depth",
+                          "nested": {"type": "path", "max_depth": 4}},
+                  "ptracer": {"type": "ptracer", "max_depth": 4}}
+        cases = (("surface dopplertofpath", lambda dv: surface(16, 16, dv),
+                  None, "B1"),
+                 *((f"surface {k}", lambda dv: surface(16, 16, dv), k, "B1")
+                   for k in integs),
+                 ("mesh-light 2k dopplertofpath",
+                  lambda dv: mesh_light("2k", 16, 16, dv), None, "B2"),
+                 ("media volpath", lambda dv: media(16, 16, dv), None, "B1"))
+        for label, load, integ, row in cases:
+            def render(dv):
+                kw = ({} if integ is None
+                      else {"integrator": mi.load_dict(integs[integ])})
+                return mi.render(load(dv), spp=16, seed=0, **kw)
+            rec = TieRecorder(16 * 16 * 16, "cpu")
+            if integ != "ptracer":
+                with rec.hooked():
+                    render("cpu")
+            with rec.dropped():
+                img_c = render("cpu").numpy()
+                reset()
+                img_g = render(None).cpu().numpy()
+            counts = read()
+            if counts[row]["closest_hit"] <= 0:
+                fail(f"{label} card vs cpu: launches {counts}")
+            scale = float(np.abs(img_c).max())
+            close = np.isclose(img_g, img_c, rtol=1e-4, atol=1e-4 * scale)
+            rel_mean = (abs(img_g.mean() - img_c.mean())
+                        / max(abs(img_c.mean()), 1e-30))
+            n_marked = int(rec.marked.sum())
+            print(f"cuda vs cpu {label} 16x16x16: {close.mean() * 100:.2f}% "
+                  f"of values within tolerance, mean rel diff "
+                  f"{rel_mean:.3g}, max abs diff "
+                  f"{float(np.abs(img_g - img_c).max()):.3g} (scale "
+                  f"{scale:.3g}); {n_marked} of 4096 lanes marked (ties, "
+                  "grazed edges) left out of both films", flush=True)
+            if (close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0
+                    or not np.isfinite(img_g).all() or n_marked > 409):
+                fail(f"cuda vs cpu {label}: outside tolerance")
+        print(f"card vs cpu, textured: {time.perf_counter() - t_step:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -3705,6 +3869,9 @@ def main() -> int:
     # ---- 12. the rgb variant's other integrators ---------------------------
     integrators = integrators_phase(mi, reset_counts, read_counts, card)
 
+    # ---- 13. textured surfaces and lights, the other phases ---------------
+    textured = textured_phase(mi, reset_counts, read_counts, card)
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     entries = [("intersect_bruteforce", B1_SOURCE, B1_TPU, b1,
@@ -3716,8 +3883,8 @@ def main() -> int:
                  times_l[row], launches_l[row], errs_l[row])
                 for row, _, name, line in ALTERNATES]
     kernels = []
-    # the launches of phase 11's and 12's renders, under the kernels they
-    # ran
+    # the launches of phase 11's, 12's and 13's renders, under the kernels
+    # they ran
     dialect_rows = {"intersect_bruteforce": "B1", "intersect_v4": "B2"}
     for name, src, tpu, times, launches, errs_k in entries:
         for form in ("closest_hit", "any_hit"):
@@ -3730,7 +3897,8 @@ def main() -> int:
                 "bound_by": b_by, "library_ms": None})
             if name in dialect_rows:
                 for scene_name, counts in (*dialect.items(),
-                                           *integrators.items()):
+                                           *integrators.items(),
+                                           *textured.items()):
                     if dialect_rows[name] in counts:
                         kernels[-1][f"launches_{scene_name}"] = counts[
                             dialect_rows[name]][form]

@@ -65,7 +65,8 @@ P_SPEC_TRANS = 11     # rgb transmittance 11:14 (dielectrics); plastic
                       # specular reflectance (11 overwritten)
 P_MF_DIST = 12        # roughconductor: 1.0 = beckmann, 0.0 = ggx
 P_REFL_TEX = 14       # texture id driving the reflectance (-1 = constant)
-P_NMAP_TEX = 15       # normal-map texture id (-1 = none)
+P_NMAP_TEX = 15       # normal- or height-map texture id (-1 = none)
+P_BMAP_SCALE = 16     # > 0: the P_NMAP_TEX texture is a height map
 # mask / blendbsdf rows: the nested rows and the probability of row 1
 P_NESTED0 = 4
 P_NESTED1 = 5
@@ -135,7 +136,7 @@ def _get_rgb(props, key, default):
     if hasattr(v, "plugin_category"):
         raise NotImplementedError(
             f"'{key}' given by a {v.plugin_category} is not ported yet "
-            "(ROADMAP Queue A item 10)")
+            "(ROADMAP Queue A item 11)")
     a = np.asarray(v, dtype=np.float64).reshape(-1)
     if a.size == 1:
         a = np.repeat(a, 3)
@@ -216,6 +217,65 @@ class TwoSided(BSDF):
     def params_row(self):
         row = self.nested.params_row()
         row[P_TWOSIDED] = 1.0
+        return row
+
+
+class _FrameAdapter(BSDF):
+    """normalmap / bumpmap: the nested BSDF's row plus the id of the
+    texture that perturbs the shading frame at the hit
+    (``integrators._apply_normal_maps``, right after the intersection)."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..textures import Texture
+        self.nested = None
+        self.normalmap_tex = None     # the compile assigns nmap_index
+        for key, v in props.objects():
+            if isinstance(v, BSDF):
+                self.nested = v
+            elif isinstance(v, Texture):
+                self.normalmap_tex = v
+        self.type_id = getattr(self.nested, "type_id", None)
+        self.flags = getattr(self.nested, "flags", 0)
+        self.nmap_index = -1
+        # the nested BSDF's texture-driven reflectance
+        self.reflectance_tex = getattr(self.nested, "reflectance_tex", None)
+
+    def params_row(self):
+        row = self.nested.params_row()
+        row[P_NMAP_TEX] = float(self.nmap_index)
+        return row
+
+
+@register_plugin("bsdf", "normalmap")
+class NormalMap(_FrameAdapter):
+    """Normal mapping (reference src/bsdfs/normalmap.cpp): the shading
+    normal from a tangent-space normal texture, then the nested BSDF."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        if self.nested is None or self.normalmap_tex is None:
+            raise RuntimeError("normalmap: requires a nested BSDF and a "
+                               "normal texture")
+
+
+@register_plugin("bsdf", "bumpmap")
+class BumpMap(_FrameAdapter):
+    """Bump mapping (reference src/bsdfs/bumpmap.cpp): the shading frame
+    perturbed by the height texture's uv gradient (central differences at
+    the hit) times ``scale``, then the nested BSDF."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.scale = props.get_float("scale", 1.0)
+        if self.nested is None:
+            raise RuntimeError("bumpmap: requires a nested BSDF")
+        if self.normalmap_tex is None:
+            raise RuntimeError("bumpmap: requires a height texture")
+
+    def params_row(self):
+        row = super().params_row()
+        row[P_BMAP_SCALE] = self.scale
         return row
 
 
@@ -338,8 +398,8 @@ class RoughDielectric(Dielectric):
 
 def _scalar_weight(props, key, default):
     """A mix weight from a float, an ``rgb`` dict or a texture: its
-    mean, as the JAX package takes it (a texture's per-hit value is not
-    ported: ROADMAP Queue A item 10)."""
+    mean, as the JAX package takes it (not the texture's per-hit
+    value)."""
     w = props.get(key, default)
     if isinstance(w, dict):
         w = float(np.mean(w.get("value")))
@@ -1075,7 +1135,7 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
 
 
 __all__ = [
-    "BSDF", "Diffuse", "TwoSided", "Null", "Conductor", "RoughConductor",
+    "BSDF", "Diffuse", "TwoSided", "NormalMap", "BumpMap", "Null", "Conductor", "RoughConductor",
     "Dielectric", "ThinDielectric", "RoughDielectric", "Plastic",
     "RoughPlastic", "PPlastic", "Principled", "PrincipledThin", "Mask",
     "BlendBSDF", "BSDFSampleResult",
@@ -1085,5 +1145,6 @@ __all__ = [
     "BSDF_PLASTIC", "BSDF_ROUGHPLASTIC", "BSDF_ROUGHDIELECTRIC",
     "BSDF_THINDIELECTRIC", "BSDF_BLEND", "BSDF_MASK", "BSDF_PRINCIPLED",
     "BSDF_PRINCIPLED_THIN", "P_REFL",
-    "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "TEXTURED_TYPES",
+    "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "P_BMAP_SCALE",
+    "TEXTURED_TYPES",
 ]

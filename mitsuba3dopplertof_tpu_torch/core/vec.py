@@ -8,6 +8,7 @@ m10..m13, m20..m23); each entry is a Python float or an (N,) tensor.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -129,6 +130,16 @@ def cmat_inverse(c):
     return (i00, i01, i02, nt0, i10, i11, i12, nt1, i20, i21, i22, nt2)
 
 
+def spherical_uv(pn: Vec3):
+    """The uv of points ``pn`` on the unit sphere in object space
+    (reference sphere.cpp): u = atan2(y, x) / 2 pi in [0, 1), v = acos(z)
+    / pi."""
+    u = torch.atan2(pn.y, pn.x) * (0.5 / math.pi)
+    u = torch.where(u < 0.0, u + 1.0, u)
+    v = torch.acos(torch.clamp(pn.z, -1.0, 1.0)) * (1.0 / math.pi)
+    return u, v
+
+
 def coordinate_system(n: Vec3):
     """Duff et al. orthonormal basis, component-wise."""
     sign = torch.where(n.z >= 0.0, 1.0, -1.0)
@@ -143,4 +154,5 @@ __all__ = [
     "Vec3", "dot", "cross", "norm", "normalize", "where3", "vmax",
     "cmat_lerp", "cmat_apply_point", "cmat_apply_vector",
     "cmat_apply_transpose_vector", "cmat_inverse", "coordinate_system",
+    "spherical_uv",
 ]

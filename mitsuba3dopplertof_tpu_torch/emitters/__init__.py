@@ -17,8 +17,8 @@ from ..core import warp
 from ..core.math import mod
 from ..core.properties import Properties, register_plugin
 from ..core.vec import (Vec3, dot, cross, normalize, where3, cmat_lerp,
-                        cmat_apply_point, cmat_apply_vector,
-                        coordinate_system)
+                        cmat_apply_point, cmat_apply_vector, cmat_inverse,
+                        coordinate_system, spherical_uv)
 from ..render.types import DirectionSample
 from ..textures import eval_texture
 
@@ -83,23 +83,32 @@ class PointEmitter(Emitter):
 
 @register_plugin("emitter", "area")
 class AreaEmitter(Emitter):
-    """reference src/emitters/area.cpp — constant radiance over the host
-    shape, emitted from its front side."""
+    """reference src/emitters/area.cpp — radiance over the host shape,
+    emitted from its front side. A nested texture makes it vary over the
+    surface: evaluated at the hit's uv, and at the sampled point's uv in
+    NEE and in ptracer (a sphere's object-space spherical uv)."""
     type_id = EMITTER_AREA_RECT
 
     def __init__(self, props: Properties):
         super().__init__(props)
         from ..bsdfs import _get_rgb
-        self.radiance = _get_rgb(props, "radiance", [1.0, 1.0, 1.0])
+        from ..textures import Texture
+        self.irradiance_tex = None     # the compile assigns tex_index
+        self.tex_index = -1
         for key, v in props.objects():
-            raise NotImplementedError(
-                f"area emitter child '{key}' is not ported yet "
-                "(ROADMAP Queue A item 10)")
+            if not isinstance(v, Texture):
+                raise NotImplementedError(
+                    f"area emitter child '{key}' of kind "
+                    f"{v.plugin_category} is not ported yet "
+                    "(ROADMAP Queue A item 11)")
+            self.irradiance_tex = v
+        # a texture's mean stands in the row's radiance columns
+        self.radiance = _get_rgb(props, "radiance", [1.0, 1.0, 1.0])
 
     def params_row(self):
         p = np.zeros(N_EMITTER_PARAMS)
         p[E_INTENSITY:E_INTENSITY + 3] = self.radiance
-        p[E_RAD_TEX] = -1.0
+        p[E_RAD_TEX] = float(self.tex_index)
         return p
 
 
@@ -234,29 +243,78 @@ def _anim_matrix(sa, ii: int, time):
     return cmat_lerp(sa.inst_cmat(0, ii), sa.inst_cmat(1, ii), uu)
 
 
-def _sphere_center_radius(sa, param, time):
-    """(world center, world radius) per lane of the sphere emitters the
-    lanes name: the row's, or for an animated sphere (E_SPH_SLOT >= 0)
-    the lerped keyframe position and the length of its first column at
-    ``time`` (or the row's where ``time`` is None)."""
-    c = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
-    r = param(E_CUTOFF)
+def _sphere_lerp(sa, param, time):
+    """(animated, lerp) of the sphere emitters the lanes name: the lanes
+    whose sphere is animated (E_SPH_SLOT >= 0), and ``lerp(j)``, entry j of
+    their keyframe matrices lerped at ``time``; None where ``time`` is None
+    or the scene has no sphere."""
     if time is None or int(sa.n_spheres) == 0:
-        return c, r
+        return None
     slot = param(E_SPH_SLOT).to(torch.int32)
-    s_anim = slot >= 0
     sl = torch.clamp(slot, min=0).long()
     t0s = sa.sph_t0[sl]
     span_s = sa.sph_t1[sl] - t0s
     uu = torch.clamp((time - t0s) / torch.where(span_s != 0.0, span_s, 1.0),
                      0.0, 1.0)
 
-    def lerp_c(j):
+    def lerp(j):
         return (1.0 - uu) * sa.sph_m0c[j][sl] + uu * sa.sph_m1c[j][sl]
-    c = where3(s_anim, Vec3(lerp_c(3), lerp_c(7), lerp_c(11)), c)
-    l0, l4, l8 = lerp_c(0), lerp_c(4), lerp_c(8)
-    r = torch.where(s_anim, torch.sqrt(l0 * l0 + l4 * l4 + l8 * l8), r)
-    return c, r
+    return slot >= 0, lerp
+
+
+def _sphere_center_radius(sa, param, time):
+    """(world center, world radius) per lane of the sphere emitters the
+    lanes name: the row's, or for an animated sphere the lerped keyframe
+    position and the length of its first column at ``time`` (or the
+    row's where ``time`` is None)."""
+    c = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
+    r = param(E_CUTOFF)
+    anim = _sphere_lerp(sa, param, time)
+    if anim is None:
+        return c, r
+    s_anim, lerp = anim
+    c = where3(s_anim, Vec3(lerp(3), lerp(7), lerp(11)), c)
+    l0, l4, l8 = lerp(0), lerp(4), lerp(8)
+    return c, torch.where(s_anim, torch.sqrt(l0 * l0 + l4 * l4 + l8 * l8), r)
+
+
+def _sphere_matrix(sa, param, mrow, time):
+    """The object-to-world matrices (12-tuple) of the lanes' sphere
+    emitters: their rows' (``mrow``), the lerped keyframes where
+    animated."""
+    cm = tuple(mrow(j) for j in range(12))
+    anim = _sphere_lerp(sa, param, time)
+    if anim is None:
+        return cm
+    s_anim, lerp = anim
+    return tuple(torch.where(s_anim, lerp(j), c) for j, c in enumerate(cm))
+
+
+def sphere_uv(cm, p: Vec3):
+    """The uv of world points ``p`` on spheres with object-to-world
+    matrices ``cm``: their object-space spherical uv, as the sphere hits'
+    payload has it."""
+    return spherical_uv(cmat_apply_point(cmat_inverse(cm), p))
+
+
+def textured_radiance(sa, param, inten, uv_u, uv_v):
+    """The radiance of area-emitter lanes at (uv_u, uv_v): their texture's
+    value where the row names one (E_RAD_TEX >= 0), else ``inten``."""
+    if int(sa.n_textures) == 0:
+        return inten
+    texid = param(E_RAD_TEX).to(torch.int32)
+    return where3(texid >= 0, eval_texture(sa, torch.clamp(texid, min=0),
+                                           uv_u, uv_v), inten)
+
+
+def _tri_uv(sa, pre, tri, b0, b1):
+    """The uv of the points ``b0``, ``b1`` (barycentrics of the second and
+    third corner) on triangle slots ``tri`` of table ``pre``."""
+    def col(c):
+        return sa.tri(pre, c)[tri]
+    b = 1.0 - b0 - b1
+    return (col("uv0u") * b + col("uv1u") * b0 + col("uv2u") * b1,
+            col("uv0v") * b + col("uv1v") * b0 + col("uv2v") * b1)
 
 
 def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
@@ -318,7 +376,9 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                               0.0)
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
-            spec = inten * w
+            # uv follows the rectangle's [0, 1]^2 parameterization
+            spec = textured_radiance(sa, param, inten, 0.5 * (lx + 1.0),
+                                     0.5 * (ly + 1.0)) * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
         elif tid == EMITTER_DIRECTIONAL:
             # a delta direction: the sample lies twice the scene's
@@ -379,7 +439,13 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                 2.0 * np.pi * (1.0 - cos_max), min=1e-12), 0.0)
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
-            spec = inten * w
+            if int(sa.n_textures) > 0:
+                # the texture at the sampled point's spherical uv, as a
+                # hit there sees it
+                spec = textured_radiance(sa, param, inten, *sphere_uv(
+                    _sphere_matrix(sa, param, mrow, ref_time), p)) * w
+            else:
+                spec = inten * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
         elif tid == EMITTER_AREA_MESH:
             # triangle-CDF area sampling over the host mesh (reference
@@ -389,6 +455,7 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             p = Vec3(z, z, z)
             nrm = Vec3(z, z, z)
             pdf = z
+            em_u, em_v = z, z
             su = torch.sqrt(torch.clamp(mod(s_x * 4096.0, 1.0), 0.0, 1.0))
             b0 = 1.0 - su
             b1 = s_y * su
@@ -430,13 +497,17 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                 p = where3(mask, pe, p)
                 nrm = where3(mask, ne, nrm)
                 pdf = torch.where(mask, pe_pdf, pdf)
+                if int(sa.n_textures) > 0:
+                    ue, ve = _tri_uv(sa, pre, tri, b0, b1)
+                    em_u = torch.where(mask, ue, em_u)
+                    em_v = torch.where(mask, ve, em_v)
             d = p - ref_p
             dist2 = torch.clamp(dot(d, d), min=1e-20)
             dist = torch.sqrt(dist2)
             dirn = d * (1.0 / dist)
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
-            spec = inten * w
+            spec = textured_radiance(sa, param, inten, em_u, em_v) * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
         elif tid == EMITTER_CONSTANT:
             dirn = warp.uniform_sphere_c(s_x, s_y)
@@ -481,9 +552,7 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             spec = Vec3(z, z, z)
             ds = DirectionSample(spec, spec, spec, z, z, ~false_, index)
         else:
-            raise NotImplementedError(
-                f"emitter type {tid} is not ported yet "
-                "(ROADMAP Queue A item 10)")
+            raise ValueError(f"unknown emitter type {tid}")
         if best is None:
             best = (ds, spec)
         else:
@@ -538,9 +607,7 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
             pdf = torch.where(lane_type == tid, p, pdf)
             continue
         if tid not in (EMITTER_AREA_RECT, EMITTER_AREA_MESH):
-            raise NotImplementedError(
-                f"emitter type {tid} is not ported yet "
-                "(ROADMAP Queue A item 10)")
+            raise ValueError(f"unknown emitter type {tid}")
         area = sa.emitter_params[E_AREA][idx]
         dist2 = ds.dist * ds.dist
         cos_theta = -dot(ds.d, ds.n)
@@ -576,18 +643,31 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
     return pdf * (1.0 / float(n_emitters))
 
 
-def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter):
+def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter,
+                     uv_u=None, uv_v=None):
     """Radiance of an emitter hit by a ray (reference area.cpp eval:82-90):
     front side only. ``towards`` points from the surface to the viewer. A
     directionalarea emitter shows nothing to a ray (its emission is a
-    delta in direction)."""
+    delta in direction). With the hit's uv (``uv_u``, ``uv_v``) a textured
+    area emitter on a rectangle, mesh or sphere shows its texture there
+    (sphere hits carry object-space spherical uv)."""
     idx = torch.clamp(lane_emitter, min=0).long()
     ok = (lane_emitter >= 0) & (dot(si_n, towards) > 0.0)
+    lane_type = sa.emitter_type[idx]
     if EMITTER_DIRECTIONALAREA in sa.emitter_types_present:
-        ok = ok & (sa.emitter_type[idx] != EMITTER_DIRECTIONALAREA)
-    inten = Vec3(sa.emitter_params[E_INTENSITY][idx],
-                 sa.emitter_params[E_INTENSITY + 1][idx],
-                 sa.emitter_params[E_INTENSITY + 2][idx])
+        ok = ok & (lane_type != EMITTER_DIRECTIONALAREA)
+
+    def param(j):
+        return sa.emitter_params[j][idx]
+    inten = Vec3(param(E_INTENSITY), param(E_INTENSITY + 1),
+                 param(E_INTENSITY + 2))
+    if uv_u is not None and int(sa.n_textures) > 0:
+        texid = param(E_RAD_TEX).to(torch.int32)
+        use_tex = (texid >= 0) & ((lane_type == EMITTER_AREA_RECT)
+                                  | (lane_type == EMITTER_AREA_MESH)
+                                  | (lane_type == EMITTER_AREA_SPHERE))
+        inten = where3(use_tex, eval_texture(
+            sa, torch.clamp(texid, min=0), uv_u, uv_v), inten)
     return inten * torch.where(ok, 1.0, 0.0)
 
 
@@ -772,5 +852,6 @@ __all__ = [
     "EMITTER_CONSTANT", "EMITTER_AREA_MESH", "EMITTER_DIRECTIONAL",
     "EMITTER_SPOT", "EMITTER_ENVMAP", "EMITTER_AREA_SPHERE",
     "EMITTER_PROJECTOR", "EMITTER_DIRECTIONALAREA", "E_POS",
-    "E_INTENSITY", "E_AREA", "E_CUTOFF", "E_BEAM", "E_SPH_SLOT",
+    "E_INTENSITY", "E_AREA", "E_CUTOFF", "E_BEAM", "E_RAD_TEX", "E_SPH_SLOT",
+    "sphere_uv", "textured_radiance",
 ]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.properties import Properties, register_plugin
-from ..core.vec import Vec3, dot, where3, vmax
+from ..core.vec import Vec3, coordinate_system, dot, normalize, where3, vmax
 from ..core.waveform import (WAVEFORM_TYPES, eval_modulation,
                              eval_modulation_low_pass)
 from ..core import logger as _log
@@ -41,7 +41,7 @@ from ..render.types import Ray, DirectionSample
 from ..render.scene import ray_intersect, ray_test
 from ..samplers import TIME_SAMPLING_METHODS, TIME_ANTITHETIC
 from ..bsdfs import (eval_pdf_sample as bsdf_eval_pdf_sample, FLAG_SMOOTH,
-                     P_REFL_TEX)
+                     P_BMAP_SCALE, P_NMAP_TEX, P_REFL_TEX)
 from .. import emitters as em_mod
 from ..textures import eval_texture
 from ..films import (block_create, block_splat_wavefront, develop,
@@ -386,7 +386,43 @@ def textured_reflectance(sa, lane_bsdf, si):
     if sa.n_textures == 0:
         return None, None
     lane_tex = sa.bsdf_params[P_REFL_TEX][lane_bsdf.long()].to(torch.int32)
-    return eval_texture(sa, lane_tex, si.uv_u, si.uv_v), lane_tex >= 0
+    return (eval_texture(sa, lane_tex, si.uv_u, si.uv_v, p=si.p, b_u=si.b_u,
+                         b_v=si.b_v, prim=si.prim), lane_tex >= 0)
+
+
+def _apply_normal_maps(sa, si):
+    """The shading frames of lanes whose BSDF row names a normal or
+    height map, perturbed at the hit: a tangent-space normal from the
+    texel (reference src/bsdfs/normalmap.cpp), or for a bump map the
+    height's central-difference uv gradient (bumpmap.cpp: dp_du' = dp_du
+    + n dh/du) times the row's scale; ``wi`` is re-expressed in the new
+    frame."""
+    lane_bsdf = sa.inst_bsdf[torch.clamp(si.inst, min=0).long()].long()
+    nm_tex = sa.bsdf_params[P_NMAP_TEX][lane_bsdf].to(torch.int32)
+    bscale = sa.bsdf_params[P_BMAP_SCALE][lane_bsdf]
+    has = (nm_tex >= 0) & si.valid
+    c = eval_texture(sa, nm_tex, si.uv_u, si.uv_v, p=si.p, b_u=si.b_u,
+                     b_v=si.b_v, prim=si.prim)
+    is_bump = bscale > 0.0
+    eps = 1e-3
+
+    def lum(v):
+        return (v.x + v.y + v.z) * (1.0 / 3.0)
+    hu1 = lum(eval_texture(sa, nm_tex, si.uv_u + eps, si.uv_v))
+    hu0 = lum(eval_texture(sa, nm_tex, si.uv_u - eps, si.uv_v))
+    hv1 = lum(eval_texture(sa, nm_tex, si.uv_u, si.uv_v + eps))
+    hv0 = lum(eval_texture(sa, nm_tex, si.uv_u, si.uv_v - eps))
+    dhdu = bscale * (hu1 - hu0) * (0.5 / eps)
+    dhdv = bscale * (hv1 - hv0) * (0.5 / eps)
+    tx = torch.where(is_bump, -dhdu, 2.0 * c.x - 1.0)
+    ty = torch.where(is_bump, -dhdv, 2.0 * c.y - 1.0)
+    tz = torch.where(is_bump, 1.0, 2.0 * c.z - 1.0)
+    new_n = normalize(si.sh_s * tx + si.sh_t * ty + si.sh_n * tz)
+    ns = where3(has, new_n, si.sh_n)
+    sh_s, sh_t = coordinate_system(ns)
+    wi_world = si.to_world(si.wi)
+    wi = Vec3(dot(wi_world, sh_s), dot(wi_world, sh_t), dot(wi_world, ns))
+    return si._replace(sh_n=ns, sh_s=sh_s, sh_t=sh_t, wi=wi)
 
 
 def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
@@ -441,6 +477,8 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
 
         with profile_phase("RayIntersect"):
             si = ray_intersect(sa, ray, active)
+        if sa.any_nmap:
+            si = _apply_normal_maps(sa, si)
         path_length = path_length + torch.where(si.valid, si.t * eta, 0.0)
 
         # ---------------- direct emission (path.cpp:150-168) -------------
@@ -449,7 +487,7 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
             -1)
         if any_emission:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
-                                             lane_emitter)
+                                             lane_emitter, si.uv_u, si.uv_v)
             if has_env:
                 # rays that escape see the environment
                 miss_env = (~si.valid) & active

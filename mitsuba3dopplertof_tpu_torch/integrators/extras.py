@@ -14,7 +14,8 @@ from ..bsdfs import (eval_pdf_sample as bsdf_eval_pdf_sample, FLAG_SMOOTH,
                      P_REFL, P_REFL_TEX)
 from .. import emitters as em_mod
 from ..textures import eval_texture
-from . import SamplingIntegrator, mis_weight, textured_reflectance
+from . import (SamplingIntegrator, _apply_normal_maps, mis_weight,
+               textured_reflectance)
 
 
 def _nested_integrator(props: Properties):
@@ -56,6 +57,8 @@ class DirectIntegrator(SamplingIntegrator):
         zero = torch.zeros((n,), device=dev)
 
         si = ray_intersect(sa, ray, active)
+        if sa.any_nmap:
+            si = _apply_normal_maps(sa, si)
         result = Vec3(zero, zero, zero)
         has_env = sa.has_environment and not self.hide_emitters
         valid_ray = torch.full((n,), bool(has_env), dtype=torch.bool,
@@ -67,7 +70,7 @@ class DirectIntegrator(SamplingIntegrator):
             -1)
         if sa.n_emitters > 0 and not self.hide_emitters:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
-                                             lane_emitter)
+                                             lane_emitter, si.uv_u, si.uv_v)
             emit_mask = active & (lane_emitter >= 0)
             if has_env:
                 miss_env = (~si.valid) & active
@@ -113,7 +116,7 @@ class DirectIntegrator(SamplingIntegrator):
                 si2.valid,
                 sa.inst_emitter[torch.clamp(si2.inst, min=0).long()], -1)
             em_val2 = em_mod.eval_emitter_hit(sa, si2.sh_n, -ray2.d,
-                                              lane_em2)
+                                              lane_em2, si2.uv_u, si2.uv_v)
             hit_em = act_b & (lane_em2 >= 0)
             d_seg = si2.p - si.p
             dist = torch.sqrt(torch.clamp(dot(d_seg, d_seg), min=1e-20))
@@ -209,9 +212,9 @@ class AOVIntegrator(SamplingIntegrator):
                 if sa.n_textures > 0:
                     lane_tex = sa.bsdf_params[P_REFL_TEX][lane_bsdf].to(
                         torch.int32)
-                    alb = where3(lane_tex >= 0,
-                                 eval_texture(sa, lane_tex, si.uv_u,
-                                              si.uv_v), alb)
+                    alb = where3(lane_tex >= 0, eval_texture(
+                        sa, lane_tex, si.uv_u, si.uv_v, p=si.p, b_u=si.b_u,
+                        b_v=si.b_v, prim=si.prim), alb)
                 vm = torch.where(si.valid, 1.0, 0.0)
                 aovs.extend([alb.x * vm, alb.y * vm, alb.z * vm])
         if self.child is not None:

@@ -35,7 +35,7 @@ from ..emitters import (EMITTER_POINT, EMITTER_AREA_RECT, EMITTER_CONSTANT,
                         EMITTER_ENVMAP, EMITTER_AREA_SPHERE,
                         EMITTER_PROJECTOR, EMITTER_DIRECTIONALAREA, E_POS,
                         E_INTENSITY, E_AREA, E_CUTOFF, E_BEAM, E_AXIS,
-                        envmap_eval)
+                        _tri_uv, envmap_eval, sphere_uv, textured_radiance)
 from ..films import block_splat_scatter
 from ..textures import eval_texture
 from . import SamplingIntegrator, DEFAULT_MAX_LANES, textured_reflectance
@@ -230,24 +230,38 @@ class PTracerIntegrator(SamplingIntegrator):
                     w_c = rad * (math.pi * R_b * R_b)
                     cand = (o_c, dl, dl, w_c, z3, no)
                 elif tid == EMITTER_AREA_RECT:
-                    # uniform position (pdf 1/A), cosine direction
-                    o_c, nrm = _rect_point_normal(erow, 2.0 * pos2[0] - 1.0,
-                                                  2.0 * pos2[1] - 1.0)
+                    # uniform position (pdf 1/A), cosine direction; a
+                    # texture at the point's uv in the rectangle's [0, 1]^2
+                    lx = 2.0 * pos2[0] - 1.0
+                    ly = 2.0 * pos2[1] - 1.0
+                    o_c, nrm = _rect_point_normal(erow, lx, ly)
                     A = epar(E_AREA)
+                    rad_loc = textured_radiance(sa, epar, rad,
+                                                0.5 * (lx + 1.0),
+                                                0.5 * (ly + 1.0))
                     cand = (o_c, _frame_dir(nrm, loc), nrm,
-                            rad * (A * math.pi), rad * A, ~no)
+                            rad_loc * (A * math.pi), rad_loc * A, ~no)
                 elif tid == EMITTER_AREA_SPHERE:
                     c_c = Vec3(epar(E_POS), epar(E_POS + 1), epar(E_POS + 2))
                     r_s = epar(E_CUTOFF)
                     nsp = warp.uniform_sphere_c(pos2[0], pos2[1])
+                    o_c = c_c + nsp * r_s
                     A = 4.0 * math.pi * r_s * r_s
-                    cand = (c_c + nsp * r_s, _frame_dir(nsp, loc), nsp,
-                            rad * (A * math.pi), rad * A, ~no)
+                    rad_loc = rad
+                    if int(sa.n_textures) > 0:
+                        # the point's object-space spherical uv, as the
+                        # camera path's hits and NEE take it
+                        rad_loc = textured_radiance(
+                            sa, epar, rad, *sphere_uv(
+                                tuple(erow(j) for j in range(12)), o_c))
+                    cand = (o_c, _frame_dir(nsp, loc), nsp,
+                            rad_loc * (A * math.pi), rad_loc * A, ~no)
                 elif tid == EMITTER_AREA_MESH:
                     # triangle-CDF area sampling (Mesh::sample_position);
                     # an animated emitter mesh at its t = 0 keyframe
                     # (light paths carry time 0)
                     o_m, n_m, invp = z3, z3, zero
+                    uv_mu, uv_mv = zero, zero
                     su = torch.sqrt(torch.clamp(pos2[0], 0.0, 1.0))
                     b0 = 1.0 - su
                     b1 = pos2[1] * su
@@ -287,8 +301,13 @@ class PTracerIntegrator(SamplingIntegrator):
                         o_m = where3(mask, pe, o_m)
                         n_m = where3(mask, ne_v, n_m)
                         invp = torch.where(mask, ip, invp)
+                        if int(sa.n_textures) > 0:
+                            ue, ve = _tri_uv(sa, pre, tri, b0, b1)
+                            uv_mu = torch.where(mask, ue, uv_mu)
+                            uv_mv = torch.where(mask, ve, uv_mv)
+                    rad_loc = textured_radiance(sa, epar, rad, uv_mu, uv_mv)
                     cand = (o_m, _frame_dir(n_m, loc), n_m,
-                            rad * (invp * math.pi), rad * invp, ~no)
+                            rad_loc * (invp * math.pi), rad_loc * invp, ~no)
                 elif tid == EMITTER_PROJECTOR:
                     # a delta position; the direction uniform over the
                     # image plane at z = 1 (pdf_A = 1 / (4 th^2)), so

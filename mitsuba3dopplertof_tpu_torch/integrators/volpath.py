@@ -13,8 +13,11 @@ change at transmissive boundaries by the closed-shape convention.
 
 The tracking loops draw only on their live lanes and stop once none is
 live, as the JAX package's ``bounce_loop`` does, so the draws stay the JAX
-package's lane for lane. The Stokes branch and the SGGX, Rayleigh and
-tabulated phases are ROADMAP Queue A items 10 and 11.
+package's lane for lane. The phase of a medium event is the row's
+``M_PHASE`` kernel: HG, SGGX (its S constant or looked up in the S grid
+at the event, ``_sggx_S6``), Rayleigh or tabulated, for the sampled
+direction and for NEE alike. The Stokes branch is ROADMAP Queue A item
+11.
 """
 
 from __future__ import annotations
@@ -28,9 +31,13 @@ from ..core.properties import register_plugin
 from ..core.vec import Vec3, dot, vmax, where3
 from .. import emitters as em_mod
 from ..media import (M_ALBEDO, M_FILTER, M_G, M_GRID_OFF, M_MAXD, M_NX,
-                     M_NY, M_NZ, M_SAMPLE_EM, M_SIGMA_T, hg_eval, hg_sample)
+                     M_NY, M_NZ, M_PHASE, M_SAMPLE_EM, M_SGGX, M_SGGX_NX,
+                     M_SGGX_NY, M_SGGX_NZ, M_SGGX_OFF, M_SIGMA_T, hg_eval,
+                     hg_sample, rayleigh_eval, rayleigh_sample, sggx_eval,
+                     sggx_sample, tab_eval, tab_phase_tables, tab_sample)
 from ..render.scene import ray_intersect, ray_test
 from ..render.types import SHADOW_EPSILON, DirectionSample, Ray
+from ..volumes import grid_cell, trilinear
 from . import MonteCarloIntegrator, mis_weight
 
 _DT_STEPS = 64     # delta-tracking collision budget per bounce (minimum)
@@ -73,31 +80,14 @@ def _grid_density(sa, medium, p: Vec3):
     nxf = torch.clamp(nx.to(torch.float32), min=1.0)
     nyf = torch.clamp(ny.to(torch.float32), min=1.0)
     nzf = torch.clamp(nz.to(torch.float32), min=1.0)
-    fx = torch.minimum(torch.clamp(lx * nxf - 0.5, min=0.0), nxf - 1.0)
-    fy = torch.minimum(torch.clamp(ly * nyf - 0.5, min=0.0), nyf - 1.0)
-    fz = torch.minimum(torch.clamp(lz * nzf - 0.5, min=0.0), nzf - 1.0)
-    x0 = fx.to(torch.int32)
-    y0 = fy.to(torch.int32)
-    z0 = fz.to(torch.int32)
-    x1 = torch.minimum(x0 + 1, nx - 1)
-    y1 = torch.minimum(y0 + 1, ny - 1)
-    z1 = torch.minimum(z0 + 1, nz - 1)
-    tx = fx - x0.to(torch.float32)
-    ty = fy - y0.to(torch.float32)
-    tz = fz - z0.to(torch.float32)
     last = sa.med_grid.shape[0] - 1
 
     def at(x, y, z):
         lin = off + (z * ny + y) * nx + x
         return sa.med_grid[torch.clamp(lin, 0, last).long()]
 
-    c00 = at(x0, y0, z0) * (1 - tx) + at(x1, y0, z0) * tx
-    c10 = at(x0, y1, z0) * (1 - tx) + at(x1, y1, z0) * tx
-    c01 = at(x0, y0, z1) * (1 - tx) + at(x1, y0, z1) * tx
-    c11 = at(x0, y1, z1) * (1 - tx) + at(x1, y1, z1) * tx
-    c0 = c00 * (1 - ty) + c10 * ty
-    c1 = c01 * (1 - ty) + c11 * ty
-    dens = c0 * (1 - tz) + c1 * tz
+    dens = trilinear(at, grid_cell(lx, nx), grid_cell(ly, ny),
+                     grid_cell(lz, nz))
     # nearest lookup (gridvolume.cpp filter_type="nearest")
     nearest = mp(M_FILTER) > 0.5
     xn = torch.minimum(torch.clamp((lx * nxf).to(torch.int32), min=0), nx - 1)
@@ -105,6 +95,89 @@ def _grid_density(sa, medium, p: Vec3):
     zn = torch.minimum(torch.clamp((lz * nzf).to(torch.int32), min=0), nz - 1)
     dens = torch.where(nearest, at(xn, yn, zn), dens)
     return torch.where(inside, dens * mp(M_SIGMA_T), 0.0)
+
+
+def _sggx_S6(sa, medium, p: Vec3, S6_const):
+    """The SGGX S of media ``medium`` at world points ``p``: a trilinear
+    lookup of the 6-channel S grid (reference sggx.cpp eval_ndf_params ->
+    gridvolume eval_6), or the row's constant S where the medium has no
+    grid (M_SGGX_NX == 0). Eight row gathers of the (V, 6) atlas a lane,
+    the blend weights shared by the six channels."""
+    idx = torch.clamp(medium, min=0).long()
+
+    def w2g(j):
+        return sa.sggx_w2g[j][idx]
+
+    def mp(j):
+        return sa.med_params[j][idx]
+
+    lx = w2g(0) * p.x + w2g(1) * p.y + w2g(2) * p.z + w2g(3)
+    ly = w2g(4) * p.x + w2g(5) * p.y + w2g(6) * p.z + w2g(7)
+    lz = w2g(8) * p.x + w2g(9) * p.y + w2g(10) * p.z + w2g(11)
+    nx = mp(M_SGGX_NX).to(torch.int32)
+    ny = mp(M_SGGX_NY).to(torch.int32)
+    off = mp(M_SGGX_OFF).to(torch.int32)
+    last = sa.sggx_grid.shape[0] - 1
+
+    def at(x, y, z):
+        lin = torch.clamp(off + (z * ny + y) * nx + x, 0, last).long()
+        return sa.sggx_grid[lin]                           # (N, 6)
+
+    def cell(lc, n):
+        i0, i1, t = grid_cell(lc, n)
+        return i0, i1, t[:, None]
+    S = trilinear(at, cell(lx, nx), cell(ly, ny),
+                  cell(lz, mp(M_SGGX_NZ).to(torch.int32)))
+    return tuple(torch.where(nx > 0, S[:, i], S6_const[i])
+                 for i in range(6))
+
+
+def _phase_sample_eval(sa, medium, p_evt, d, d_nee, s2x, s2y):
+    """The phase of each lane's medium, by its row's kernel: (wo, pdf) of
+    a direction sampled at ``p_evt`` for a ray travelling along ``d``, and
+    the phase value toward the NEE direction ``d_nee``."""
+    def med(j):
+        return sa.med_params[j][torch.clamp(medium, min=0).long()]
+    g = med(M_G)
+    wi = -d
+    wo, pdf = hg_sample(wi, g, s2x, s2y)
+    cos_nee = dot(d, d_nee)
+    phase_nee = hg_eval(cos_nee, g)
+    kernel = med(M_PHASE)
+    if sa.any_sggx:
+        S6 = tuple(med(M_SGGX + i) for i in range(6))
+        if sa.any_sggx_grid:
+            # S varying in space, at the scattering event
+            S6 = _sggx_S6(sa, medium, p_evt, S6)
+        is_sggx = torch.abs(kernel - 1.0) < 0.5
+        wo_s, pdf_s = sggx_sample(wi, s2x, s2y, S6)
+        wo = where3(is_sggx, wo_s, wo)
+        pdf = torch.where(is_sggx, pdf_s, pdf)
+        phase_nee = torch.where(is_sggx, sggx_eval(wi, d_nee, S6),
+                                phase_nee)
+    if sa.any_rayleigh:
+        is_ray = torch.abs(kernel - 2.0) < 0.5
+        wo_r, pdf_r = rayleigh_sample(wi, s2x, s2y)
+        wo = where3(is_ray, wo_r, wo)
+        pdf = torch.where(is_ray, pdf_r, pdf)
+        phase_nee = torch.where(is_ray, rayleigh_eval(cos_nee), phase_nee)
+    for mi_, tv in enumerate(sa.tab_phase_tables or ()):
+        if tv is None:
+            continue
+        # one table a medium, built once a scene on its device
+        key = ("tab_phase", mi_)
+        if key not in sa._cache:
+            *tables, inv_n = tab_phase_tables(tv)
+            sa._cache[key] = tuple(torch.tensor(t, device=sa.device)
+                                   for t in tables) + (float(inv_n),)
+        grid, vals, cdf, inv_n = sa._cache[key]
+        is_tab = (medium == mi_) & (torch.abs(kernel - 3.0) < 0.5)
+        wo_t, pdf_t = tab_sample(wi, s2x, s2y, grid, vals, cdf, inv_n)
+        wo = where3(is_tab, wo_t, wo)
+        pdf = torch.where(is_tab, pdf_t, pdf)
+        phase_nee = torch.where(is_tab, tab_eval(cos_nee, grid, vals, inv_n),
+                                phase_nee)
+    return wo, pdf, phase_nee
 
 
 def _delta_track(sa, sampler, state, ray, medium, t_surf, sigma_bar, alive):
@@ -320,7 +393,7 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
         lane_emitter = torch.where(surf_evt, sa.inst_emitter[inst], -1)
         if nee_on:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
-                                             lane_emitter)
+                                             lane_emitter, si.uv_u, si.uv_v)
             miss_env = (~si.valid) & active & ~hit_med
             mis_emitter = lane_emitter
             if has_env:
@@ -402,10 +475,8 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
         # ---------------- next direction: phase or BSDF ---------------
         s1, state = sampler.next_1d(state, active)
         s2, state = sampler.next_2d(state, active)
-        g = med(M_G, medium)
-        wo_phase, pdf_phase = hg_sample(-ray.d, g, s2[0], s2[1])
-        # NEE phase eval: HG about the propagation direction
-        phase_nee = hg_eval(dot(ray.d, ds.d), g)
+        wo_phase, pdf_phase, phase_nee = _phase_sample_eval(
+            sa, medium, p_evt, ray.d, ds.d, s2[0], s2[1])
         # the JAX package's volpath evaluates BSDFs with their rows'
         # reflectance: no texture lookup here
         bs = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, si.to_local(ds.d),

@@ -23,9 +23,7 @@ _CATEGORIES = ["integrator", "sensor", "sampler", "film", "rfilter", "shape",
 # plugins of the JAX package that the port does not have yet, by the
 # ROADMAP.md Queue A item that ports them
 _DEFERRED = {
-    "ROADMAP Queue A item 10": ("normalmap", "bumpmap", "measured",
-                                "rayleigh", "blendphase", "tabphase",
-                                "sggx", "mesh_attribute", "volume"),
+    "ROADMAP Queue A item 10": ("measured",),
     "ROADMAP Queue A item 11": ("specfilm",),
 }
 

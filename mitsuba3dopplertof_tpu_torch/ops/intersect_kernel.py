@@ -42,7 +42,6 @@ that kernel's plain version. ``LAUNCHES`` counts B1 launches (all forms),
 from __future__ import annotations
 
 import ctypes
-import math
 import os
 from typing import NamedTuple
 
@@ -50,7 +49,7 @@ import torch
 
 from ..core.vec import (Vec3, cross, dot, where3, cmat_lerp, cmat_inverse,
                         cmat_apply_point, cmat_apply_vector,
-                        cmat_apply_transpose_vector)
+                        cmat_apply_transpose_vector, spherical_uv)
 from ..render.types import Ray
 from .cuda_build import CudaLibrary
 
@@ -262,9 +261,7 @@ def _spheres_reference(sa, ray: Ray, hit: HitRecord) -> HitRecord:
         hit_m = ok & (t < out.t)
         pn = o + d * t                 # object-space normal = hit point
         wn = cmat_apply_transpose_vector(inv, pn)
-        u = torch.atan2(pn.y, pn.x) * (0.5 / math.pi)
-        u = torch.where(u < 0.0, u + 1.0, u)
-        v = torch.acos(torch.clamp(pn.z, -1.0, 1.0)) * (1.0 / math.pi)
+        u, v = spherical_uv(pn)
         zero = torch.zeros_like(u)
         out = HitRecord(*(torch.where(hit_m, new, old) for new, old in zip(
             (t, torch.full_like(out.prim, _SPH_SLOT_BASE + s),

@@ -50,6 +50,7 @@ class SceneArrays:
            "env_alias", "env_aprob", "env_rot", "env_rot_fwd",
            "em_tri_cdf",
            "med_params", "inst_int_medium", "med_grid", "med_w2g",
+           "sggx_grid", "sggx_w2g",          # sggx_grid: (V, 6)
            "bsphere_radius", "bsphere_center"]
     )
     META_FIELDS = [
@@ -58,14 +59,12 @@ class SceneArrays:
         "env_radiance", "bsdf_flags_host", "tex_types_present", "n_textures",
         "n_spheres", "sphere_animated", "env_kind", "env_shape", "env_index",
         "mesh_em_meta", "sensor_medium", "n_media", "any_hetero", "any_flip",
-        "max_optical_depth_hint",
+        "max_optical_depth_hint", "any_nmap", "any_sggx", "any_sggx_grid",
+        "any_rayleigh", "tab_phase_tables",
     ]
     # a JAX SceneArrays with any of these set uses a feature the port
     # does not have yet
-    _UNPORTED_META = {"any_nmap": "ROADMAP Queue A item 10",
-                      "any_sggx": "ROADMAP Queue A item 10",
-                      "any_rayleigh": "ROADMAP Queue A item 10",
-                      "spectral": "ROADMAP Queue A item 11",
+    _UNPORTED_META = {"spectral": "ROADMAP Queue A item 11",
                       "polarized": "ROADMAP Queue A item 11"}
 
     def __init__(self, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
@@ -80,12 +79,18 @@ class SceneArrays:
         box = arrays.get("chunk_aabb")
         self.chunk_aabb = (None if box is None else torch.tensor(
             np.asarray(box), dtype=torch.float32, device=device))
+        # (9, T) per-vertex attribute of every triangle slot (three rgb
+        # corners), which mesh_attribute textures read; None without one
+        attr = arrays.get("mesh_attr")
+        self.mesh_attr = (None if attr is None else torch.tensor(
+            np.asarray(attr), dtype=torch.float32, device=device))
         # the tensors' own device: "cuda" resolves to "cuda:<current>"
         self.device = self.inst_t0.device
         for k in self.META_FIELDS:
             setattr(self, k, meta[k])
         self._tables = None     # B1's tables (ops/intersect_kernel)
-        self._cache = {}        # the large-scene tables (ops/intersect_v4)
+        self._cache = {}        # the large-scene tables (ops/intersect_v4),
+                                # volpath's tabulated phases
 
     def tri(self, prefix: str, col: str):
         return getattr(self, prefix + "_" + col)
@@ -108,16 +113,10 @@ def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
     for k, item in SceneArrays._UNPORTED_META.items():
         if get(k, None):
             raise NotImplementedError(f"scene uses '{k}' ({item})")
-    from ..textures import TEX_BITMAP, TEX_CHECKERBOARD
-    if (set(get("tex_types_present", ()) or ())
-            - {TEX_CHECKERBOARD, TEX_BITMAP}
-            or any(t is not None for t in get("tab_phase_tables", ()) or ())):
-        raise NotImplementedError(
-            "scene uses a volume or mesh_attribute texture or a tabulated "
-            "phase (ROADMAP Queue A item 10)")
     arrays = dict(arrays)
-    if arrays.get("chunk_aabb") is None and get("chunk_aabb") is not None:
-        arrays["chunk_aabb"] = np.asarray(get("chunk_aabb"))
+    for k in ("chunk_aabb", "mesh_attr"):
+        if arrays.get(k) is None and get(k) is not None:
+            arrays[k] = np.asarray(get(k))
     return SceneArrays(arrays, {k: get(k) for k in SceneArrays.META_FIELDS},
                        device)
 
@@ -221,7 +220,8 @@ class Scene:
                                     add_bsdf(b.nested[1]))
 
         # --- texture table + bitmap atlas --------------------------------
-        from ..textures import N_TEX_PARAMS, T_ATLAS, TEX_BITMAP
+        from ..textures import (N_TEX_PARAMS, T_ATLAS, TEX_BITMAP,
+                                TEX_MESHATTR, TEX_VOLUME)
         tex_objs: List[Any] = []
         tex_index: Dict[int, int] = {}
 
@@ -239,9 +239,12 @@ class Scene:
                 b.tex_index = add_tex(t)
                 if hasattr(b, "nested"):
                     b.nested.tex_index = b.tex_index
+            # normalmap / bumpmap: the texture their row names
+            nm = getattr(b, "normalmap_tex", None)
+            if nm is not None:
+                b.nmap_index = add_tex(nm)
         for em in self.emitters:
-            # the projector's image (area emitters with a texture are not
-            # ported: their constructor raises)
+            # an area emitter's radiance, the projector's image
             t = getattr(em, "irradiance_tex", None)
             if t is not None:
                 em.tex_index = add_tex(t)
@@ -256,10 +259,22 @@ class Scene:
                 tex_h.append(img.shape[0])
                 atlas.append(img.reshape(-1, 3))
                 atlas_off += img.shape[0] * img.shape[1]
+            elif t.type_id == TEX_VOLUME:
+                # volume grids ride the same flat rgb atlas
+                g = t.grid_rgb()
+                row[T_ATLAS] = float(atlas_off)
+                tex_h.append(0)
+                atlas.append(g.reshape(-1, 3))
+                atlas_off += g.shape[0] * g.shape[1] * g.shape[2]
             else:
                 tex_h.append(0)
             tex_rows.append(row)
             tex_types.append(t.type_id)
+        # the attributes mesh_attribute textures name, packed per triangle
+        # slot in the shape sweep below
+        mesh_attr_names = [t.name for t in tex_objs
+                           if t.type_id == TEX_MESHATTR]
+        s_attr_rows, a_attr_rows = [], []
         atlas_np = (np.concatenate(atlas, axis=0) if atlas
                     else np.zeros((1, 3), np.float32))
 
@@ -268,8 +283,11 @@ class Scene:
         bsdf_type = np.array([b.type_id for b in bsdf_objs], np.int32)
         bsdf_flags = np.array([b.flags for b in bsdf_objs], np.int32)
         bsdf_params = np.stack([b.params_row() for b in bsdf_objs]).T
-        # no row has a normal map yet (ROADMAP Queue A item 10)
-        bsdf_params[P_NMAP_TEX] = -1.0
+        # rows without a normal or bump map carry -1 in its column (0
+        # would name texture row 0)
+        for bi, b in enumerate(bsdf_objs):
+            if getattr(b, "nmap_index", -1) < 0:
+                bsdf_params[P_NMAP_TEX, bi] = -1.0
 
         # --- emitter table ------------------------------------------------
         emitter_rows, emitter_types, emitter_mats = [], [], []
@@ -347,7 +365,9 @@ class Scene:
             env_rot = np.linalg.inv(R).reshape(-1)
 
         # --- media: the sensor's first, then each shape's interior ---------
-        from ..media import M_GRID_OFF, M_MAXD, N_MED_PARAMS
+        from ..media import (M_GRID_OFF, M_MAXD, M_SGGX_NX, M_SGGX_NY,
+                             M_SGGX_NZ, M_SGGX_OFF, N_MED_PARAMS,
+                             PHASE_RAYLEIGH, PHASE_SGGX, PHASE_TAB)
         media_objs: List[Any] = []
         media_index: Dict[int, int] = {}
 
@@ -380,6 +400,28 @@ class Scene:
             med_w2g[:, mi_] = w2g[:3, :4].reshape(-1)
         med_grid = (np.concatenate(med_grid_parts)
                     if med_grid_parts else np.zeros(1, np.float32))
+        # spatially varying SGGX: the 6-channel S grids as rows of one
+        # (V, 6) atlas, looked up at each scattering event (reference
+        # sggx.cpp eval_ndf_params); M_SGGX_NX == 0 keeps the constant S
+        sggx_parts = []
+        sggx_w2g = np.zeros((12, max(len(media_objs), 1)))
+        sggx_row_off = 0
+        for mi_, m in enumerate(media_objs):
+            sg = getattr(m.phase, "S_grid", None)
+            if sg is None:
+                continue
+            rows = np.ascontiguousarray(sg.data[..., :6].reshape(-1, 6),
+                                        np.float32)
+            med_params[M_SGGX_OFF, mi_] = sggx_row_off
+            med_params[M_SGGX_NX, mi_] = sg.data.shape[2]
+            med_params[M_SGGX_NY, mi_] = sg.data.shape[1]
+            med_params[M_SGGX_NZ, mi_] = sg.data.shape[0]
+            sggx_parts.append(rows)
+            sggx_row_off += rows.shape[0]
+            sggx_w2g[:, mi_] = np.linalg.inv(np.asarray(
+                sg.to_world, np.float64))[:3, :4].reshape(-1)
+        sggx_grid = (np.concatenate(sggx_parts, axis=0)
+                     if sggx_parts else np.zeros((1, 6), np.float32))
 
         # --- instances & triangles -----------------------------------------
         inst_m0, inst_m1, inst_t0, inst_t1 = [], [], [], []
@@ -460,6 +502,25 @@ class Scene:
                                  mesh.uvs[f[:, 2]])
             else:
                 uv0 = uv1 = uv2 = np.zeros((nt, 2))
+            if mesh_attr_names:
+                # the first named attribute the mesh has, its three
+                # corners per triangle (0.5 gray without one)
+                att = None
+                for name in mesh_attr_names:
+                    att = mesh.attributes.get(name)
+                    if att is not None:
+                        break
+                if att is None:
+                    rows9 = np.full((nt, 9), 0.5, np.float32)
+                else:
+                    att = np.asarray(att, np.float32)
+                    if att.ndim == 1:
+                        att = att[:, None]
+                    if att.shape[1] == 1:
+                        att = np.repeat(att, 3, axis=1)
+                    rows9 = np.concatenate(
+                        [att[f[:, k]][:, :3] for k in range(3)], axis=1)
+                (a_attr_rows if animated else s_attr_rows).append(rows9)
             data = {"inst": np.full(nt, ii, np.int32),
                     "prim": np.arange(nt, dtype=np.int32)}
             for name, arr in (("v0", p0), ("e1", e1), ("e2", e2),
@@ -525,6 +586,11 @@ class Scene:
             return np.stack([np.concatenate(cols[a]), np.concatenate(cols[b]),
                              np.concatenate(cols[c])], axis=1)
 
+        # (9, T) per-vertex attribute table in global slot order
+        arrays["mesh_attr"] = (
+            np.concatenate(s_attr_rows + a_attr_rows, axis=0).T.astype(
+                np.float32)
+            if mesh_attr_names and (s_attr_rows or a_attr_rows) else None)
         arrays["chunk_aabb"] = chunk_aabbs(
             n_static, tuple(anim_ranges),
             cat3(s_cols, "v0x", "v0y", "v0z"),
@@ -577,6 +643,8 @@ class Scene:
             inst_int_medium=np.asarray(inst_int_medium or [-1], i32),
             med_grid=med_grid.astype(f32),
             med_w2g=med_w2g.astype(f32),
+            sggx_grid=sggx_grid.astype(f32),
+            sggx_w2g=sggx_w2g.astype(f32),
             bsphere_radius=np.asarray(radius, f32),
             bsphere_center=np.asarray(center, f32),
         )
@@ -603,6 +671,16 @@ class Scene:
             sensor_medium=sensor_medium,
             n_media=len(media_objs),
             any_hetero=bool(med_grid_parts),
+            any_nmap=any(getattr(b, "nmap_index", -1) >= 0
+                         for b in bsdf_objs),
+            any_rayleigh=any(m.phase.type_id == PHASE_RAYLEIGH
+                             for m in media_objs),
+            tab_phase_tables=tuple(
+                (tuple(float(x) for x in m.phase.values)
+                 if m.phase.type_id == PHASE_TAB else None)
+                for m in media_objs),
+            any_sggx=any(m.phase.type_id == PHASE_SGGX for m in media_objs),
+            any_sggx_grid=bool(sggx_parts),
             # the largest majorant (or sigma_t) times the scene's diameter:
             # the volpath tracking loops' budgets (the JAX package's host
             # code)

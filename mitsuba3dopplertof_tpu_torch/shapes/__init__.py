@@ -38,8 +38,8 @@ class Mesh:
         self.uvs = (np.asarray(uvs, dtype=np.float64).reshape(-1, 2)
                     if uvs is not None else None)
         # named per-vertex attributes, e.g. {"vertex_color": (V, 3)}
-        # (reference mesh.cpp add_attribute); no texture reads them yet
-        # (mesh_attribute, ROADMAP Queue A item 10)
+        # (reference mesh.cpp add_attribute), which mesh_attribute
+        # textures read
         self.attributes = dict(attributes or {})
 
     @property

@@ -1,12 +1,13 @@
 """Texture plugins (port of the JAX package's ``textures/__init__.py``:
-``checkerboard`` and ``bitmap``; reference src/textures/{checkerboard,
-bitmap}.cpp).
+``checkerboard``, ``bitmap``, ``mesh_attribute`` and ``volume``;
+reference src/textures/{checkerboard,bitmap,mesh_attribute,volume}.cpp).
 
 Every texture in the scene gets a row of the texture table; bitmap images
-concatenate into one flat rgb atlas so that a gather per tap evaluates any
-bitmap. Checkerboard is procedural. BSDF parameter rows name their texture
-by id. The ``mesh_attribute`` and ``volume`` textures are ROADMAP Queue A
-item 10, the spectral coefficient atlas item 11.
+and volume grids concatenate into one flat rgb atlas so that a gather per
+tap evaluates any of them. Checkerboard is procedural; a mesh attribute
+is read from the per-triangle attribute table (``SceneArrays.mesh_attr``).
+BSDF and emitter rows name their texture by id. The spectral coefficient
+atlas is ROADMAP Queue A item 11.
 """
 
 from __future__ import annotations
@@ -21,15 +22,20 @@ from ..core.properties import Properties, register_plugin
 # type ids (the JAX package's numbering)
 TEX_CHECKERBOARD = 0
 TEX_BITMAP = 1
+TEX_VOLUME = 2       # a 3D volume sampled at the world hit position
+TEX_MESHATTR = 3     # a per-vertex mesh attribute, barycentric-interpolated
 
 N_TEX_PARAMS = 27
 # param columns
-T_COLOR0 = 0     # checkerboard color0 rgb
+T_COLOR0 = 0     # checkerboard color0 rgb / mesh_attribute: scale at [0]
 T_COLOR1 = 3     # checkerboard color1 rgb
 T_UVSCALE = 6    # uv transform: scale u, scale v, offset u, offset v
-T_ATLAS = 10     # bitmap: atlas offset (as float), 11: width
-T_FILTER = 12    # bitmap: 0 = nearest, 1 = bilinear (reference default)
-T_WRAP = 13      # bitmap: 0 = repeat, 1 = mirror, 2 = clamp
+T_ATLAS = 10     # bitmap, volume: atlas offset (as float), 11: width
+T_GRID = 12      # volume: nx, ny, nz at 12..14
+T_W2G = 15       # volume: world-to-grid 3x4 row-major at 15..26
+# bitmap only (the volume's grid columns: the dispatch is by type)
+T_FILTER = 12    # 0 = nearest, 1 = bilinear (reference default)
+T_WRAP = 13      # 0 = repeat, 1 = mirror, 2 = clamp
 
 FILTER_MODES = {"nearest": 0, "bilinear": 1}
 WRAP_MODES = {"repeat": 0, "mirror": 1, "clamp": 2}
@@ -136,13 +142,87 @@ class BitmapTexture(Texture):
         return self.image.reshape(-1, 3).mean(axis=0)
 
 
+@register_plugin("texture", "mesh_attribute")
+class MeshAttribute(Texture):
+    """reference src/textures/mesh_attribute.cpp — a per-vertex mesh
+    attribute (``vertex_color`` of PLY and .serialized files) interpolated
+    barycentrically at the hit. The attribute table is packed per global
+    triangle slot at scene compile (render/scene.py)."""
+    type_id = TEX_MESHATTR
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.name = props.get_string("name")
+        self.scale = props.get_float("scale", 1.0)
+
+    def params_row(self):
+        p = super().params_row()
+        p[T_COLOR0] = self.scale
+        return p
+
+    def mean_rgb(self):
+        return np.array([0.5, 0.5, 0.5]) * self.scale
+
+
+@register_plugin("texture", "volume")
+class VolumeTexture(Texture):
+    """reference src/textures/volume.cpp — a volume (constvolume or
+    gridvolume) evaluated at the world hit position through the volume's
+    inverse to_world, trilinearly (the medium grids' voxel-centre
+    convention)."""
+    type_id = TEX_VOLUME
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..volumes import Volume
+        self.volume = None
+        for key, v in props.objects():
+            if isinstance(v, Volume):
+                self.volume = v
+        if self.volume is None:
+            raise RuntimeError("volume texture: provide a nested volume")
+
+    def grid_rgb(self) -> np.ndarray:
+        """(nz, ny, nx, 3) float grid (a constant becomes one cell)."""
+        v = self.volume
+        g = getattr(v, "data", None)
+        if g is None:
+            return np.asarray(v.mean_rgb(), np.float32).reshape(1, 1, 1, 3)
+        g = np.asarray(g, np.float32)
+        if g.shape[-1] == 1:
+            g = np.repeat(g, 3, axis=-1)
+        return g[..., :3]
+
+    def world_to_grid(self) -> np.ndarray:
+        m = np.asarray(getattr(self.volume, "to_world", np.eye(4)),
+                       np.float64)
+        return np.linalg.inv(m)[:3, :4]
+
+    def params_row(self):
+        p = super().params_row()
+        g = self.grid_rgb()
+        p[T_GRID] = g.shape[2]
+        p[T_GRID + 1] = g.shape[1]
+        p[T_GRID + 2] = g.shape[0]
+        p[T_W2G:T_W2G + 12] = self.world_to_grid().reshape(-1)
+        return p
+
+    def mean_rgb(self):
+        return self.grid_rgb().reshape(-1, 3).mean(axis=0)
+
+
 # ---------------------------------------------------------------------------
 # Device-side evaluation
 # ---------------------------------------------------------------------------
 
-def eval_texture(sa, tex_id, uv_u, uv_v):
+def eval_texture(sa, tex_id, uv_u, uv_v, p=None, b_u=None, b_v=None,
+                 prim=None):
     """Evaluate per-lane textures at (uv_u, uv_v) as Vec3 rgb; lanes with
-    ``tex_id < 0`` are the caller's to mask."""
+    ``tex_id < 0`` are the caller's to mask. ``p`` (world hit position)
+    serves ``volume`` textures, ``b_u`` / ``b_v`` / ``prim`` (barycentrics
+    and global triangle slot) ``mesh_attribute`` textures; where a call
+    site has no surface interaction to give, those types return 0.5 gray,
+    as the JAX package's do."""
     from ..core.vec import Vec3, where3
     idx = torch.clamp(tex_id, min=0).long()
 
@@ -210,14 +290,60 @@ def eval_texture(sa, tex_id, uv_u, uv_v):
             lin = (v00 * ((1.0 - fx) * (1.0 - fy)) + v10 * (fx * (1.0 - fy))
                    + v01 * ((1.0 - fx) * fy) + v11 * (fx * fy))
             val = where3(filt > 0.5, lin, fetch(xn, yn))
+        elif tid == TEX_VOLUME and p is not None:
+            val = _eval_volume(sa, param, p)
+        elif (tid == TEX_MESHATTR and b_u is not None and prim is not None
+              and sa.mesh_attr is not None):
+            # barycentric interpolation of the packed per-vertex
+            # attribute (reference mesh_attribute.cpp eval), times scale
+            ma = sa.mesh_attr
+            pr = torch.clamp(prim, 0, ma.shape[1] - 1).long()
+            bw = 1.0 - b_u - b_v
+            val = Vec3(
+                bw * ma[0][pr] + b_u * ma[3][pr] + b_v * ma[6][pr],
+                bw * ma[1][pr] + b_u * ma[4][pr] + b_v * ma[7][pr],
+                bw * ma[2][pr] + b_u * ma[5][pr] + b_v * ma[8][pr]
+            ) * param(T_COLOR0)
+        elif tid in (TEX_VOLUME, TEX_MESHATTR):
+            # no surface interaction at this call site
+            h = torch.full_like(uv_u, 0.5)
+            val = Vec3(h, h, h)
         else:
             raise NotImplementedError(
                 f"texture type {tid} is not ported yet "
-                "(ROADMAP Queue A item 10)")
+                "(ROADMAP Queue A item 11)")
         out = where3(lane_type == tid, val, out)
     return out
 
 
-__all__ = ["Texture", "Checkerboard", "BitmapTexture", "eval_texture",
-           "N_TEX_PARAMS", "TEX_CHECKERBOARD", "TEX_BITMAP", "T_COLOR0",
-           "T_COLOR1", "T_UVSCALE", "T_ATLAS", "T_FILTER", "T_WRAP"]
+def _eval_volume(sa, param, p):
+    """A volume texture at world points ``p``: world -> the volume's
+    [0,1]^3 by T_W2G, then a trilinear lookup in the atlas with the
+    voxel-centre convention of the medium grids (reference volume.cpp
+    eval, gridvolume.cpp)."""
+    from ..core.vec import Vec3
+    from ..volumes import grid_cell, trilinear
+
+    def w2g(j):
+        return param(T_W2G + j)
+    lx = w2g(0) * p.x + w2g(1) * p.y + w2g(2) * p.z + w2g(3)
+    ly = w2g(4) * p.x + w2g(5) * p.y + w2g(6) * p.z + w2g(7)
+    lz = w2g(8) * p.x + w2g(9) * p.y + w2g(10) * p.z + w2g(11)
+    nx = param(T_GRID).to(torch.int32)
+    ny = param(T_GRID + 1).to(torch.int32)
+    off = param(T_ATLAS).to(torch.int32)
+    last = sa.tex_atlas_r.shape[0] - 1
+
+    def at(x, y, z):
+        lin = torch.clamp(off + (z * ny + y) * nx + x, 0, last).long()
+        return Vec3(sa.tex_atlas_r[lin], sa.tex_atlas_g[lin],
+                    sa.tex_atlas_b[lin])
+    return trilinear(at, grid_cell(lx, nx), grid_cell(ly, ny),
+                     grid_cell(lz, param(T_GRID + 2).to(torch.int32)))
+
+
+__all__ = ["Texture", "Checkerboard", "BitmapTexture", "MeshAttribute",
+           "VolumeTexture", "eval_texture", "N_TEX_PARAMS",
+           "TEX_CHECKERBOARD", "TEX_BITMAP", "TEX_VOLUME", "TEX_MESHATTR",
+           "T_COLOR0", "T_COLOR1", "T_UVSCALE", "T_ATLAS", "T_GRID",
+           "T_W2G", "T_FILTER", "T_WRAP"]

@@ -1,11 +1,14 @@
 """Volume data sources (port of the JAX package's ``volumes/__init__.py``;
-reference src/volumes/{constvolume,gridvolume}.cpp)."""
+reference src/volumes/{constvolume,gridvolume}.cpp), and the trilinear
+lookup that volpath's density and S grids and the volume texture share:
+voxel centres at (i + 0.5) / n of the unit cube, clamped at its faces."""
 
 from __future__ import annotations
 
 import struct
 
 import numpy as np
+import torch
 
 from ..core.properties import Properties, register_plugin
 
@@ -85,4 +88,31 @@ class GridVolume(Volume):
         return np.full(3, m)
 
 
-__all__ = ["Volume", "ConstVolume", "GridVolume"]
+def grid_cell(lc, n):
+    """(i0, i1, t) along one axis of grids of ``n`` voxels (int32 tensors)
+    at unit-cube coordinates ``lc``: the two voxels whose centres bracket
+    the point, clamped to the grid, and the weight of the second."""
+    nf = torch.clamp(n.to(lc.dtype), min=1.0)
+    f = torch.minimum(torch.clamp(lc * nf - 0.5, min=0.0), nf - 1.0)
+    i0 = f.to(torch.int32)
+    return (i0, torch.minimum(i0 + 1, torch.clamp(n - 1, min=0)),
+            f - i0.to(lc.dtype))
+
+
+def trilinear(at, cx, cy, cz):
+    """The trilinear blend of ``at(x, y, z)`` (a voxel's value) over the
+    cells ``cx``, ``cy``, ``cz`` of ``grid_cell``; the weights broadcast
+    against the values (give (N, 1) weights for (N, C) values)."""
+    x0, x1, tx = cx
+    y0, y1, ty = cy
+    z0, z1, tz = cz
+    c00 = at(x0, y0, z0) * (1 - tx) + at(x1, y0, z0) * tx
+    c10 = at(x0, y1, z0) * (1 - tx) + at(x1, y1, z0) * tx
+    c01 = at(x0, y0, z1) * (1 - tx) + at(x1, y0, z1) * tx
+    c11 = at(x0, y1, z1) * (1 - tx) + at(x1, y1, z1) * tx
+    c0 = c00 * (1 - ty) + c10 * ty
+    c1 = c01 * (1 - ty) + c11 * ty
+    return c0 * (1 - tz) + c1 * tz
+
+
+__all__ = ["Volume", "ConstVolume", "GridVolume", "grid_cell", "trilinear"]

@@ -941,3 +941,70 @@ def test_new_path_on_card_matches_cpu(cuda, tmp_path, case):
         assert close[hit][:, chip_smoke.AOV_HIT_ONLY].mean() >= 0.99
     assert close[keep].mean() >= 0.99
     assert abs(g[keep].mean() - c[keep].mean()) <= 1e-3 * abs(c[keep].mean())
+
+
+def _textured_scene(case, tmp_path):
+    """(loader of a scene on a device, kernel module) of chip_smoke.py's
+    phase 13 at 16x16 x 16 spp: the surface scene (B1), the mesh-light
+    scene with the 2k vertex-coloured sphere (B2), the media scene."""
+    from mitsuba3dopplertof_tpu_torch.utils import textured_scenes as ts
+    d = str(tmp_path)
+    if case == "surface":
+        assets = ts.write_surface_assets(d)
+        return (lambda dev: mt.load_dict(ts.surface_scene(assets, 16, 16),
+                                         device=dev)), ik
+    if case == "mesh_light":
+        assets = ts.write_surface_assets(d)
+        ts.write_colored_sphere_ply(f"{d}/sphere.ply",
+                                    *ANIMATED_SIZES["2k"])
+        ts.write_light_grid_ply(f"{d}/light.ply", 32)
+        return (lambda dev: mt.load_dict(ts.mesh_light_scene(
+            f"{d}/sphere.ply", f"{d}/light.ply", assets["glow"], 16, 16),
+            device=dev)), v4
+    ts.write_sggx_vol(f"{d}/sggx.vol")
+    return (lambda dev: mt.load_dict(ts.media_scene(f"{d}/sggx.vol", 16,
+                                                    16), device=dev)), ik
+
+
+@pytest.mark.parametrize("case,integrator", [
+    ("surface", None), ("surface", "direct"), ("surface", "aov"),
+    ("surface", "ptracer"), ("mesh_light", None), ("media", None)])
+def test_textured_scene_on_card_matches_cpu(cuda, tmp_path, case,
+                                            integrator):
+    """chip_smoke.py's phase-13 scenes at 16x16 x 16 spp, card against
+    CPU with phase 8's criteria (>= 99% of values within rtol 1e-4, atol
+    1e-4 * max|cpu|, the mean within 1e-3): the surface scene through B1
+    with its own dopplertofpath and with direct, aov (albedo and depth:
+    both zero on a missed lane, where the query's payload differs between
+    the card and the CPU) and ptracer; the mesh-light scene through B2 and the media
+    scene's volpath with their own integrators. The lanes that meet a tie
+    or graze an edge (torch_ties.TieRecorder, at most 10%) are left out
+    of both films."""
+    from torch_ties import TieRecorder
+    load, mod = _textured_scene(case, tmp_path)
+    integ = {None: None, "direct": {"type": "direct"},
+             "aov": {"type": "aov", "aovs": "aa:albedo,dd:depth",
+                     "nested": {"type": "path", "max_depth": 4}},
+             "ptracer": {"type": "ptracer", "max_depth": 4}}[integrator]
+
+    def render(dev):
+        kw = {} if integ is None else {"integrator": mt.load_dict(integ)}
+        return mt.render(load(dev), spp=16, seed=0, **kw)
+    rec = TieRecorder(16 * 16 * 16, "cpu")
+    if integrator != "ptracer":
+        with rec.hooked():
+            render("cpu")
+    assert int(rec.marked.sum()) <= 0.1 * rec.marked.numel()
+    imgs = []
+    with rec.dropped():
+        for dev in (cuda, "cpu"):
+            mod.reset_launch_counts()
+            imgs.append(render(dev).cpu().numpy())
+            if dev is cuda:
+                assert mod.LAUNCHES_BY_FORM["closest_hit"] > 0
+    g, c = imgs
+    scale = np.abs(c).max()
+    assert scale > 0.0 and np.isfinite(g).all()
+    close = np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale)
+    assert close.mean() >= 0.99
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())

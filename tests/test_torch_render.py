@@ -242,7 +242,7 @@ def test_unported_features_name_their_roadmap_item():
         mt.set_variant("cuda_spectral")
     assert mt.set_variant("cuda_rgb") == "cuda_rgb"
     with pytest.raises(NotImplementedError, match="item 10"):
-        mt.load_dict({"type": "bumpmap"})
+        mt.load_dict({"type": "measured"})
     with pytest.raises(NotImplementedError, match="item 3"):
         mt.dict_to_xml({"type": "scene"}, "scene.xml")
     with pytest.raises(NotImplementedError, match="item 11"):
