@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --spectral
     python3 chip_smoke.py --b2-walk CHECKOUT
     python3 chip_smoke.py --b1-walk CHECKOUT
     python3 chip_smoke.py --b6-walk CHECKOUT
@@ -10,7 +11,8 @@
 
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
-``--b2-walk CHECKOUT`` runs only B2's walk report (phase 4's B2 lines) on
+``--spectral`` runs the build and phase 14 alone, with no kernel or
+contract line. ``--b2-walk CHECKOUT`` runs only B2's walk report (phase 4's B2 lines) on
 the package of another checkout, such as the parent commit unpacked with
 ``git archive``, so that two commits compare on one card in one call;
 ``--b1-walk CHECKOUT`` likewise times that checkout's B1 on phase 3's
@@ -148,8 +150,9 @@ phase raises on failure:
      256x256 x 256 spp through B2, with the launches and device time of
      one BSDF dispatch with and without the principled family; the card
      against the CPU at 16x16 x 16 spp with phase 8's criteria: moment,
-     aov (box filter, alpha; triangle and instance ids equal; shading
-     normal and uv on the pixels every sample of which hit), direct,
+     aov (box filter, alpha; triangle and instance ids equal; every
+     pixel, the shading normal and uv of missed lanes the plain
+     intersector's on both devices), direct,
      use_nee=false, volpathmis, the principled scene with the 2k sphere
      through B2 and through MI_STREAM_KERNEL=v3 (marked lanes left out),
      and ptracer on the projector / directionalarea scene;
@@ -163,10 +166,25 @@ phase raises on failure:
      a varying S grid; volpath, the spp a probe fits in 15 s); card
      against CPU at 16x16 x 16 (the surface scene also with direct, aov
      and ptracer; the mesh light with the 2k sphere);
- 14. a JSON line with the kernels (B2 twice more: on the hero's
-     wavefronts; B1's and B2's entries carry their launches in phase 11's,
-     12's and 13's renders as ``launches_<scene>``), then the contract line
-     {"ok": true, "device": {...}}.
+ 14. the spectral and mono variants and the measured BSDF (scenes of
+     utils/{spectral_scenes,measured_data,textured_scenes,hero_scene}.py
+     and the glass scene), each timed warm with its launches, in
+     cuda_spectral unless named: the canonical dopplertofpath 256x256 x
+     1024 (B1, its launches equal to phase 5's), the hero 256x256 x 64
+     (B2) with its compile timed apart (the cold rgb2spec lattice and
+     the sky's per-texel fits on the card), glass 40k 256x256 x 64 (named
+     conductors through their eta / k spectra; B2 and B1's sphere pass),
+     measured on the 40k sphere 256x256 x 64 in cuda_rgb and
+     cuda_spectral (B2) with one measured BSDF dispatch over 2^20 lanes
+     each, the media scene's volpath (the spp a probe fits in 15 s, B1);
+     card against CPU at 16x16 x 16: the canonical scene in cuda_mono
+     and into a specfilm of three regular SRFs, measured rgb and spectral
+     on the 2k sphere, the mini hero and the media scene (marked lanes
+     left out where B2 runs);
+ 15. a JSON line with the kernels (B2 twice more: on the hero's
+     wavefronts; B1's and B2's entries carry their launches in phase
+     11's to 14's renders as ``launches_<scene>``), then the contract
+     line {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
 input read once, each output written once) over the card's memory rate and
@@ -2515,18 +2533,12 @@ def aov_check_dict(mi) -> dict:
     return d
 
 
-def aov_compared(img_g, img_c):
-    """The values of aov's card-vs-CPU image that are compared: all but
-    the shading normal and uv of the pixels where a sample missed (on a
-    missed lane they are the query's payload: triangle 0's in the plain
-    versions, the kernel's own on the card; ROADMAP Queue C). Returns
-    (mask of the image's shape, mask of the pixels every sample of which
-    hit on both sides)."""
-    import numpy as np
-    hit = (img_g[..., 3] == 1.0) & (img_c[..., 3] == 1.0)
-    keep = np.ones(img_c.shape, dtype=bool)
-    keep[~hit, AOV_HIT_ONLY] = False
-    return keep, hit
+def aov_all_hit(img_g, img_c):
+    """The pixels of aov's card-vs-CPU image every sample of which hit on
+    both sides. Every pixel is compared: on a missed lane aov's shading
+    normal and uv are the plain intersector's on both devices; this mask
+    only splits the report."""
+    return (img_g[..., 3] == 1.0) & (img_c[..., 3] == 1.0)
 
 
 def principled_dict(mesh: str, spp: int, res: int) -> dict:
@@ -2892,10 +2904,9 @@ def integrators_phase(mi, reset, read, card) -> dict:
                 fail(f"{label} card vs cpu: launches {counts}")
             scale = float(np.abs(img_c).max())
             close = np.isclose(img_g, img_c, rtol=1e-4, atol=1e-4 * scale)
-            keep = np.ones(img_c.shape, dtype=bool)
             extra = ""
             if label.startswith("canonical aov"):
-                keep, hit = aov_compared(img_g, img_c)
+                hit = aov_all_hit(img_g, img_c)
                 # triangle and instance ids: box-filtered means of equal
                 # integers, exact
                 ids_equal = bool(np.array_equal(img_g[..., AOV_IDS],
@@ -2908,19 +2919,19 @@ def integrators_phase(mi, reset, read, card) -> dict:
                          f"{on_hit * 100:.2f}% of the values of the "
                          f"{int(hit.sum())} pixels all hit, "
                          f"{on_miss * 100:.2f}% on the others")
-                if not ids_equal or hit.mean() < 0.5 or on_hit < 0.99:
+                if (not ids_equal or hit.mean() < 0.5 or on_hit < 0.99
+                        or on_miss < 0.99):
                     fail("aov card vs cpu: the index channels differ, or "
-                         "sh_normal / uv on the pixels all hit")
-            close = close[keep]
-            rel_mean = (abs(img_g[keep].mean() - img_c[keep].mean())
-                        / max(abs(img_c[keep].mean()), 1e-30))
+                         "sh_normal / uv")
+            rel_mean = (abs(img_g.mean() - img_c.mean())
+                        / max(abs(img_c.mean()), 1e-30))
             marked = ("" if rec is None else
                       f"; {int(rec.marked.sum())} of 4096 lanes marked "
                       "(ties, grazed edges) left out of both films")
             print(f"cuda vs cpu {label} 16x16x16: {close.mean() * 100:.2f}% "
                   f"of values within tolerance, mean rel diff "
                   f"{rel_mean:.3g}, max abs diff "
-                  f"{float(np.abs(img_g - img_c)[keep].max()):.3g} (scale "
+                  f"{float(np.abs(img_g - img_c).max()):.3g} (scale "
                   f"{scale:.3g}){marked}{extra}", flush=True)
             if (close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0
                     or not np.isfinite(img_g).all()
@@ -3078,6 +3089,273 @@ def textured_phase(mi, reset, read, card) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# the spectral and mono variants (phase 14)
+SPECTRAL_RES = 256
+SPECTRAL_CANON_SPP = 1024       # the canonical scene's own spp
+SPECTRAL_SPP = 64               # the hero, glass and measured renders
+SPECTRAL_MEDIA_SPPS = (256, 128, 64, 32, 16)
+SPECTRAL_MEDIA_BUDGET_S = 15.0  # the media scene's warm render at most
+
+
+def spectral_phase(mi, reset, read, card, canon_rgb=None) -> dict:
+    """Phase 14: the spectral and mono variants and the measured BSDF on
+    the card, each render timed warm after a 16 spp warm-up with the
+    launches read around the timed render, in cuda_spectral unless named:
+    (a) the canonical dopplertofpath, 256x256 x 1024 spp, through B1 (its
+    launches equal to ``canon_rgb``, the rgb render's, where given); (b)
+    the hero's dopplertofpath, 256x256 x 64, through B2, the cold rgb2spec
+    lattice fit on the card and the hero's compile (the sky's per-texel
+    fit) timed apart; (c)
+    the glass scene with the 40k sphere (named conductors Al and Au
+    through their eta / k spectra, the dielectric family), 256x256 x 64,
+    through B2 and B1's sphere pass; (d) measured on the 40k sphere,
+    256x256 x 64, through B2, in cuda_rgb and cuda_spectral, and one
+    measured BSDF dispatch over 2^20 lanes in each (launches, device ms);
+    (e) the media scene's volpath, through B1, at the largest of
+    SPECTRAL_MEDIA_SPPS whose warm render a 16 spp probe puts within
+    SPECTRAL_MEDIA_BUDGET_S. Then (f) the card against the CPU at 16x16 x
+    16 spp with phase 8's criteria: the canonical scene in cuda_mono (its
+    three channels equal) and in cuda_spectral into a specfilm of three
+    regular SRFs, measured in cuda_rgb and cuda_spectral on the 2k sphere,
+    the mini hero (a 32x16 sky) and the media scene in cuda_spectral; the
+    lanes that meet a tie or graze an edge left out of both films where
+    the scene has more than 192 triangles. Leaves the variant at cuda_rgb.
+    Returns the timed renders' launches by scene and kernel row."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mitsuba3dopplertof_tpu_torch import bsdfs
+    from mitsuba3dopplertof_tpu_torch.core import cie
+    from mitsuba3dopplertof_tpu_torch.core.vec import Vec3
+    from mitsuba3dopplertof_tpu_torch.utils import hero_scene as hs
+    from mitsuba3dopplertof_tpu_torch.utils import measured_data as md
+    from mitsuba3dopplertof_tpu_torch.utils import spectral_scenes as ss
+    from mitsuba3dopplertof_tpu_torch.utils import textured_scenes as ts
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
+        ANIMATED_SIZES, write_uv_sphere_obj, write_uv_sphere_ply)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_ties import TieRecorder
+    res = SPECTRAL_RES
+    both = ("closest_hit", "any_hit")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spectral_")
+    launches = {}
+
+    def timed(tag, scene, spp, rows, integ=None):
+        _, counts, warm_s = timed_render(mi, reset, read, card, res, tag,
+                                         scene, spp, 16, integ, rows)
+        return counts, warm_s
+
+    try:
+        bsdf_path = md.write_ggx_copper_bsdf(os.path.join(tmp, "cu.bsdf"))
+        mesh = {}
+        for size in ("40k", "2k"):
+            nu, nv = ANIMATED_SIZES[size]
+            mesh[size] = os.path.join(tmp, f"sphere_{nu}x{nv}")
+            write_uv_sphere_obj(mesh[size] + ".obj", nu, nv)
+            write_uv_sphere_ply(mesh[size] + ".ply", nu, nv)
+        sggx = os.path.join(tmp, "sggx.vol")
+        ts.write_sggx_vol(sggx)
+        hero_dir = os.path.join(tmp, "hero")
+        hs.hero_assets(hero_dir)
+
+        def measured(size, spp, r, dv=None):
+            return mi.load_dict(md.measured_sphere_dict(
+                bsdf_path, mesh[size] + ".obj", spp, r), device=dv)
+
+        def media(spp, r, dv=None):
+            return mi.load_dict(ts.media_scene(sggx, spp, r), device=dv)
+
+        mi.set_variant("cuda_spectral")
+        # ---- (a) the canonical scene ------------------------------------
+        scene = mi.load_file(CANONICAL, spp=SPECTRAL_CANON_SPP)
+        launches["canonical_spectral"], _ = timed(
+            "canonical dopplertofpath (cuda_spectral) through B1", scene,
+            SPECTRAL_CANON_SPP, {"B1": both})
+        if canon_rgb is not None:
+            same = launches["canonical_spectral"]["B1"] == canon_rgb
+            print(f"canonical cuda_spectral B1 launches "
+                  f"{launches['canonical_spectral']['B1']} against cuda_rgb's "
+                  f"{canon_rgb}: equal {same}", flush=True)
+            if not same:
+                fail("the spectral canonical render's launches differ from "
+                     "the rgb render's")
+        # ---- (b) the hero: the lattice, its compile, then its render -------
+        cold = not os.path.exists(cie.lattice_cache_path())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cie.coeff_lattice(device="cuda")
+        torch.cuda.synchronize()
+        lat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene = mi.load_dict(hs.hero_scene_dict(res=res, spp=SPECTRAL_SPP,
+                                                cache_dir=hero_dir))
+        sa = scene.compile()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        print(f"rgb2spec 32^3 lattice: {lat_s:.3f} s ("
+              + ("a cold fit on the card" if cold else "read from its cache")
+              + f"); hero compile (cuda_spectral) after it: {compile_s:.3f} "
+              f"s; env_coeff {tuple(sa.env_coeff.shape)} (the sky's "
+              f"{sa.env_shape[1]}x{sa.env_shape[0]} texels fitted on the "
+              f"card), atlas coefficients {tuple(sa.tex_atlas_c0.shape)} "
+              f"({card})", flush=True)
+        if not sa.spectral or sa.env_coeff.shape[1] != (
+                sa.env_shape[0] * sa.env_shape[1]):
+            fail("the hero did not compile spectral tables")
+        launches["hero_spectral"], _ = timed(
+            "hero dopplertofpath (cuda_spectral) through B2", scene,
+            SPECTRAL_SPP, {"B2": both})
+        del scene, sa
+        # ---- (c) the glass scene ----------------------------------------
+        scene = mi.load_dict(glass_dict(mesh["40k"] + ".ply", SPECTRAL_SPP,
+                                        res))
+        sa = scene.compile()
+        print(f"glass scene (cuda_spectral): named-conductor spectra "
+              f"{len(sa.ior_spectra)} (rows {sa.bsdf_ior_host}); BSDF types "
+              f"{sa.bsdf_types_present}", flush=True)
+        if len(sa.ior_spectra) != 2:
+            fail("the glass scene's Al and Au did not take their spectra")
+        launches["glass_spectral"], _ = timed(
+            "glass 40k (cuda_spectral) through B2 and B1's sphere pass",
+            scene, SPECTRAL_SPP, {"B2": both, "B1": both})
+        del scene, sa
+        # ---- (d) measured, rgb and spectral; one BSDF dispatch ------------
+        for name in ("cuda_rgb", "cuda_spectral"):
+            mi.set_variant(name)
+            scene = measured("40k", SPECTRAL_SPP, res)
+            key = f"measured_{name.split('_')[1]}"
+            launches[key], _ = timed(
+                f"measured 40k ({name}) through B2", scene, SPECTRAL_SPP,
+                {"B2": both})
+            sa = scene.compile()
+            n = WAVEFRONT
+            g = torch.Generator(device=sa.device).manual_seed(0)
+            u = lambda: torch.rand(n, device=sa.device, generator=g)
+            wi = Vec3(u() - 0.5, u() - 0.5, u())
+            wo = Vec3(u() - 0.5, u() - 0.5, u())
+            lam = (None if name == "cuda_rgb" else
+                   cie.hero_wavelengths(u()))
+            lane = torch.zeros(n, dtype=torch.int64, device=sa.device)
+            s1, s2x, s2y = u(), u(), u()
+            saved = sa.bsdf_types_present
+            sa.bsdf_types_present = (bsdfs.BSDF_MEASURED,)
+            try:
+                bsdfs.eval_pdf_sample(sa, lane, wi, wo, s1, s2x, s2y,
+                                      wavelengths=lam)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    bsdfs.eval_pdf_sample(sa, lane, wi, wo, s1, s2x, s2y,
+                                          wavelengths=lam)
+                    torch.cuda.synchronize()
+            finally:
+                sa.bsdf_types_present = saved
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation
+                    and e.self_device_time_total > 0]
+            n_launch = sum(e.count for e in kern)
+            dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+            print(f"measured BSDF dispatch over {n} lanes ({name}): "
+                  f"{n_launch} kernel launches, {dev_ms:.3f} ms of device "
+                  f"time ({card})", flush=True)
+            del scene, sa
+        mi.set_variant("cuda_spectral")
+        # ---- (e) the media scene ------------------------------------------
+        scene = media(16, res)
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        spp_m = next((s for s in SPECTRAL_MEDIA_SPPS
+                      if probe_s * s / 16 <= SPECTRAL_MEDIA_BUDGET_S), 16)
+        print(f"media probe (cuda_spectral) 16 spp: warm {probe_s:.3f} s; "
+              f"rendering at {spp_m} spp", flush=True)
+        launches["media_spectral"], _ = timed(
+            "media volpath (cuda_spectral) through B1", scene, spp_m,
+            {"B1": ("closest_hit",)})
+        del scene
+
+        # ---- (f) the card against the CPU at 16x16 x 16 spp -------------
+        t_step = time.perf_counter()
+        mini = os.path.join(tmp, "mini")
+        os.makedirs(mini)
+        hs._knot_obj(os.path.join(mini, "knot.obj"), nu=12, nv=8)
+        hs._icosphere_obj(os.path.join(mini, "sphere.obj"), nu=8, nv=6)
+        hs._sky_exr(os.path.join(mini, "sky.exr"), 32, 16)
+        hs.hero_assets(mini)
+
+        def canonical(film=None):
+            def load(dv):
+                sc = mi.load_file(CANONICAL, spp=16, resx=16, resy=16,
+                                  device=dv)
+                if film is not None:
+                    sc.sensor.film = mi.load_dict(film)
+                return sc
+            return load
+
+        cases = (
+            ("canonical", "cuda_mono", canonical(), "B1", False),
+            ("canonical specfilm (3 regular SRFs)", "cuda_spectral",
+             canonical(ss.specfilm_film(16)), "B1", False),
+            ("measured 2k", "cuda_rgb",
+             lambda dv: measured("2k", 16, 16, dv), "B2", True),
+            ("measured 2k", "cuda_spectral",
+             lambda dv: measured("2k", 16, 16, dv), "B2", True),
+            ("mini hero (32x16 sky)", "cuda_spectral",
+             lambda dv: mi.load_dict(hs.hero_scene_dict(
+                 res=16, spp=16, max_depth=4, cache_dir=mini), device=dv),
+             "B2", True),
+            ("media volpath", "cuda_spectral", lambda dv: media(16, 16, dv),
+             "B1", False))
+        for label, name, load, row, ties in cases:
+            mi.set_variant(name)
+            rec = TieRecorder(16 * 16 * 16, "cpu")
+            if ties:
+                with rec.hooked():
+                    mi.render(load("cpu"), spp=16, seed=0)
+            with rec.dropped():
+                img_c = mi.render(load("cpu"), spp=16, seed=0).numpy()
+                reset()
+                img_g = mi.render(load(None), spp=16, seed=0).cpu().numpy()
+            counts = read()
+            if counts[row]["closest_hit"] <= 0:
+                fail(f"{label} ({name}) card vs cpu: launches {counts}")
+            scale = float(np.abs(img_c).max())
+            close = np.isclose(img_g, img_c, rtol=1e-4, atol=1e-4 * scale)
+            rel_mean = (abs(img_g.mean() - img_c.mean())
+                        / max(abs(img_c.mean()), 1e-30))
+            n_marked = int(rec.marked.sum())
+            extra = ""
+            if name == "cuda_mono":
+                grey = bool(np.array_equal(img_g[..., 0], img_g[..., 1])
+                            and np.array_equal(img_g[..., 0], img_g[..., 2]))
+                extra = f"; the three channels equal: {grey}"
+                if not grey:
+                    fail("cuda_mono: the channels differ")
+            print(f"cuda vs cpu {label} ({name}) 16x16x16: "
+                  f"{close.mean() * 100:.2f}% of values within tolerance, "
+                  f"mean rel diff {rel_mean:.3g}, max abs diff "
+                  f"{float(np.abs(img_g - img_c).max()):.3g} (scale "
+                  f"{scale:.3g}); {n_marked} of 4096 lanes marked (ties, "
+                  f"grazed edges) left out of both films{extra}", flush=True)
+            if (close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0
+                    or not np.isfinite(img_g).all() or n_marked > 409):
+                fail(f"cuda vs cpu {label} ({name}): outside tolerance")
+        print(f"card vs cpu, spectral: {time.perf_counter() - t_step:.1f} s",
+              flush=True)
+    finally:
+        mi.set_variant("cuda_rgb")
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -3872,6 +4150,10 @@ def main() -> int:
     # ---- 13. textured surfaces and lights, the other phases ---------------
     textured = textured_phase(mi, reset_counts, read_counts, card)
 
+    # ---- 14. the spectral and mono variants, the measured BSDF -------------
+    spectral = spectral_phase(mi, reset_counts, read_counts, card,
+                              launches_c["B1"])
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     entries = [("intersect_bruteforce", B1_SOURCE, B1_TPU, b1,
@@ -3883,8 +4165,8 @@ def main() -> int:
                  times_l[row], launches_l[row], errs_l[row])
                 for row, _, name, line in ALTERNATES]
     kernels = []
-    # the launches of phase 11's, 12's and 13's renders, under the kernels
-    # they ran
+    # the launches of phase 11's to 14's renders, under the kernels they
+    # ran
     dialect_rows = {"intersect_bruteforce": "B1", "intersect_v4": "B2"}
     for name, src, tpu, times, launches, errs_k in entries:
         for form in ("closest_hit", "any_hit"):
@@ -3898,7 +4180,8 @@ def main() -> int:
             if name in dialect_rows:
                 for scene_name, counts in (*dialect.items(),
                                            *integrators.items(),
-                                           *textured.items()):
+                                           *textured.items(),
+                                           *spectral.items()):
                     if dialect_rows[name] in counts:
                         kernels[-1][f"launches_{scene_name}"] = counts[
                             dialect_rows[name]][form]
@@ -3911,7 +4194,39 @@ def main() -> int:
     return 0
 
 
+def spectral_main() -> int:
+    """``--spectral``: the card, the build and phase 14 alone (no kernel
+    line, no contract line): a quick check of the spectral path."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    sys.path.insert(0, ROOT)
+    card = card_line()
+    print(card, flush=True)
+    import mitsuba3dopplertof_tpu_torch as mi
+    from mitsuba3dopplertof_tpu_torch.ops import intersect_kernel as ik
+    from mitsuba3dopplertof_tpu_torch.ops import intersect_v4 as v4
+    from mitsuba3dopplertof_tpu_torch.ops.cuda_build import build_all
+    counted = {"B1": ik, "B2": v4, **{row: importlib.import_module(
+        f"mitsuba3dopplertof_tpu_torch.ops.{name}")
+        for row, _, name, _ in ALTERNATES}}
+    build_all([m.LIBRARY for m in counted.values()])
+
+    def reset_counts():
+        for m in counted.values():
+            m.reset_launch_counts()
+
+    def read_counts():
+        return {row: dict(m.LAUNCHES_BY_FORM) for row, m in counted.items()}
+    t0 = time.perf_counter()
+    spectral_phase(mi, reset_counts, read_counts, card)
+    print(f"wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == "--spectral":
+        sys.exit(spectral_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--b2-walk":
         sys.exit(b2_walk_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--b1-walk":
@@ -3925,7 +4240,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--b5-walk":
         sys.exit(b5_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
-        fail("usage: chip_smoke.py [--b2-walk CHECKOUT | --b1-walk "
-             "CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT | "
+        fail("usage: chip_smoke.py [--spectral | --b2-walk CHECKOUT | "
+             "--b1-walk CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT | "
              "--b4-walk CHECKOUT | --b5-walk CHECKOUT]")
     sys.exit(main())

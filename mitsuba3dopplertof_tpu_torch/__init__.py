@@ -5,7 +5,7 @@ A port of the JAX package ``mitsuba3dopplertof_tpu`` (the reference it is
 tested against), module for module. It imports torch and never jax.
 
     import mitsuba3dopplertof_tpu_torch as mi
-    mi.set_variant("cuda_rgb")
+    mi.set_variant("cuda_rgb")     # or "cuda_spectral", "cuda_mono"
     scene = mi.load_file("scenes/canonical/scene.xml")
     img = mi.render(scene, spp=1024, seed=0)      # (H, W, 3) tensor
 
@@ -34,6 +34,7 @@ from . import rfilters as _rfilters        # noqa: F401
 from . import samplers as _samplers        # noqa: F401
 from . import integrators as _integrators  # noqa: F401
 from . import textures as _textures        # noqa: F401
+from . import spectra as _spectra          # noqa: F401
 from . import media as _media              # noqa: F401
 from . import volumes as _volumes          # noqa: F401
 from .integrators import volpath as _volpath  # noqa: F401
@@ -47,11 +48,13 @@ from .render.scene import Scene
 
 _DEVICE = _torch.device("cuda")
 
-# variant -> the ROADMAP item that ports it
+# variant -> None, or the ROADMAP item that ports it; the JAX package's
+# counterparts are tpu_rgb, tpu_spectral, tpu_mono, tpu_rgb_polarized and
+# tpu_spectral_polarized
 _VARIANTS = {
     "cuda_rgb": None,
-    "cuda_spectral": "ROADMAP Queue A item 11",
-    "cuda_mono": "ROADMAP Queue A item 11",
+    "cuda_spectral": None,
+    "cuda_mono": None,
     "cuda_rgb_polarized": "ROADMAP Queue A item 11",
     "cuda_spectral_polarized": "ROADMAP Queue A item 11",
 }
@@ -79,8 +82,11 @@ def variant() -> str:
 
 
 def set_variant(*names) -> str:
-    """Select the rendering variant (the reference's mitsuba.set_variant).
-    Only ``cuda_rgb`` is ported; the others raise NotImplementedError
+    """Select the rendering variant (the reference's mitsuba.set_variant):
+    ``cuda_rgb`` (the default), ``cuda_spectral`` (hero-wavelength
+    triplets with sigmoid spectral upsampling and analytic CIE
+    conversion) or ``cuda_mono`` (luminance). It shapes the scenes
+    compiled afterwards. The polarized variants raise NotImplementedError
     naming the ROADMAP item that ports them."""
     global _VARIANT
     for n in names:

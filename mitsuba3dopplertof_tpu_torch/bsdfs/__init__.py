@@ -2,8 +2,9 @@
 ``bsdfs/__init__.py``: diffuse, with a constant or textured reflectance,
 twosided, null, conductor, roughconductor, dielectric, thindielectric,
 roughdielectric, plastic, roughplastic, pplastic, principled,
-principledthin, mask and blendbsdf; the principled lobes are in
-``bsdfs/principled_impl.py``).
+principledthin, mask, blendbsdf and measured; the principled lobes are in
+``bsdfs/principled_impl.py``, the measured BSDF's warps in
+``bsdfs/measured_impl.py``).
 
 Each BSDF compiles to one row of a parameter table (type id + float
 params); ``eval_pdf_sample`` evaluates every type present in the scene over
@@ -32,7 +33,8 @@ from ..core import microfacet as mf
 from ..core import warp
 from ..core.fresnel import (fresnel_conductor, fresnel_dielectric, reflect,
                             refract)
-from ..core.math import INV_PI
+from ..core.cie import eval_reflectance_spectrum
+from ..core.math import INV_PI, interp
 from ..core.properties import Properties, register_plugin
 from ..core.vec import Vec3, dot, normalize, where3
 from .ior_data import CONDUCTOR_IOR, CONDUCTOR_SPECTRA
@@ -50,6 +52,7 @@ BSDF_THINDIELECTRIC = 8
 BSDF_BLEND = 9
 BSDF_MASK = 10
 BSDF_PRINCIPLED = 11
+BSDF_MEASURED = 15
 BSDF_PRINCIPLED_THIN = 17
 
 N_BSDF_PARAMS = 24
@@ -67,6 +70,7 @@ P_MF_DIST = 12        # roughconductor: 1.0 = beckmann, 0.0 = ggx
 P_REFL_TEX = 14       # texture id driving the reflectance (-1 = constant)
 P_NMAP_TEX = 15       # normal- or height-map texture id (-1 = none)
 P_BMAP_SCALE = 16     # > 0: the P_NMAP_TEX texture is a height map
+P_MEASURED_IDX = 17   # measured: its entry in the scene's measured tables
 # mask / blendbsdf rows: the nested rows and the probability of row 1
 P_NESTED0 = 4
 P_NESTED1 = 5
@@ -92,7 +96,10 @@ FLAG_SMOOTH = 1       # has a smooth (non-delta) lobe => NEE applies
 FLAG_DELTA = 2        # sampling may return a delta lobe
 FLAG_NULL = 4         # null transmission lobe
 
-# types whose eval takes the (tex_refl, tex_mask) reflectance override
+# types whose eval takes the (tex_refl, tex_mask) reflectance override;
+# the spectral variant stores their P_REFL triple as sigmoid-polynomial
+# coefficients (diffuse albedo, plastic diffuse, principled base colour)
+# and evaluates it at the hero wavelengths through the same override
 TEXTURED_TYPES = (BSDF_DIFFUSE, BSDF_PLASTIC, BSDF_ROUGHPLASTIC,
                   BSDF_PRINCIPLED, BSDF_PRINCIPLED_THIN)
 
@@ -121,22 +128,18 @@ class BSDF:
 
 
 def _get_rgb(props, key, default):
-    """An rgb triple from a float, a list, an ``rgb`` dict or a texture
-    (its mean)."""
+    """An rgb triple from a float, a list, an ``rgb`` or ``spectrum`` dict
+    (its value), or a texture or spectrum plugin (its mean rgb)."""
     v = props.get(key, default)
+    from ..spectra import Spectrum
     from ..textures import Texture
-    if isinstance(v, Texture):
+    if isinstance(v, (Texture, Spectrum)):
         return np.asarray(v.mean_rgb())
     if isinstance(v, dict):   # {'type':'rgb','value':[...]} from the parser
-        if v.get("type") != "rgb":
-            raise NotImplementedError(
-                f"'{key}' of type '{v.get('type')}' is not ported yet "
-                "(ROADMAP Queue A item 11)")
         v = v.get("value")
     if hasattr(v, "plugin_category"):
-        raise NotImplementedError(
-            f"'{key}' given by a {v.plugin_category} is not ported yet "
-            "(ROADMAP Queue A item 11)")
+        raise RuntimeError(
+            f"'{key}' cannot be given by a {v.plugin_category}")
     a = np.asarray(v, dtype=np.float64).reshape(-1)
     if a.size == 1:
         a = np.repeat(a, 3)
@@ -298,8 +301,8 @@ class Conductor(BSDF):
         super().__init__(props)
         mat = props.get_string("material", "none")
         eta_d, k_d = CONDUCTOR_IOR.get(mat, CONDUCTOR_IOR["none"])
-        # the named material's spectra, for the spectral variant
-        # (ROADMAP Queue A item 11)
+        # the named material's eta / k spectra, which the spectral
+        # variant interpolates at the hero wavelengths
         self.material = (mat if (mat in CONDUCTOR_SPECTRA
                                  and not props.has_property("eta")
                                  and not props.has_property("k"))
@@ -1056,6 +1059,32 @@ def _roughplastic_eval_pdf_sample(param, wi, wo_nee, s1, s2x, s2y,
                             torch.ones_like(cos_i), false_, false_)
 
 
+@register_plugin("bsdf", "measured")
+class Measured(BSDF):
+    """Data-driven BRDF in the RGL tensor format (reference
+    src/bsdfs/measured.cpp; Dupuy & Jakob's adaptive parameterization),
+    sampled and evaluated through the histogram warps of
+    ``bsdfs/measured_impl.py``: at the three representative wavelengths
+    ``RGB_WAVELENGTHS`` in the rgb variant, at the lane's hero
+    wavelengths in the spectral one."""
+    type_id = BSDF_MEASURED
+    flags = FLAG_SMOOTH
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..core.fresolver import resolve_filename
+        from ..io.tensor_file import read_tensor_file
+        from .measured_impl import build_tables
+        fname = resolve_filename(props.get_string("filename"))
+        self.tables = build_tables(read_tensor_file(fname))
+        self.measured_index = -1     # the compile assigns it
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_MEASURED_IDX] = float(self.measured_index)
+        return p
+
+
 _DISPATCH = {
     BSDF_DIFFUSE: _diffuse_eval_pdf_sample,
     BSDF_NULL: _null_eval_pdf_sample,
@@ -1094,14 +1123,52 @@ def remap_wrapper_rows(sa, lane_bsdf, s1):
     return new_bsdf, new_s1
 
 
+def _select(m, a: BSDFSampleResult, b: BSDFSampleResult):
+    """``a`` on the lanes of ``m``, else ``b``."""
+    return BSDFSampleResult(*(
+        where3(m, x, y) if isinstance(x, Vec3) else torch.where(m, x, y)
+        for x, y in zip(a, b)))
+
+
+def _conductor_spectra_param(sa, lane_bsdf, param, wavelengths):
+    """``param`` with a named-material conductor's eta and k columns
+    replaced by its tabulated eta(lambda) / k(lambda) at the lane's three
+    hero wavelengths (reference ior.h complex_ior_from_file)."""
+    lane_ior = torch.tensor(sa.bsdf_ior_host, dtype=torch.int32,
+                            device=lane_bsdf.device)[lane_bsdf]
+    lam3 = (wavelengths.x, wavelengths.y, wavelengths.z)
+
+    def param_spec(j):
+        base = param(j)
+        if not (P_ETA <= j < P_ETA + 3 or P_K <= j < P_K + 3):
+            return base
+        which_k = j >= P_K
+        lam = lam3[j - (P_K if which_k else P_ETA)]
+        out = base
+        for e_i, (wls_t, eta_t, k_t) in enumerate(sa.ior_spectra):
+            f32 = dict(dtype=torch.float32, device=lam.device)
+            v = interp(lam, torch.tensor(wls_t, **f32),
+                       torch.tensor(k_t if which_k else eta_t, **f32))
+            out = torch.where(lane_ior == e_i, v, out)
+        return out
+    return param_spec
+
+
 def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
-                    tex_refl=None, tex_mask=None) -> BSDFSampleResult:
+                    tex_refl=None, tex_mask=None,
+                    wavelengths=None) -> BSDFSampleResult:
     """Masked multi-type dispatch of BSDF::eval_pdf_sample (reference
     src/render/bsdf.cpp:168): every type present in the scene runs over the
     whole wavefront and the lane's own type is selected. ``tex_refl`` /
     ``tex_mask``: the textured reflectance and the lanes it replaces the
     row's on, for the types in ``TEXTURED_TYPES``. Lanes on a mask or
-    blendbsdf row first move to a nested row (``remap_wrapper_rows``)."""
+    blendbsdf row first move to a nested row (``remap_wrapper_rows``).
+
+    ``wavelengths`` (the spectral variant): the lanes' hero wavelengths.
+    The upsampled types' P_REFL coefficients are then evaluated there and
+    enter through the texture override (textured lanes arrive spectral
+    already), named-material conductors read their eta / k spectra, and
+    the measured BSDF its spectra at those wavelengths."""
     lane_bsdf = lane_bsdf.long()
     present = sa.bsdf_types_present
     if BSDF_MASK in present or BSDF_BLEND in present:
@@ -1111,26 +1178,49 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
     def param(j):
         return sa.bsdf_params[j][lane_bsdf]
 
+    if wavelengths is not None:
+        c0, c1, c2 = param(P_REFL), param(P_REFL + 1), param(P_REFL + 2)
+        srefl = Vec3(*(eval_reflectance_spectrum(c0, c1, c2, lam)
+                       for lam in wavelengths))
+        is_up = torch.zeros_like(lane_type, dtype=torch.bool)
+        for t in TEXTURED_TYPES:
+            is_up = is_up | (lane_type == t)
+        if tex_refl is not None:
+            srefl = where3(tex_mask, tex_refl, srefl)
+            tex_mask = tex_mask | is_up
+        else:
+            tex_mask = is_up
+        tex_refl = srefl
+
     result = None
     for tid in present:
         if tid in (BSDF_MASK, BSDF_BLEND):
             continue          # no lane carries these types after the remap
-        fn = _DISPATCH.get(int(tid))
-        if fn is None:
-            raise NotImplementedError(
-                f"BSDF type id {tid} is not ported yet "
-                "(ROADMAP Queue A item 10)")
-        if tid in TEXTURED_TYPES and tex_refl is not None:
-            r = fn(param, wi, wo_nee, s1, s2x, s2y, tex_refl, tex_mask)
+        if tid == BSDF_MEASURED:
+            from .measured_impl import measured_eval_pdf_sample
+            m_idx = param(P_MEASURED_IDX).to(torch.int32)
+            r = None
+            for k, tbl in enumerate(sa.measured):
+                rk = measured_eval_pdf_sample(tbl, wi, wo_nee, s2x, s2y,
+                                              wavelengths)
+                r = rk if r is None else _select(m_idx == k, rk, r)
         else:
-            r = fn(param, wi, wo_nee, s1, s2x, s2y)
-        if result is None:
-            result = r
-        else:
-            m = lane_type == tid
-            result = BSDFSampleResult(*(
-                where3(m, a, b) if isinstance(a, Vec3) else
-                torch.where(m, a, b) for a, b in zip(r, result)))
+            fn = _DISPATCH.get(int(tid))
+            if fn is None:
+                raise NotImplementedError(
+                    f"BSDF type id {tid} is not ported yet "
+                    "(ROADMAP Queue A item 11)")
+            if tid in TEXTURED_TYPES and tex_refl is not None:
+                r = fn(param, wi, wo_nee, s1, s2x, s2y, tex_refl, tex_mask)
+            elif (tid in (BSDF_CONDUCTOR, BSDF_ROUGHCONDUCTOR)
+                    and wavelengths is not None and sa.ior_spectra):
+                r = fn(_conductor_spectra_param(sa, lane_bsdf, param,
+                                                wavelengths),
+                       wi, wo_nee, s1, s2x, s2y)
+            else:
+                r = fn(param, wi, wo_nee, s1, s2x, s2y)
+        result = r if result is None else _select(lane_type == tid, r,
+                                                  result)
     return result
 
 
@@ -1144,7 +1234,7 @@ __all__ = [
     "BSDF_CONDUCTOR", "BSDF_DIELECTRIC", "BSDF_ROUGHCONDUCTOR",
     "BSDF_PLASTIC", "BSDF_ROUGHPLASTIC", "BSDF_ROUGHDIELECTRIC",
     "BSDF_THINDIELECTRIC", "BSDF_BLEND", "BSDF_MASK", "BSDF_PRINCIPLED",
-    "BSDF_PRINCIPLED_THIN", "P_REFL",
+    "BSDF_PRINCIPLED_THIN", "BSDF_MEASURED", "Measured", "P_REFL",
     "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "P_BMAP_SCALE",
-    "TEXTURED_TYPES",
+    "TEXTURED_TYPES", "P_MEASURED_IDX",
 ]

@@ -9,8 +9,8 @@ resamplings of the same public measurements (Johnson & Christy 1972 for
 Au/Ag/Cu; Rakic et al. 1998 for Al) over the visible range, as
 (wavelengths_nm, eta, k); the reference loads them from
 resources/data/ior/<name>.{eta,k}.spd (include/mitsuba/render/ior.h:100-144).
-The spectral variant that reads them is ROADMAP Queue A item 11; the rgb
-variant only uses their names.
+The spectral variant interpolates them at each lane's hero wavelengths;
+the rgb variant only uses their names.
 """
 
 CONDUCTOR_IOR = {

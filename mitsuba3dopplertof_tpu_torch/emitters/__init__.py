@@ -92,17 +92,20 @@ class AreaEmitter(Emitter):
     def __init__(self, props: Properties):
         super().__init__(props)
         from ..bsdfs import _get_rgb
+        from ..spectra import Spectrum
         from ..textures import Texture
         self.irradiance_tex = None     # the compile assigns tex_index
         self.tex_index = -1
         for key, v in props.objects():
+            if isinstance(v, Spectrum):
+                continue               # its mean rgb is the radiance
             if not isinstance(v, Texture):
-                raise NotImplementedError(
+                raise RuntimeError(
                     f"area emitter child '{key}' of kind "
-                    f"{v.plugin_category} is not ported yet "
-                    "(ROADMAP Queue A item 11)")
+                    f"{v.plugin_category} is not a texture or spectrum")
             self.irradiance_tex = v
-        # a texture's mean stands in the row's radiance columns
+        # a texture's or spectrum's mean stands in the row's radiance
+        # columns
         self.radiance = _get_rgb(props, "radiance", [1.0, 1.0, 1.0])
 
     def params_row(self):
@@ -297,14 +300,32 @@ def sphere_uv(cm, p: Vec3):
     return spherical_uv(cmat_apply_point(cmat_inverse(cm), p))
 
 
-def textured_radiance(sa, param, inten, uv_u, uv_v):
+def textured_radiance(sa, param, inten, uv_u, uv_v, wavelengths=None):
     """The radiance of area-emitter lanes at (uv_u, uv_v): their texture's
-    value where the row names one (E_RAD_TEX >= 0), else ``inten``."""
+    value where the row names one (E_RAD_TEX >= 0), else ``inten``. With
+    ``wavelengths`` a bitmap gives its texel's upsampled reflectance
+    spectrum there (no D65 factor, as in the JAX package)."""
     if int(sa.n_textures) == 0:
         return inten
     texid = param(E_RAD_TEX).to(torch.int32)
     return where3(texid >= 0, eval_texture(sa, torch.clamp(texid, min=0),
-                                           uv_u, uv_v), inten)
+                                           uv_u, uv_v,
+                                           wavelengths=wavelengths), inten)
+
+
+def lane_intensity(param, wavelengths=None):
+    """The lanes' emitter radiance / intensity: the rgb columns, or with
+    ``wavelengths`` (the spectral variant) the emission spectrum
+    scale * S(coeffs) * D65 / int D65 ybar at the three hero wavelengths,
+    coefficients in columns 12:15 and scale in 15."""
+    if wavelengths is None:
+        return Vec3(param(E_INTENSITY), param(E_INTENSITY + 1),
+                    param(E_INTENSITY + 2))
+    from ..core.cie import d65_y_norm, eval_emission_spectrum
+    c0, c1, c2, scale = param(12), param(13), param(14), param(15)
+    inv_n = 1.0 / d65_y_norm()
+    return Vec3(*(eval_emission_spectrum(c0, c1, c2, scale, lam, inv_n)
+                  for lam in wavelengths))
 
 
 def _tri_uv(sa, pre, tri, b0, b1):
@@ -317,10 +338,13 @@ def _tri_uv(sa, pre, tri, b0, b1):
             col("uv0v") * b + col("uv1v") * b0 + col("uv2v") * b1)
 
 
-def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
+def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y,
+                     wavelengths=None):
     """Emitter sample_direction over the table (masked multi-type).
     Returns (DirectionSample, radiance / pdf) before visibility; the pdf
-    includes the discrete emitter-selection probability."""
+    includes the discrete emitter-selection probability. ``wavelengths``
+    (the spectral variant): the radiance at the lanes' hero
+    wavelengths."""
     n = ref_p.x.shape[0]
     dev = ref_p.x.device
     n_emitters = int(sa.n_emitters)
@@ -338,8 +362,7 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
     def mrow(j):
         return sa.emitter_m[j][index]
 
-    inten = Vec3(param(E_INTENSITY), param(E_INTENSITY + 1),
-                 param(E_INTENSITY + 2))
+    inten = lane_intensity(param, wavelengths)
     lane_type = sa.emitter_type[index]
     z = torch.zeros((n,), device=dev)
     false_ = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -378,7 +401,8 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                             0.0)
             # uv follows the rectangle's [0, 1]^2 parameterization
             spec = textured_radiance(sa, param, inten, 0.5 * (lx + 1.0),
-                                     0.5 * (ly + 1.0)) * w
+                                     0.5 * (ly + 1.0),
+                                     wavelengths=wavelengths) * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
         elif tid == EMITTER_DIRECTIONAL:
             # a delta direction: the sample lies twice the scene's
@@ -443,7 +467,8 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                 # the texture at the sampled point's spherical uv, as a
                 # hit there sees it
                 spec = textured_radiance(sa, param, inten, *sphere_uv(
-                    _sphere_matrix(sa, param, mrow, ref_time), p)) * w
+                    _sphere_matrix(sa, param, mrow, ref_time), p),
+                    wavelengths=wavelengths) * w
             else:
                 spec = inten * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
@@ -507,7 +532,8 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
             dirn = d * (1.0 / dist)
             w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20),
                             0.0)
-            spec = textured_radiance(sa, param, inten, em_u, em_v) * w
+            spec = textured_radiance(sa, param, inten, em_u, em_v,
+                                     wavelengths=wavelengths) * w
             ds = DirectionSample(p, nrm, dirn, dist, pdf, false_, index)
         elif tid == EMITTER_CONSTANT:
             dirn = warp.uniform_sphere_c(s_x, s_y)
@@ -518,7 +544,8 @@ def sample_direction(sa, ref_p: Vec3, ref_time, s_x, s_y):
                                             device=dev), false_, index)
         elif tid == EMITTER_ENVMAP:
             # its spec is already the radiance over the pdf
-            ds, spec = envmap_sample_direction(sa, ref_p, s_x, s_y)
+            ds, spec = envmap_sample_direction(sa, ref_p, s_x, s_y,
+                                               wavelengths)
             ds = ds._replace(emitter=index)
         elif tid == EMITTER_PROJECTOR:
             pos = Vec3(param(E_POS), param(E_POS + 1), param(E_POS + 2))
@@ -644,13 +671,14 @@ def pdf_direction(sa, ds: DirectionSample, prim=None, time=None):
 
 
 def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter,
-                     uv_u=None, uv_v=None):
+                     uv_u=None, uv_v=None, wavelengths=None):
     """Radiance of an emitter hit by a ray (reference area.cpp eval:82-90):
     front side only. ``towards`` points from the surface to the viewer. A
     directionalarea emitter shows nothing to a ray (its emission is a
     delta in direction). With the hit's uv (``uv_u``, ``uv_v``) a textured
     area emitter on a rectangle, mesh or sphere shows its texture there
-    (sphere hits carry object-space spherical uv)."""
+    (sphere hits carry object-space spherical uv). ``wavelengths`` (the
+    spectral variant): the radiance at the lanes' hero wavelengths."""
     idx = torch.clamp(lane_emitter, min=0).long()
     ok = (lane_emitter >= 0) & (dot(si_n, towards) > 0.0)
     lane_type = sa.emitter_type[idx]
@@ -659,15 +687,15 @@ def eval_emitter_hit(sa, si_n: Vec3, towards: Vec3, lane_emitter,
 
     def param(j):
         return sa.emitter_params[j][idx]
-    inten = Vec3(param(E_INTENSITY), param(E_INTENSITY + 1),
-                 param(E_INTENSITY + 2))
+    inten = lane_intensity(param, wavelengths)
     if uv_u is not None and int(sa.n_textures) > 0:
         texid = param(E_RAD_TEX).to(torch.int32)
         use_tex = (texid >= 0) & ((lane_type == EMITTER_AREA_RECT)
                                   | (lane_type == EMITTER_AREA_MESH)
                                   | (lane_type == EMITTER_AREA_SPHERE))
         inten = where3(use_tex, eval_texture(
-            sa, torch.clamp(texid, min=0), uv_u, uv_v), inten)
+            sa, torch.clamp(texid, min=0), uv_u, uv_v,
+            wavelengths=wavelengths), inten)
     return inten * torch.where(ok, 1.0, 0.0)
 
 
@@ -766,13 +794,28 @@ def _env_texel(sa, d: Vec3):
     return (yi * W + xi).long(), v
 
 
-def envmap_eval(sa, d: Vec3) -> Vec3:
+def _env_radiance(sa, flat, wavelengths):
+    """Texels ``flat``'s radiance: rgb, or with ``wavelengths`` (the
+    spectral variant) their emission spectra peak * S(coeffs) * D65 /
+    int D65 ybar at the hero wavelengths (the envmap's counterpart of the
+    atlas's per-texel upsampling)."""
+    if wavelengths is None or not sa.spectral:
+        return Vec3(sa.env_img_r[flat], sa.env_img_g[flat],
+                    sa.env_img_b[flat])
+    from ..core.cie import d65_y_norm, eval_emission_spectrum
+    c0, c1, c2, pk = (sa.env_coeff[k][flat] for k in range(4))
+    inv_n = 1.0 / d65_y_norm()
+    return Vec3(*(eval_emission_spectrum(c0, c1, c2, pk, lam, inv_n)
+                  for lam in wavelengths))
+
+
+def envmap_eval(sa, d: Vec3, wavelengths=None) -> Vec3:
     """Environment radiance in world directions ``d`` (miss rays)."""
     flat, _ = _env_texel(sa, d)
-    return Vec3(sa.env_img_r[flat], sa.env_img_g[flat], sa.env_img_b[flat])
+    return _env_radiance(sa, flat, wavelengths)
 
 
-def envmap_sample_direction(sa, ref_p: Vec3, s_x, s_y):
+def envmap_sample_direction(sa, ref_p: Vec3, s_x, s_y, wavelengths=None):
     """Draw a texel from the alias table and a direction inside it;
     returns (DirectionSample, radiance / pdf)."""
     H, W = sa.env_shape
@@ -803,7 +846,7 @@ def envmap_sample_direction(sa, ref_p: Vec3, s_x, s_y):
     # solid-angle pdf: p(texel) * (W*H) / (2 pi^2 sin(theta))
     pdf = sa.env_pdf[idx] * (W * H) / torch.clamp(
         2.0 * np.pi * np.pi * st, min=1e-8)
-    L = Vec3(sa.env_img_r[idx], sa.env_img_g[idx], sa.env_img_b[idx])
+    L = _env_radiance(sa, idx, wavelengths)
     w = torch.where(pdf > 0.0, 1.0 / torch.clamp(pdf, min=1e-20), 0.0)
     dist = torch.full((n,), 2.0, device=ref_p.x.device) * sa.bsphere_radius
     ds = DirectionSample(ref_p + d * dist, -d, d, dist, pdf,
@@ -814,11 +857,13 @@ def envmap_sample_direction(sa, ref_p: Vec3, s_x, s_y):
     return ds, L * w
 
 
-def environment_eval(sa, d: Vec3) -> Vec3:
+def environment_eval(sa, d: Vec3, wavelengths=None) -> Vec3:
     """Radiance of the scene's environment (envmap or constant) in world
-    directions ``d``: what a ray that escapes sees."""
+    directions ``d``: what a ray that escapes sees. A constant
+    environment shows its rgb radiance in every variant, as in the JAX
+    package (its NEE samples read the row's emission spectrum)."""
     if sa.env_kind == "envmap":
-        return envmap_eval(sa, d)
+        return envmap_eval(sa, d, wavelengths)
     r, g, b = sa.env_radiance
     return Vec3.full(d.x.shape[0], r, g, b, device=d.x.device)
 
@@ -853,5 +898,5 @@ __all__ = [
     "EMITTER_SPOT", "EMITTER_ENVMAP", "EMITTER_AREA_SPHERE",
     "EMITTER_PROJECTOR", "EMITTER_DIRECTIONALAREA", "E_POS",
     "E_INTENSITY", "E_AREA", "E_CUTOFF", "E_BEAM", "E_RAD_TEX", "E_SPH_SLOT",
-    "sphere_uv", "textured_radiance",
+    "sphere_uv", "textured_radiance", "lane_intensity",
 ]

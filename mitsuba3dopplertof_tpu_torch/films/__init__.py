@@ -1,5 +1,5 @@
 """Film plugins and image accumulation (port of the JAX package's
-``films/__init__.py``: hdrfilm, ``block_create``, ``filter_reach``,
+``films/__init__.py``: hdrfilm, specfilm, ``block_create``, ``filter_reach``,
 ``block_splat_wavefront``, ``block_splat_scatter`` and ``develop``).
 
 The reference accumulates weighted samples with atomic scatter_reduce
@@ -77,6 +77,41 @@ class Film:
 @register_plugin("film", "hdrfilm")
 class HDRFilm(Film):
     pass
+
+
+@register_plugin("film", "specfilm")
+class SpecFilm(Film):
+    """Spectral film (reference src/films/specfilm.cpp): one channel per
+    sensor response function (SRF), each the Monte Carlo estimate of
+    int L(lambda) SRF_k(lambda) dlambda, then the weight channel. The
+    SRFs are its ``regular`` / ``irregular`` spectrum children, the
+    channels in alphabetical key order (specfilm.cpp:148-167). It bins
+    hero-wavelength samples, so it needs the spectral variant; in the rgb
+    variant it develops as an hdrfilm does, as in the JAX package."""
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..spectra import Spectrum
+        srfs = sorted(((key, v) for key, v in props.objects()
+                       if isinstance(v, Spectrum)
+                       and hasattr(v, "srf_table")), key=lambda kv: kv[0])
+        self.srf_names = [k for k, _ in srfs]
+        self.srfs = [v for _, v in srfs]
+
+    def srf_tables(self):
+        return [srf.srf_table() for srf in self.srfs]
+
+    @property
+    def channel_count(self) -> int:
+        if not self.srfs:
+            return super().channel_count
+        return len(self.srfs) + 1          # K SRF channels + weight
+
+    @property
+    def weight_index(self) -> int:
+        if not self.srfs:
+            return super().weight_index
+        return len(self.srfs)
 
 
 def block_create(width: int, height: int, n_channels: int, device=None):
@@ -227,5 +262,5 @@ def develop(block, has_alpha: bool, weight_idx: int = None):
     return vals.permute(1, 2, 0)
 
 
-__all__ = ["Film", "HDRFilm", "block_create", "filter_reach",
+__all__ = ["Film", "HDRFilm", "SpecFilm", "block_create", "filter_reach",
            "block_splat_wavefront", "block_splat_scatter", "develop"]

@@ -1,7 +1,8 @@
 """Integrator plugins and render orchestration (port of the JAX package's
 ``integrators/__init__.py``: ``SamplingIntegrator.render`` with strip
-passes, timeout, ``cancel()``, checkpoints and AOV channels, the rgb sample
-body, the MIS path loop with environment emission, textured reflectance,
+passes, timeout, ``cancel()``, checkpoints and AOV channels, the sample
+body of the rgb, mono and spectral variants (hero wavelengths, specfilm
+binning), the MIS path loop with environment emission, textured reflectance,
 null crossings and ``use_nee``, ``path``, ``dopplertofpath``, ``velocity``
 and ``depth``; ``volpath`` and ``volpathmis`` are in
 ``integrators/volpath.py``, ``direct``, ``aov`` and ``moment`` in
@@ -31,6 +32,8 @@ import time as _time
 import numpy as np
 import torch
 
+from ..core.cie import LAMBDA_RANGE, hero_to_srgb, hero_wavelengths
+from ..core.math import interp
 from ..core.properties import Properties, register_plugin
 from ..core.vec import Vec3, coordinate_system, dot, normalize, where3, vmax
 from ..core.waveform import (WAVEFORM_TYPES, eval_modulation,
@@ -63,6 +66,11 @@ def mis_weight(pdf_a, pdf_b):
 
 class Integrator:
     """Base (reference integrator.cpp:22-28)."""
+
+    # the spectral variant: "hero" draws hero wavelengths and transports
+    # them, "neutral" outputs geometry free of wavelengths, None cannot
+    # render in that variant
+    spectral_mode = None
 
     def __init__(self, props: Properties):
         self.id = props.id
@@ -114,9 +122,12 @@ class SamplingIntegrator(Integrator):
         props.get_int("block_size", 0)
         self.samples_per_pass = props.get_int("samples_per_pass", -1)
 
-    def sample(self, sa, sampler, state, ray: Ray, active):
+    def sample(self, sa, sampler, state, ray: Ray, active,
+               wavelengths=None):
         """(spectrum, valid, sampler state, AOV channels): one channel
-        tensor per name of ``aov_names()``, so an empty list for most."""
+        tensor per name of ``aov_names()``, so an empty list for most.
+        ``wavelengths`` (the spectral variant): the lanes' three hero
+        wavelengths, whose radiance samples ride the spectrum's channels."""
         raise NotImplementedError
 
     def render(self, scene, sensor=None, seed: int = 0, spp: int = 0,
@@ -246,10 +257,13 @@ class SamplingIntegrator(Integrator):
 
 def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
     """The per-lane sample body: pixel decode, sampler draws, camera ray,
-    integrator, film channels (rgb variant; an integrator's AOVs follow
-    RGB, alpha and the weight). Returns ``sample_wavefront(sa, state, lane,
-    active) -> (values, put_x, put_y, active, state)`` with ``lane`` the
-    global lane ids (lane // spp = pixel, row-major)."""
+    integrator, film channels (an integrator's AOVs follow RGB, alpha and
+    the weight). In the spectral variant a "hero" integrator gets three
+    hero wavelengths from one more draw right after the sensor's, and its
+    samples become linear sRGB, or a specfilm's SRF channels, before the
+    splat. Returns ``sample_wavefront(sa, state, lane, active) -> (values,
+    put_x, put_y, active, state)`` with ``lane`` the global lane ids
+    (lane // spp = pixel, row-major)."""
     sensor_params = sensor.device_params()
     lens_params = (sensor.device_lens_params()
                    if hasattr(sensor, "device_lens_params") else None)
@@ -301,16 +315,44 @@ def _build_sample_fn(integrator, sensor, sampler, film, W, H, spp_per_pass):
 
         ray, ray_weight = sample_ray_kind(sensor_params, lens_params, time,
                                           adj_x, adj_y, ap_x, ap_y)
-        spec, valid, state, aovs = integrator.sample(sa, sampler, state, ray,
-                                                     active)
+        if sa.spectral and integrator.spectral_mode is None:
+            raise RuntimeError(
+                f"integrator '{type(integrator).__name__}' does not support "
+                "the cuda_spectral variant")
+        wavelengths = None
+        if sa.spectral and integrator.spectral_mode == "hero":
+            # the wavelength sample follows the sensor's draws
+            # (integrator.cpp:497-499), pixel-correlated under the Doppler
+            # sampler
+            if is_doppler:
+                wls, state = sampler.next_1d_correlate(state, active,
+                                                       correlate_pixel)
+            else:
+                wls, state = sampler.next_1d(state, active)
+            wavelengths = hero_wavelengths(wls)
+        spec, valid, state, aovs = integrator.sample(
+            sa, sampler, state, ray, active, wavelengths=wavelengths)
         spec = spec * ray_weight
 
         one = torch.ones((n,), device=lane.device)
-        if has_alpha:
-            values = [spec.x, spec.y, spec.z, torch.where(valid, 1.0, 0.0),
-                      one] + aovs
+        if wavelengths is not None and getattr(film, "srfs", None):
+            # specfilm: ch_k = (range / 3) sum_i v_i SRF_k(lambda_i)
+            values = []
+            for lam_tab, val_tab in film.srf_tables():
+                lt = torch.tensor(lam_tab, dtype=torch.float32,
+                                  device=lane.device)
+                vt = torch.tensor(val_tab, dtype=torch.float32,
+                                  device=lane.device)
+                ch = 0.0
+                for lam, v in zip(wavelengths, spec):
+                    ch = ch + v * interp(lam, lt, vt, 0.0, 0.0)
+                values.append((LAMBDA_RANGE / 3.0) * ch)
+            values = values + [one] + aovs
         else:
-            values = [spec.x, spec.y, spec.z, one] + aovs
+            if wavelengths is not None:
+                spec = hero_to_srgb(spec, wavelengths)
+            alpha = [torch.where(valid, 1.0, 0.0)] if has_alpha else []
+            values = [spec.x, spec.y, spec.z] + alpha + [one] + aovs
         # box filter: accumulate into the sample's own pixel
         # (imageblock.cpp:471)
         put_x = px if rfilter.is_box else sx
@@ -378,16 +420,18 @@ class MonteCarloIntegrator(SamplingIntegrator):
 # modulation weight and the correlate-gated draws)
 # ---------------------------------------------------------------------------
 
-def textured_reflectance(sa, lane_bsdf, si):
+def textured_reflectance(sa, lane_bsdf, si, wavelengths=None):
     """(reflectance, mask) of the lanes whose BSDF row names a texture,
     or (None, None) in a scene without textures. The mask is the row's
     texture column >= 0, as in the JAX package: plastic rows leave it at 0
-    and so take texture 0 (ROADMAP Queue C)."""
+    and so take texture 0 (ROADMAP Queue C). With ``wavelengths`` bitmaps
+    give their reflectance spectra at those wavelengths."""
     if sa.n_textures == 0:
         return None, None
     lane_tex = sa.bsdf_params[P_REFL_TEX][lane_bsdf.long()].to(torch.int32)
     return (eval_texture(sa, lane_tex, si.uv_u, si.uv_v, p=si.p, b_u=si.b_u,
-                         b_v=si.b_v, prim=si.prim), lane_tex >= 0)
+                         b_v=si.b_v, prim=si.prim, wavelengths=wavelengths),
+            lane_tex >= 0)
 
 
 def _apply_normal_maps(sa, si):
@@ -426,7 +470,8 @@ def _apply_normal_maps(sa, si):
 
 
 def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
-               modulation_weight=None, use_correlate=False):
+               modulation_weight=None, use_correlate=False,
+               wavelengths=None):
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
 
@@ -487,12 +532,13 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
             -1)
         if any_emission:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
-                                             lane_emitter, si.uv_u, si.uv_v)
+                                             lane_emitter, si.uv_u, si.uv_v,
+                                             wavelengths)
             if has_env:
                 # rays that escape see the environment
                 miss_env = (~si.valid) & active
-                em_val = where3(miss_env, em_mod.environment_eval(sa, ray.d),
-                                em_val)
+                em_val = where3(miss_env, em_mod.environment_eval(
+                    sa, ray.d, wavelengths), em_val)
                 emit_mask = active & ((lane_emitter >= 0) | miss_env)
             else:
                 emit_mask = active & (lane_emitter >= 0)
@@ -531,7 +577,8 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
         nee, state = draw_2d(state, active, correlate)
         if nee_on:
             ds, em_weight = em_mod.sample_direction(sa, si.p, ray.time,
-                                                    nee[0], nee[1])
+                                                    nee[0], nee[1],
+                                                    wavelengths)
             active_em = active_em & (ds.pdf != 0.0)
             shadow_ray = si.spawn_ray_to(ds.p)
             with profile_phase("RayTest"):
@@ -544,9 +591,10 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
         # ------------- BSDF eval & sample (path.cpp:204-210) -------------
         s1, state = draw_1d(state, active, correlate)
         s2, state = draw_2d(state, active, correlate)
-        tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si)
+        tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si,
+                                                  wavelengths)
         bs = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, wo_nee, s1, s2[0],
-                                  s2[1], tex_refl, tex_mask)
+                                  s2[1], tex_refl, tex_mask, wavelengths)
 
         # ------------- NEE contribution (path.cpp:212-226) ---------------
         if nee_on:
@@ -592,9 +640,11 @@ def _path_loop(integrator, sa, sampler, state, ray: Ray, active,
 @register_plugin("integrator", "path")
 class PathIntegrator(MonteCarloIntegrator):
     """MIS path tracer (reference src/integrators/path.cpp)."""
+    spectral_mode = "hero"
 
-    def sample(self, sa, sampler, state, ray, active):
-        return _path_loop(self, sa, sampler, state, ray, active)
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
+        return _path_loop(self, sa, sampler, state, ray, active,
+                          wavelengths=wavelengths)
 
 
 @register_plugin("integrator", "dopplertofpath")
@@ -602,6 +652,7 @@ class DopplerToFPathIntegrator(MonteCarloIntegrator):
     """Doppler ToF path tracer (reference src/integrators/dopplertofpath.cpp;
     parameters and semantics of dopplertofpath.cpp:19-77)."""
     is_doppler = True
+    spectral_mode = "hero"
 
     def __init__(self, props: Properties):
         props.mark_queried("is_doppler_integrator")
@@ -642,14 +693,14 @@ class DopplerToFPathIntegrator(MonteCarloIntegrator):
                + self.g_0)
         return eval_modulation(t2, self.wave_function_type) * g_t
 
-    def sample(self, sa, sampler, state, ray, active):
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
         # ray-time wrap into [0, T) (dopplertofpath.cpp:93)
         wrapped = torch.where(ray.time < self.time, ray.time,
                               ray.time - self.time)
         return _path_loop(self, sa, sampler, state, ray._replace(
             time=wrapped), active,
             modulation_weight=self.eval_modulation_weight,
-            use_correlate=True)
+            use_correlate=True, wavelengths=wavelengths)
 
 
 @register_plugin("integrator", "velocity")
@@ -658,12 +709,13 @@ class VelocityIntegrator(MonteCarloIntegrator):
     first-hit distance at time ``time`` minus that at time 0, over
     ``time``. Two closest-hit queries a lane, each at one time for all
     lanes."""
+    spectral_mode = "neutral"
 
     def __init__(self, props: Properties):
         super().__init__(props)
         self.time = props.get_float("time", 0.0015)
 
-    def sample(self, sa, sampler, state, ray, active):
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
         si1 = ray_intersect(sa, ray._replace(
             time=torch.zeros_like(ray.time)), active)
         si2 = ray_intersect(sa, ray._replace(
@@ -678,8 +730,9 @@ class VelocityIntegrator(MonteCarloIntegrator):
 @register_plugin("integrator", "depth")
 class DepthIntegrator(SamplingIntegrator):
     """reference src/integrators/depth.cpp: the first-hit distance."""
+    spectral_mode = "neutral"
 
-    def sample(self, sa, sampler, state, ray, active):
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
         si = ray_intersect(sa, ray, active)
         v = torch.where(si.valid, si.t, 0.0)
         return Vec3(v, v, v), si.valid, state, []

@@ -1,6 +1,8 @@
 """The direct, aov and moment integrators (port of the JAX package's
 ``integrators/extras.py``; reference src/integrators/{direct,aov,
-moment}.cpp)."""
+moment}.cpp), in every ported variant: direct transports the hero
+wavelengths of the spectral variant, aov and moment take their nested
+integrator's spectral mode (aov without one is wavelength-free)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,8 @@ import torch
 
 from ..core.properties import Properties, register_plugin
 from ..core.vec import Vec3, dot, where3
-from ..render.scene import ray_intersect, ray_test
+from ..ops.intersect_kernel import intersect, with_plain_miss_payload
+from ..render.scene import build_si, ray_intersect, ray_test
 from ..render.types import DirectionSample
 from ..bsdfs import (eval_pdf_sample as bsdf_eval_pdf_sample, FLAG_SMOOTH,
                      P_REFL, P_REFL_TEX)
@@ -34,6 +37,7 @@ class DirectIntegrator(SamplingIntegrator):
     (reference src/integrators/direct.cpp:99-211): each strategy's
     contribution is averaged over its own draw count and MIS-weighted by
     the sampling-effort fractions N/(N+M), M/(N+M)."""
+    spectral_mode = "hero"
 
     def __init__(self, props: Properties):
         super().__init__(props)
@@ -44,7 +48,7 @@ class DirectIntegrator(SamplingIntegrator):
             raise RuntimeError(
                 "direct: must have at least 1 BSDF or emitter sample")
 
-    def sample(self, sa, sampler, state, ray, active):
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
         N = self.emitter_samples
         M = self.bsdf_samples
         total = max(N + M, 1)
@@ -70,12 +74,13 @@ class DirectIntegrator(SamplingIntegrator):
             -1)
         if sa.n_emitters > 0 and not self.hide_emitters:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
-                                             lane_emitter, si.uv_u, si.uv_v)
+                                             lane_emitter, si.uv_u, si.uv_v,
+                                             wavelengths)
             emit_mask = active & (lane_emitter >= 0)
             if has_env:
                 miss_env = (~si.valid) & active
-                em_val = where3(miss_env, em_mod.environment_eval(sa, ray.d),
-                                em_val)
+                em_val = where3(miss_env, em_mod.environment_eval(
+                    sa, ray.d, wavelengths), em_val)
                 emit_mask = emit_mask | miss_env
             result = result + em_val * torch.where(emit_mask, 1.0, 0.0)
 
@@ -84,19 +89,22 @@ class DirectIntegrator(SamplingIntegrator):
                                   device=dev)
         smooth = (bsdf_flags[lane_bsdf] & FLAG_SMOOTH) != 0
         act_surf = active & si.valid
-        tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si)
+        tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si,
+                                                  wavelengths)
         half = torch.full((n,), 0.5, device=dev)
 
         # ---- N emitter samples (direct.cpp:148-176) ---------------------
         for _ in range(N if sa.n_emitters > 0 else 0):
             s2, state = sampler.next_2d(state, active)
             ds, em_weight = em_mod.sample_direction(sa, si.p, ray.time,
-                                                    s2[0], s2[1])
+                                                    s2[0], s2[1],
+                                                    wavelengths)
             act_em = act_surf & smooth & (ds.pdf != 0.0)
             occluded = ray_test(sa, si.spawn_ray_to(ds.p), act_em)
             ok = act_em & ~occluded
             r = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, si.to_local(ds.d),
-                                     half, half, half, tex_refl, tex_mask)
+                                     half, half, half, tex_refl, tex_mask,
+                                     wavelengths)
             mis = torch.where(
                 ds.delta, 1.0,
                 mis_weight(ds.pdf * frac_lum, r.pdf_nee * frac_bsdf)) * w_lum
@@ -108,7 +116,7 @@ class DirectIntegrator(SamplingIntegrator):
             s1, state = sampler.next_1d(state, active)
             s2, state = sampler.next_2d(state, active)
             r = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, si.wi, s1, s2[0],
-                                     s2[1], tex_refl, tex_mask)
+                                     s2[1], tex_refl, tex_mask, wavelengths)
             act_b = act_surf & (r.pdf > 0.0)
             ray2 = si.spawn_ray(si.to_world(r.wo))
             si2 = ray_intersect(sa, ray2, act_b)
@@ -116,7 +124,8 @@ class DirectIntegrator(SamplingIntegrator):
                 si2.valid,
                 sa.inst_emitter[torch.clamp(si2.inst, min=0).long()], -1)
             em_val2 = em_mod.eval_emitter_hit(sa, si2.sh_n, -ray2.d,
-                                              lane_em2, si2.uv_u, si2.uv_v)
+                                              lane_em2, si2.uv_u, si2.uv_v,
+                                              wavelengths)
             hit_em = act_b & (lane_em2 >= 0)
             d_seg = si2.p - si.p
             dist = torch.sqrt(torch.clamp(dot(d_seg, d_seg), min=1e-20))
@@ -129,8 +138,8 @@ class DirectIntegrator(SamplingIntegrator):
                 miss2 = (~si2.valid) & act_b
                 env_pdf = em_mod.environment_pdf_direction(sa, ray2.d) * (
                     1.0 / max(sa.n_emitters, 1))
-                em_val2 = where3(miss2, em_mod.environment_eval(sa, ray2.d),
-                                 em_val2)
+                em_val2 = where3(miss2, em_mod.environment_eval(
+                    sa, ray2.d, wavelengths), em_val2)
                 em_pdf = torch.where(miss2 & ~r.sampled_delta, env_pdf,
                                      em_pdf)
                 hit_em = hit_em | miss2
@@ -149,7 +158,9 @@ class AOVIntegrator(SamplingIntegrator):
     ``aovs`` = "name:type,..." with types in {depth, position, uv,
     geo_normal, sh_normal, prim_index, shape_index, albedo}; the channels
     follow the film's own. A nested integrator, if given, provides the
-    RGB channels (else they are 0)."""
+    RGB channels (else they are 0). On lanes that hit nothing the normals
+    and uv are the plain intersector's (the first triangle slot's, as in
+    the JAX package) on every device and route, not a kernel's own."""
 
     _SIZES = {"depth": 1, "position": 3, "uv": 2, "geo_normal": 3,
               "sh_normal": 3, "prim_index": 1, "shape_index": 1,
@@ -182,8 +193,14 @@ class AOVIntegrator(SamplingIntegrator):
                 names.extend(f"{name}.{s}" for s in suffix)
         return names
 
-    def sample(self, sa, sampler, state, ray, active):
-        si = ray_intersect(sa, ray, active)
+    @property
+    def spectral_mode(self):
+        return (self.child.spectral_mode if self.child is not None
+                else "neutral")
+
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
+        si = build_si(sa, ray, with_plain_miss_payload(
+            sa, ray, intersect(sa, ray, active)), active)
         aovs = []
         for _, ty in self.outputs:
             if ty == "depth":
@@ -214,12 +231,13 @@ class AOVIntegrator(SamplingIntegrator):
                         torch.int32)
                     alb = where3(lane_tex >= 0, eval_texture(
                         sa, lane_tex, si.uv_u, si.uv_v, p=si.p, b_u=si.b_u,
-                        b_v=si.b_v, prim=si.prim), alb)
+                        b_v=si.b_v, prim=si.prim, wavelengths=wavelengths),
+                        alb)
                 vm = torch.where(si.valid, 1.0, 0.0)
                 aovs.extend([alb.x * vm, alb.y * vm, alb.z * vm])
         if self.child is not None:
-            spec, valid, state, _ = self.child.sample(sa, sampler, state,
-                                                      ray, active)
+            spec, valid, state, _ = self.child.sample(
+                sa, sampler, state, ray, active, wavelengths=wavelengths)
         else:
             z = torch.zeros_like(si.t)
             spec, valid = Vec3(z, z, z), si.valid
@@ -247,9 +265,15 @@ class MomentIntegrator(SamplingIntegrator):
     def aov_names(self):
         return ["m2.R", "m2.G", "m2.B"]
 
-    def sample(self, sa, sampler, state, ray, active):
-        spec, valid, state, _ = self.child.sample(sa, sampler, state, ray,
-                                                  active)
+    @property
+    def spectral_mode(self):
+        return self.child.spectral_mode
+
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
+        # in the spectral variant the moments are of the hero-wavelength
+        # samples, before their sRGB conversion, as in the JAX package
+        spec, valid, state, _ = self.child.sample(
+            sa, sampler, state, ray, active, wavelengths=wavelengths)
         return spec, valid, state, [spec.x * spec.x, spec.y * spec.y,
                                     spec.z * spec.z]
 

@@ -23,6 +23,7 @@ import math
 import torch
 
 from ..core import warp
+from ..core.cie import hero_to_srgb, hero_wavelengths
 from ..core.properties import Properties, register_plugin
 from ..core.vec import (Vec3, cmat_apply_point, cmat_apply_vector, cmat_lerp,
                         coordinate_system, cross, dot, normalize, vmax,
@@ -34,8 +35,9 @@ from ..emitters import (EMITTER_POINT, EMITTER_AREA_RECT, EMITTER_CONSTANT,
                         EMITTER_AREA_MESH, EMITTER_DIRECTIONAL, EMITTER_SPOT,
                         EMITTER_ENVMAP, EMITTER_AREA_SPHERE,
                         EMITTER_PROJECTOR, EMITTER_DIRECTIONALAREA, E_POS,
-                        E_INTENSITY, E_AREA, E_CUTOFF, E_BEAM, E_AXIS,
-                        _tri_uv, envmap_eval, sphere_uv, textured_radiance)
+                        E_AREA, E_CUTOFF, E_BEAM, E_AXIS, _tri_uv,
+                        envmap_eval, lane_intensity, sphere_uv,
+                        textured_radiance)
 from ..films import block_splat_scatter
 from ..textures import eval_texture
 from . import SamplingIntegrator, DEFAULT_MAX_LANES, textured_reflectance
@@ -68,7 +70,11 @@ def _frame_dir(nv: Vec3, lv: Vec3) -> Vec3:
 class PTracerIntegrator(SamplingIntegrator):
     """Particle tracer; samples per pixel means light paths per pixel
     (reference ptracer.cpp sample-count semantics). As in the JAX package,
-    a render leaves the sensor's sampler at sample_count 1."""
+    a render leaves the sensor's sampler at sample_count 1. In the
+    spectral variant each light path carries three hero wavelengths (one
+    more draw after the emitter's), and every splat is converted to
+    linear sRGB."""
+    spectral_mode = "hero"
 
     def __init__(self, props: Properties):
         super().__init__(props)
@@ -170,6 +176,10 @@ class PTracerIntegrator(SamplingIntegrator):
                 lpy = lpy * ap_r
             else:
                 lpx = lpy = zero
+            wavelengths = None
+            if sa.spectral:
+                wls, state = sampler.next_1d(state, active)
+                wavelengths = hero_wavelengths(wls)
             ne = max(sa.n_emitters, 1)
             idx = torch.clamp((s_sel * ne).to(torch.int32), max=ne - 1).long()
 
@@ -180,8 +190,7 @@ class PTracerIntegrator(SamplingIntegrator):
                 return sa.emitter_m[j][idx]
 
             etype = sa.emitter_type[idx]
-            rad = Vec3(epar(E_INTENSITY), epar(E_INTENSITY + 1),
-                       epar(E_INTENSITY + 2))
+            rad = lane_intensity(epar, wavelengths)
             loc = warp.cosine_hemisphere_c(dir2[0], dir2[1])
             # the world aperture point (the camera origin for a pinhole)
             lens_w = Vec3(cam[0] * lpx + cam[1] * lpy + cam[3],
@@ -238,7 +247,7 @@ class PTracerIntegrator(SamplingIntegrator):
                     A = epar(E_AREA)
                     rad_loc = textured_radiance(sa, epar, rad,
                                                 0.5 * (lx + 1.0),
-                                                0.5 * (ly + 1.0))
+                                                0.5 * (ly + 1.0), wavelengths)
                     cand = (o_c, _frame_dir(nrm, loc), nrm,
                             rad_loc * (A * math.pi), rad_loc * A, ~no)
                 elif tid == EMITTER_AREA_SPHERE:
@@ -253,7 +262,8 @@ class PTracerIntegrator(SamplingIntegrator):
                         # camera path's hits and NEE take it
                         rad_loc = textured_radiance(
                             sa, epar, rad, *sphere_uv(
-                                tuple(erow(j) for j in range(12)), o_c))
+                                tuple(erow(j) for j in range(12)), o_c),
+                            wavelengths)
                     cand = (o_c, _frame_dir(nsp, loc), nsp,
                             rad_loc * (A * math.pi), rad_loc * A, ~no)
                 elif tid == EMITTER_AREA_MESH:
@@ -305,7 +315,8 @@ class PTracerIntegrator(SamplingIntegrator):
                             ue, ve = _tri_uv(sa, pre, tri, b0, b1)
                             uv_mu = torch.where(mask, ue, uv_mu)
                             uv_mv = torch.where(mask, ve, uv_mv)
-                    rad_loc = textured_radiance(sa, epar, rad, uv_mu, uv_mv)
+                    rad_loc = textured_radiance(sa, epar, rad, uv_mu, uv_mv,
+                                                wavelengths)
                     cand = (o_m, _frame_dir(n_m, loc), n_m,
                             rad_loc * (invp * math.pi), rad_loc * invp, ~no)
                 elif tid == EMITTER_PROJECTOR:
@@ -325,7 +336,8 @@ class PTracerIntegrator(SamplingIntegrator):
                     if int(sa.n_textures) > 0:
                         texid = epar(E_BEAM).to(torch.int32)
                         base = where3(texid >= 0, eval_texture(
-                            sa, texid, dir2[0], dir2[1]), base)
+                            sa, texid, dir2[0], dir2[1],
+                            wavelengths=wavelengths), base)
                     A_p = 4.0 * th * th
                     w_c = base * (A_p * inv_r * inv_r * inv_r)
                     cand = (o_c, d_c, d_c, w_c, z3, no)
@@ -350,7 +362,8 @@ class PTracerIntegrator(SamplingIntegrator):
                         # the radiance along d is the texel seen looking
                         # back along it; toward the camera, the texel the
                         # camera sees through this point
-                        L_ray = envmap_eval(sa, Vec3(-d_c.x, -d_c.y, -d_c.z))
+                        L_ray = envmap_eval(sa, Vec3(-d_c.x, -d_c.y, -d_c.z),
+                                            wavelengths)
                         if kind == 2:
                             v_cam = Vec3(torch.full((n,), view[0],
                                                     device=dev),
@@ -360,7 +373,7 @@ class PTracerIntegrator(SamplingIntegrator):
                                                     device=dev))
                         else:
                             v_cam = normalize(o_c - lens_w)
-                        L_cam = envmap_eval(sa, v_cam)
+                        L_cam = envmap_eval(sa, v_cam, wavelengths)
                     else:
                         L_ray = L_cam = rad
                     cand = (o_c, d_c, n_in, L_ray * (area_b * math.pi),
@@ -438,6 +451,10 @@ class PTracerIntegrator(SamplingIntegrator):
                              dist * (1.0 - SHADOW_EPSILON))
                 ok = ok & ~ray_test(sa, shadow, ok)
                 val = contrib * wgt
+                if wavelengths is not None:
+                    # the film holds linear sRGB; the conversion is linear,
+                    # so converting each splat equals converting at develop
+                    val = hero_to_srgb(val, wavelengths)
                 px = torch.clamp((sx * W).to(torch.int32), 0, W - 1)
                 py = torch.clamp((sy * H).to(torch.int32), 0, H - 1)
                 return block_splat_scatter(block, px, py,
@@ -470,9 +487,11 @@ class PTracerIntegrator(SamplingIntegrator):
                 wo_cam = si.to_local(to_cam)
                 s1, state = sampler.next_1d(state, act)
                 s2, state = sampler.next_2d(state, act)
-                tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si)
+                tex_refl, tex_mask = textured_reflectance(sa, lane_bsdf, si,
+                                                          wavelengths)
                 bs = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, wo_cam, s1,
-                                          s2[0], s2[1], tex_refl, tex_mask)
+                                          s2[0], s2[1], tex_refl, tex_mask,
+                                          wavelengths)
                 # the vertex -> camera splat (bs.val_nee = f cos(wo_cam))
                 block = connect(block, si.p, si.n, throughput * bs.val_nee,
                                 act)

@@ -1,5 +1,5 @@
 """Volumetric path tracer (port of the JAX package's
-``integrators/volpath.py``, the rgb path; reference
+``integrators/volpath.py``, its rgb, mono and spectral path; reference
 src/integrators/volpath.cpp).
 
 Homogeneous media sample their free flights by the channel-mean
@@ -16,8 +16,9 @@ live, as the JAX package's ``bounce_loop`` does, so the draws stay the JAX
 package's lane for lane. The phase of a medium event is the row's
 ``M_PHASE`` kernel: HG, SGGX (its S constant or looked up in the S grid
 at the event, ``_sggx_S6``), Rayleigh or tabulated, for the sampled
-direction and for NEE alike. The Stokes branch is ROADMAP Queue A item
-11.
+direction and for NEE alike. In the spectral variant sigma_t is its
+peak times its sigmoid spectrum at the hero wavelengths, and the albedo
+its sigmoid spectrum. The Stokes branch is ROADMAP Queue A item 11.
 """
 
 from __future__ import annotations
@@ -26,15 +27,17 @@ import torch
 
 from ..bsdfs import (FLAG_NULL, FLAG_SMOOTH,
                      eval_pdf_sample as bsdf_eval_pdf_sample)
+from ..core.cie import eval_reflectance_spectrum
 from ..core.logger import profile_phase
 from ..core.properties import register_plugin
 from ..core.vec import Vec3, dot, vmax, where3
 from .. import emitters as em_mod
 from ..media import (M_ALBEDO, M_FILTER, M_G, M_GRID_OFF, M_MAXD, M_NX,
                      M_NY, M_NZ, M_PHASE, M_SAMPLE_EM, M_SGGX, M_SGGX_NX,
-                     M_SGGX_NY, M_SGGX_NZ, M_SGGX_OFF, M_SIGMA_T, hg_eval,
-                     hg_sample, rayleigh_eval, rayleigh_sample, sggx_eval,
-                     sggx_sample, tab_eval, tab_phase_tables, tab_sample)
+                     M_SGGX_NY, M_SGGX_NZ, M_SGGX_OFF, M_SIGMA_T, M_ST_PEAK,
+                     hg_eval, hg_sample, rayleigh_eval, rayleigh_sample,
+                     sggx_eval, sggx_sample, tab_eval, tab_phase_tables,
+                     tab_sample)
 from ..render.scene import ray_intersect, ray_test
 from ..render.types import SHADOW_EPSILON, DirectionSample, Ray
 from ..volumes import grid_cell, trilinear
@@ -234,12 +237,24 @@ def _ratio_track(sa, sampler, state, origin, dirn, dist, medium, sigma_bar,
     return tr, state
 
 
-def _segment_tr(sa, sampler, state, o, dn, dist, medium, act):
-    """Transmittance of one shadow segment in ``medium``: the rgb
-    exponential, ratio-tracked on heterogeneous lanes."""
+def _sigma_t(sa, idx, wavelengths):
+    """The media ``idx``'s sigma_t: its rgb columns, or with
+    ``wavelengths`` (the spectral variant) peak * S(coeffs) at the hero
+    wavelengths."""
+    st = [sa.med_params[M_SIGMA_T + c][idx] for c in range(3)]
+    if wavelengths is None:
+        return st
+    pk = sa.med_params[M_ST_PEAK][idx]
+    return [pk * eval_reflectance_spectrum(*st, lam) for lam in wavelengths]
+
+
+def _segment_tr(sa, sampler, state, o, dn, dist, medium, act,
+                wavelengths=None):
+    """Transmittance of one shadow segment in ``medium``: the exponential
+    per channel, ratio-tracked on heterogeneous lanes."""
     idx = torch.clamp(medium, min=0).long()
     in_med = medium >= 0
-    st = [sa.med_params[M_SIGMA_T + c][idx] for c in range(3)]
+    st = _sigma_t(sa, idx, wavelengths)
     tr = where3(in_med, Vec3(*(torch.exp(-s * dist) for s in st)),
                 Vec3.ones(dist.shape[0], device=dist.device))
     if sa.any_hetero:
@@ -252,7 +267,7 @@ def _segment_tr(sa, sampler, state, o, dn, dist, medium, act):
 
 
 def _shadow_transmittance(sa, sampler, state, sh_o, sh_dn, time, sh_dist,
-                          medium, active_em, null_ids):
+                          medium, active_em, null_ids, wavelengths=None):
     """A shadow connection through up to ``_MAX_NULL`` null boundaries:
     one closest-hit query per segment, the segment's transmittance in its
     medium, and the medium switched at each null crossing (reference
@@ -272,7 +287,7 @@ def _shadow_transmittance(sa, sampler, state, sh_o, sh_dn, time, sh_dist,
         hit = alive & si.valid
         seg_len = torch.where(hit, si.t, remaining)
         tr_seg, state = _segment_tr(sa, sampler, state, seg_o, sh_dn,
-                                    seg_len, seg_med, alive)
+                                    seg_len, seg_med, alive, wavelengths)
         tr = where3(alive, tr * tr_seg, tr)
         inst = torch.clamp(si.inst, min=0).long()
         lane_bsdf = sa.inst_bsdf[inst]
@@ -297,9 +312,11 @@ def _shadow_transmittance(sa, sampler, state, sh_o, sh_dn, time, sh_dist,
 @register_plugin("integrator", "volpath")
 class VolPathIntegrator(MonteCarloIntegrator):
     """Volumetric path tracing with NEE and MIS (reference volpath.cpp)."""
+    spectral_mode = "hero"
 
-    def sample(self, sa, sampler, state, ray, active):
-        return _volpath_loop(self, sa, sampler, state, ray, active)
+    def sample(self, sa, sampler, state, ray, active, wavelengths=None):
+        return _volpath_loop(self, sa, sampler, state, ray, active,
+                             wavelengths)
 
 
 @register_plugin("integrator", "volpathmis")
@@ -309,7 +326,8 @@ class VolPathMISIntegrator(VolPathIntegrator):
     package's subclass overrides nothing)."""
 
 
-def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
+def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
+                  wavelengths=None):
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
 
@@ -344,9 +362,8 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
 
         # ---------------- medium distance sampling --------------------
         in_med = (medium >= 0) & active
-        st_r = med(M_SIGMA_T, medium)
-        st_g = med(M_SIGMA_T + 1, medium)
-        st_b = med(M_SIGMA_T + 2, medium)
+        med_idx = torch.clamp(medium, min=0).long()
+        st_r, st_g, st_b = _sigma_t(sa, med_idx, wavelengths)
         st_mean = torch.clamp((st_r + st_g + st_b) / 3.0, min=1e-8)
         u, state = sampler.next_1d(state, active)
         t_med = -torch.log(torch.clamp(1.0 - u, min=1e-20)) / st_mean
@@ -367,6 +384,11 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
         al_r = med(M_ALBEDO, medium)
         al_g = med(M_ALBEDO + 1, medium)
         al_b = med(M_ALBEDO + 2, medium)
+        if wavelengths is not None:
+            # the albedo's sigmoid coefficients at the hero wavelengths
+            al_r, al_g, al_b = (eval_reflectance_spectrum(al_r, al_g, al_b,
+                                                          lam)
+                                for lam in wavelengths)
         sig_s = Vec3(st_r * al_r, st_g * al_g, st_b * al_b)
         w_med = where3(hit_med, w_med * sig_s, w_med)
 
@@ -393,12 +415,13 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
         lane_emitter = torch.where(surf_evt, sa.inst_emitter[inst], -1)
         if nee_on:
             em_val = em_mod.eval_emitter_hit(sa, si.sh_n, -ray.d,
-                                             lane_emitter, si.uv_u, si.uv_v)
+                                             lane_emitter, si.uv_u, si.uv_v,
+                                             wavelengths)
             miss_env = (~si.valid) & active & ~hit_med
             mis_emitter = lane_emitter
             if has_env:
-                em_val = where3(miss_env, em_mod.environment_eval(sa, ray.d),
-                                em_val)
+                em_val = where3(miss_env, em_mod.environment_eval(
+                    sa, ray.d, wavelengths), em_val)
                 emit_mask = (lane_emitter >= 0) | miss_env
                 # escaped lanes carry the environment's index, so that
                 # their MIS pdf is the environment's NEE pdf
@@ -429,7 +452,8 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
         nee, state = sampler.next_2d(state, active)
         if nee_on:
             ds, em_weight = em_mod.sample_direction(sa, p_evt, ray.time,
-                                                    nee[0], nee[1])
+                                                    nee[0], nee[1],
+                                                    wavelengths)
             smooth = (bsdf_flags[lane_bsdf.long()] & FLAG_SMOOTH) != 0
             # media with sample_emitters=false take no NEE from their
             # events (medium.h sample_emitters)
@@ -462,7 +486,7 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
                 with profile_phase("ShadowTransmittance"):
                     occluded, tr_sh, state = _shadow_transmittance(
                         sa, sampler, state, sh_o, sh_dn, ray.time, sh_dist,
-                        medium, active_em, null_ids)
+                        medium, active_em, null_ids, wavelengths)
             nee_ok = active_em & ~occluded
             em_weight = em_weight * tr_sh
         else:
@@ -480,7 +504,8 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active):
         # the JAX package's volpath evaluates BSDFs with their rows'
         # reflectance: no texture lookup here
         bs = bsdf_eval_pdf_sample(sa, lane_bsdf, si.wi, si.to_local(ds.d),
-                                  s1, s2[0], s2[1])
+                                  s1, s2[0], s2[1],
+                                  wavelengths=wavelengths)
 
         # NEE contribution (medium: phase; surface: bsdf)
         if nee_on:

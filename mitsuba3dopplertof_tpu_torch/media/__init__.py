@@ -43,6 +43,8 @@ M_NZ = 12
 M_PHASE = 13     # phase kernel: 0 = isotropic / HG (M_G), 1 = SGGX,
                  # 2 = Rayleigh, 3 = tabulated
 M_SGGX = 14      # SGGX S entries Sxx, Syy, Szz, Sxy, Sxz, Syz (14:20)
+M_ST_PEAK = 20   # spectral variant: sigma_t's peak; M_SIGMA_T then holds
+                 # the sigmoid coefficients of sigma_t / peak
 M_SGGX_OFF = 21  # S grid: first row in the (V, 6) atlas sa.sggx_grid,
 M_SGGX_NX = 22   # and its resolution; NX == 0 means the constant S of
 M_SGGX_NY = 23   # M_SGGX. The world -> grid transform is a column of
@@ -53,9 +55,10 @@ M_SAMPLE_EM = 26  # 1 = NEE from medium events (medium.h sample_emitters)
 
 def _get_rgb(props, key, default):
     v = props.get(key, default)
+    from ..spectra import Spectrum
     from ..textures import Texture
     from ..volumes import Volume
-    if isinstance(v, (Texture, Volume)):
+    if isinstance(v, (Spectrum, Texture, Volume)):
         return np.asarray(v.mean_rgb())
     if isinstance(v, dict):
         v = v.get("value")
@@ -169,6 +172,37 @@ class SGGXPhase(PhaseFunction):
             raise RuntimeError("sggx: provide an 'S' volume with six values "
                                "(Sxx, Syy, Szz, Sxy, Sxz, Syz)")
         self.S = S[:6]
+
+
+def sggx_not_pd(S6) -> np.ndarray:
+    """Which rows of (..., 6) SGGX entries (Sxx, Syy, Szz, Sxy, Sxz, Syz)
+    are not positive definite (a leading principal minor <= 0)."""
+    sxx, syy, szz, sxy, sxz, syz = np.moveaxis(
+        np.asarray(S6, np.float64)[..., :6], -1, 0)
+    det = (sxx * syy * szz - sxx * syz * syz - syy * sxz * sxz
+           - szz * sxy * sxy + 2.0 * sxy * sxz * syz)
+    return (sxx <= 0.0) | (sxx * syy - sxy * sxy <= 0.0) | (det <= 0.0)
+
+
+def warn_sggx_not_pd(medium) -> int:
+    """Warn, through the logger, when a medium's SGGX S is not positive
+    definite: its constant S, or the texels of its S grid. The phase then
+    takes |det S|, as the JAX package does, which can make fireflies.
+    Returns the count of such S (0 for other phases)."""
+    phase = medium.phase
+    if phase.type_id != PHASE_SGGX:
+        return 0
+    grid = phase.S_grid
+    bad = sggx_not_pd(phase.S if grid is None
+                      else grid.data[..., :6].reshape(-1, 6))
+    n_bad = int(np.count_nonzero(bad))
+    if n_bad:
+        from ..core.logger import WARN, log
+        where_ = ("its constant S" if grid is None
+                  else f"{n_bad} of {bad.size} texels of its S grid")
+        log(WARN, "medium '%s': the SGGX S is not positive definite in %s; "
+            "the phase takes |det S| there", medium.id, where_)
+    return n_bad
 
 
 class Medium:
@@ -449,6 +483,7 @@ __all__ = ["PhaseFunction", "IsotropicPhase", "HGPhase", "RayleighPhase",
            "sggx_projected_area", "tab_phase_tables", "tab_sample",
            "tab_eval", "N_MED_PARAMS", "M_SIGMA_T", "M_ALBEDO", "M_G",
            "M_SCALE", "M_MAXD", "M_GRID_OFF", "M_NX", "M_NY", "M_NZ",
-           "M_PHASE", "M_SGGX", "M_SGGX_OFF", "M_SGGX_NX", "M_SGGX_NY",
+           "sggx_not_pd", "warn_sggx_not_pd",
+           "M_PHASE", "M_SGGX", "M_ST_PEAK", "M_SGGX_OFF", "M_SGGX_NX", "M_SGGX_NY",
            "M_SGGX_NZ", "M_FILTER", "M_SAMPLE_EM", "PHASE_ISOTROPIC",
            "PHASE_HG", "PHASE_RAYLEIGH", "PHASE_SGGX", "PHASE_TAB"]

@@ -270,6 +270,49 @@ def _spheres_reference(sa, ray: Ray, hit: HitRecord) -> HitRecord:
     return out
 
 
+def _slot_payload(g, o_hit: Vec3, d_hit: Vec3):
+    """(u, v, geometric normal, shading normal, uv_u, uv_v) of triangle
+    columns ``g`` against the ray (o_hit, d_hit) in its hit space: the
+    Möller barycentrics and the interpolated attributes."""
+    v0 = Vec3(g["v0x"], g["v0y"], g["v0z"])
+    e1 = Vec3(g["e1x"], g["e1y"], g["e1z"])
+    e2 = Vec3(g["e2x"], g["e2y"], g["e2z"])
+    pv = cross(d_hit, e2)
+    det = dot(e1, pv)
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1.0)
+    tv = o_hit - v0
+    u = dot(tv, pv) * inv_det
+    qv = cross(tv, e1)
+    v = dot(d_hit, qv) * inv_det
+    w = 1.0 - u - v
+    gn = cross(e1, e2)
+    ns = Vec3(w * g["n0x"] + u * g["n1x"] + v * g["n2x"],
+              w * g["n0y"] + u * g["n1y"] + v * g["n2y"],
+              w * g["n0z"] + u * g["n1z"] + v * g["n2z"])
+    uv_u = w * g["uv0u"] + u * g["uv1u"] + v * g["uv2u"]
+    uv_v = w * g["uv0v"] + u * g["uv1v"] + v * g["uv2v"]
+    return u, v, gn, ns, uv_u, uv_v
+
+
+def with_plain_miss_payload(sa, ray: Ray, hit: HitRecord) -> HitRecord:
+    """``hit`` with the payload of its missed lanes (prim < 0) replaced by
+    what the plain version gives them: the first static triangle slot's
+    barycentrics against the ray and its interpolated normals and uv, and
+    instance -1. The kernels leave their own values on those lanes; this
+    makes every route agree with the plain version (and the JAX package)
+    where a caller reads the payload of a miss."""
+    n = ray.o.x.shape[0]
+    g = {c: sa.tri("s", c)[0].expand(n) for c in _TRI_NAMES
+         if c not in ("inst", "prim")}
+    u, v, gn, ns, uv_u, uv_v = _slot_payload(g, ray.o, ray.d)
+    miss = hit.prim < 0
+    new = dict(u=u, v=v, gnx=gn.x, gny=gn.y, gnz=gn.z, nsx=ns.x, nsy=ns.y,
+               nsz=ns.z, uv_u=uv_u, uv_v=uv_v,
+               inst=torch.full_like(hit.inst, -1))
+    return hit._replace(**{k: torch.where(miss, val, getattr(hit, k))
+                           for k, val in new.items()})
+
+
 def intersect_reference(sa, ray: Ray) -> HitRecord:
     """Plain closest hit with the full payload (the port of the JAX
     package's ``_hit_reference``): scanned brute force, then the winner's
@@ -307,9 +350,6 @@ def intersect_reference(sa, ray: Ray) -> HitRecord:
                         sa.a_inst.shape[0] - 1).long()
     g = {c: torch.where(is_anim, sa.tri("a", c)[idx_a], sa.tri("s", c)[idx_s])
          for c in _TRI_NAMES}
-    v0 = Vec3(g["v0x"], g["v0y"], g["v0z"])
-    e1 = Vec3(g["e1x"], g["e1y"], g["e1z"])
-    e2 = Vec3(g["e2x"], g["e2y"], g["e2z"])
 
     o_hit, d_hit = ray.o, ray.d
     for (inst, start, count) in sa.anim_ranges:
@@ -318,22 +358,7 @@ def intersect_reference(sa, ray: Ray) -> HitRecord:
         o_hit = where3(m, o_obj, o_hit)
         d_hit = where3(m, d_obj, d_hit)
 
-    # barycentrics of the winner in its hit space
-    pv = cross(d_hit, e2)
-    det = dot(e1, pv)
-    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1.0)
-    tv = o_hit - v0
-    u = dot(tv, pv) * inv_det
-    qv = cross(tv, e1)
-    v = dot(d_hit, qv) * inv_det
-    w = 1.0 - u - v
-
-    gn = cross(e1, e2)
-    ns = Vec3(w * g["n0x"] + u * g["n1x"] + v * g["n2x"],
-              w * g["n0y"] + u * g["n1y"] + v * g["n2y"],
-              w * g["n0z"] + u * g["n1z"] + v * g["n2z"])
-    uv_u = w * g["uv0u"] + u * g["uv1u"] + v * g["uv2u"]
-    uv_v = w * g["uv0v"] + u * g["uv1v"] + v * g["uv2v"]
+    u, v, gn, ns, uv_u, uv_v = _slot_payload(g, o_hit, d_hit)
 
     # animated hits: normals to world by the lerped matrix's inverse
     # transpose at the ray's time
@@ -739,6 +764,7 @@ def ray_test(sa, ray: Ray, active=None):
 
 
 __all__ = ["HitRecord", "intersect", "ray_test", "intersect_reference",
+           "with_plain_miss_payload",
            "ray_test_reference", "intersect_large", "ray_test_large",
            "scene_tables", "gate_boxes", "b1_warp_masks", "slot_hits",
            "WarpMasks", "LIBRARY", "LAUNCHES",

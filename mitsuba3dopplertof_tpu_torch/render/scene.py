@@ -1,9 +1,19 @@
 """Scene assembly and compilation into device SoA tables (port of the JAX
 package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs
-(with the wrappers' nested rows and the shared null row of ``mask``),
-textures, emitters (area lights on spheres included), the constant and
-envmap environments and media the port has, ``build_si``,
-``ray_intersect`` and ``ray_test``).
+(with the wrappers' nested rows and the shared null row of ``mask``, and
+the measured BSDFs' tables), textures, emitters (area lights on spheres
+included), the constant and envmap environments and media the port has,
+in the rgb, spectral and mono variants; ``build_si``, ``ray_intersect``
+and ``ray_test``).
+
+The variant at compile time shapes the tables, as in the JAX package:
+mono collapses every rgb input to its BT.709 luminance; spectral stores
+sigmoid-polynomial coefficients in place of the rgb of the upsampled
+BSDF types' reflectance, of emitters (with their peak), of media's
+sigma_t (with its peak) and albedo, of every texel of the bitmap atlas
+(``tex_atlas_c0..c2``, from the coefficient lattice) and of the envmap
+(``env_coeff``, fitted per texel on the scene's device), and names each
+named-material conductor's eta / k spectra (``ior_spectra``).
 
 The host compiles the shape graph into flat component-wise triangle /
 instance / BSDF / emitter tables (each column a (T,) tensor). Triangle slot
@@ -45,9 +55,11 @@ class SceneArrays:
            "emitter_type", "emitter_params", "emitter_m",  # (P, E), (12, E)
            "tex_type", "tex_params", "tex_h",             # tex_params: (P, X)
            "tex_atlas_r", "tex_atlas_g", "tex_atlas_b",
+           "tex_atlas_c0", "tex_atlas_c1", "tex_atlas_c2",
            "sph_m0c", "sph_m1c", "sph_t0", "sph_t1", "sph_inst",
            "env_img_r", "env_img_g", "env_img_b", "env_pdf", "env_cdf",
            "env_alias", "env_aprob", "env_rot", "env_rot_fwd",
+           "env_coeff",                      # (4, T): c0..c2, peak
            "em_tri_cdf",
            "med_params", "inst_int_medium", "med_grid", "med_w2g",
            "sggx_grid", "sggx_w2g",          # sggx_grid: (V, 6)
@@ -60,12 +72,12 @@ class SceneArrays:
         "n_spheres", "sphere_animated", "env_kind", "env_shape", "env_index",
         "mesh_em_meta", "sensor_medium", "n_media", "any_hetero", "any_flip",
         "max_optical_depth_hint", "any_nmap", "any_sggx", "any_sggx_grid",
-        "any_rayleigh", "tab_phase_tables",
+        "any_rayleigh", "tab_phase_tables", "spectral", "ior_spectra",
+        "bsdf_ior_host",
     ]
     # a JAX SceneArrays with any of these set uses a feature the port
     # does not have yet
-    _UNPORTED_META = {"spectral": "ROADMAP Queue A item 11",
-                      "polarized": "ROADMAP Queue A item 11"}
+    _UNPORTED_META = {"polarized": "ROADMAP Queue A item 11"}
 
     def __init__(self, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
                  device):
@@ -84,6 +96,10 @@ class SceneArrays:
         attr = arrays.get("mesh_attr")
         self.mesh_attr = (None if attr is None else torch.tensor(
             np.asarray(attr), dtype=torch.float32, device=device))
+        # the measured BSDFs' tables, by P_MEASURED_IDX
+        from ..bsdfs.measured_impl import tables_from
+        self.measured = tuple(tables_from(t, device)
+                              for t in arrays.get("measured") or ())
         # the tensors' own device: "cuda" resolves to "cuda:<current>"
         self.device = self.inst_t0.device
         for k in self.META_FIELDS:
@@ -105,8 +121,9 @@ def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
     """The port's tables from the JAX package's compiled ``SceneArrays``,
     given as numpy arrays (``arrays``, by field name) and its metadata
     (``meta``: a mapping or an object with the same attributes), and its
-    ``chunk_aabb`` (from ``arrays`` or ``meta``). The JAX package's BVHs
-    (``bvh``, ``anim_blas``) are left behind: the card does not use them.
+    ``chunk_aabb``, ``mesh_attr`` and ``measured`` tables (from ``arrays``
+    or ``meta``). The JAX package's BVHs (``bvh``, ``anim_blas``) are left
+    behind: the card does not use them.
     Raises NotImplementedError for scenes using features the port lacks."""
     get = (meta.get if isinstance(meta, dict)
            else lambda k, d=None: getattr(meta, k, d))
@@ -117,6 +134,8 @@ def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
     for k in ("chunk_aabb", "mesh_attr"):
         if arrays.get(k) is None and get(k) is not None:
             arrays[k] = np.asarray(get(k))
+    if arrays.get("measured") is None:
+        arrays["measured"] = get("measured")
     return SceneArrays(arrays, {k: get(k) for k in SceneArrays.META_FIELDS},
                        device)
 
@@ -181,14 +200,26 @@ class Scene:
         return self._compiled[str(dev)]
 
     def _compile_host(self):
-        from ..bsdfs import BlendBSDF, Diffuse, Mask, Null, P_NMAP_TEX
+        from .. import variant
+        from ..bsdfs import (BlendBSDF, Diffuse, Mask, Measured, Null,
+                             P_NMAP_TEX, P_REFL, TEXTURED_TYPES)
+        from ..bsdfs.ior_data import CONDUCTOR_SPECTRA
+        from ..core import cie
         from ..core.properties import Properties
         from ..emitters import (E_AREA, E_CUTOFF, E_POS, E_SPH_SLOT,
                                 EMITTER_AREA_MESH, EMITTER_AREA_RECT,
-                                EMITTER_AREA_SPHERE,
+                                EMITTER_AREA_SPHERE, E_INTENSITY,
                                 N_EMITTER_PARAMS)
         from ..ops.intersect_stream import chunk_aabbs
         from ..shapes import RectangleShape
+
+        spectral = variant() == "cuda_spectral"
+        mono = variant() == "cuda_mono"
+
+        def _lum(rgb3):
+            # BT.709 luminance: the reference's mono variants collapse rgb
+            # inputs with it (spectrum.h)
+            return 0.2126 * rgb3[0] + 0.7152 * rgb3[1] + 0.0722 * rgb3[2]
 
         # --- BSDF table (deduplicated by identity) -----------------------
         bsdf_objs: List[Any] = []
@@ -277,17 +308,60 @@ class Scene:
         s_attr_rows, a_attr_rows = [], []
         atlas_np = (np.concatenate(atlas, axis=0) if atlas
                     else np.zeros((1, 3), np.float32))
+        if mono and atlas:
+            la = (0.2126 * atlas_np[:, 0] + 0.7152 * atlas_np[:, 1]
+                  + 0.0722 * atlas_np[:, 2])
+            atlas_np = np.stack([la, la, la], axis=1)
+        # spectral: a parallel atlas of every texel's sigmoid-polynomial
+        # coefficients, interpolated in the coefficient lattice (reference
+        # ext/rgb2spec tables + src/core/srgb.cpp)
+        atlas_coeff = (cie.upsample_rgb_array(atlas_np, device=self.device)
+                       if spectral and atlas
+                       else np.zeros((1, 3), np.float32))
 
         if not bsdf_objs:
             bsdf_objs.append(Diffuse(Properties("diffuse")))
         bsdf_type = np.array([b.type_id for b in bsdf_objs], np.int32)
         bsdf_flags = np.array([b.flags for b in bsdf_objs], np.int32)
+        measured = []
+        for b in bsdf_objs:
+            if isinstance(b, Measured):
+                b.measured_index = len(measured)
+                measured.append(b.tables)
         bsdf_params = np.stack([b.params_row() for b in bsdf_objs]).T
         # rows without a normal or bump map carry -1 in its column (0
         # would name texture row 0)
         for bi, b in enumerate(bsdf_objs):
             if getattr(b, "nmap_index", -1) < 0:
                 bsdf_params[P_NMAP_TEX, bi] = -1.0
+        if mono:
+            for bi in range(len(bsdf_objs)):
+                rgb = bsdf_params[P_REFL:P_REFL + 3, bi]
+                if rgb.max() > 0:
+                    bsdf_params[P_REFL:P_REFL + 3, bi] = _lum(rgb)
+        # spectral: each named-material conductor row names its entry of
+        # the eta / k spectra (reference ior.h complex_ior)
+        ior_spectra, ior_by_name, bsdf_ior_host = [], {}, []
+        for b in bsdf_objs:
+            mat = getattr(b, "material", None)
+            if spectral and mat in CONDUCTOR_SPECTRA:
+                if mat not in ior_by_name:
+                    ior_by_name[mat] = len(ior_spectra)
+                    ior_spectra.append(CONDUCTOR_SPECTRA[mat])
+                bsdf_ior_host.append(ior_by_name[mat])
+            else:
+                bsdf_ior_host.append(-1)
+        if spectral:
+            # the upsampled types' reflectance as sigmoid coefficients;
+            # every other type reads its P_REFL rgb as the values at the
+            # three hero wavelengths, as in the JAX package
+            for bi, b in enumerate(bsdf_objs):
+                if b.type_id not in TEXTURED_TYPES:
+                    continue
+                rgb = bsdf_params[P_REFL:P_REFL + 3, bi]
+                if rgb.max() > 0:
+                    bsdf_params[P_REFL:P_REFL + 3, bi] = \
+                        cie.fit_reflectance_coeffs(rgb)
 
         # --- emitter table ------------------------------------------------
         emitter_rows, emitter_types, emitter_mats = [], [], []
@@ -333,6 +407,18 @@ class Scene:
         emitter_type = np.array(emitter_types, np.int32)
         emitter_m = (np.stack(emitter_mats).T if emitter_mats
                      else np.zeros((12, 0)))
+        for ei in range(n_emitters):
+            rgb = emitter_params[E_INTENSITY:E_INTENSITY + 3, ei]
+            if mono:
+                emitter_params[E_INTENSITY:E_INTENSITY + 3, ei] = _lum(rgb)
+            elif spectral:
+                # emission spectra scale * S(coeffs) * D65 / int D65 ybar:
+                # the coefficients fit the chromaticity, the peak restores
+                # the luminance (srgb.cpp emission); columns 12:16
+                peak = max(float(rgb.max()), 1e-9)
+                emitter_params[12:15, ei] = cie.fit_reflectance_coeffs(
+                    rgb / peak)
+                emitter_params[15, ei] = peak
 
         # --- environment ---------------------------------------------------
         env = self.environment()
@@ -363,11 +449,24 @@ class Scene:
             R = env.to_world[:3, :3]
             env_rot_fwd = R.reshape(-1)
             env_rot = np.linalg.inv(R).reshape(-1)
+        env_coeff = np.zeros((4, 1), np.float32)
+        if spectral and env_kind == "envmap":
+            # each texel's emission spectrum: coefficients of its
+            # chromaticity and its peak (the batched fit, on the scene's
+            # device)
+            flat = env_img.reshape(-1, 3).astype(np.float64)
+            peak = np.maximum(flat.max(axis=1), 1e-9)
+            coeffs = cie.fit_reflectance_coeffs_batch(flat / peak[:, None],
+                                                      device=self.device)
+            env_coeff = np.concatenate(
+                [np.asarray(coeffs, np.float32).T,
+                 peak[None, :].astype(np.float32)], axis=0)
 
         # --- media: the sensor's first, then each shape's interior ---------
-        from ..media import (M_GRID_OFF, M_MAXD, M_SGGX_NX, M_SGGX_NY,
-                             M_SGGX_NZ, M_SGGX_OFF, N_MED_PARAMS,
-                             PHASE_RAYLEIGH, PHASE_SGGX, PHASE_TAB)
+        from ..media import (M_ALBEDO, M_GRID_OFF, M_MAXD, M_SGGX_NX,
+                             M_SGGX_NY, M_SGGX_NZ, M_SGGX_OFF, M_SIGMA_T,
+                             M_ST_PEAK, N_MED_PARAMS, PHASE_RAYLEIGH,
+                             PHASE_SGGX, PHASE_TAB, warn_sggx_not_pd)
         media_objs: List[Any] = []
         media_index: Dict[int, int] = {}
 
@@ -384,6 +483,19 @@ class Scene:
                            for sh in self.shapes]
         med_params = (np.stack([m.params_row() for m in media_objs]).T
                       if media_objs else np.zeros((N_MED_PARAMS, 1)))
+        for m in media_objs:
+            warn_sggx_not_pd(m)
+        for mi_ in range(len(media_objs) if spectral else 0):
+            # sigma_t / peak and the albedo as sigmoid coefficients
+            st = med_params[M_SIGMA_T:M_SIGMA_T + 3, mi_]
+            peak = max(float(st.max()), 1e-9)
+            med_params[M_SIGMA_T:M_SIGMA_T + 3, mi_] = \
+                cie.fit_reflectance_coeffs(st / peak)
+            med_params[M_ST_PEAK, mi_] = peak
+            al = med_params[M_ALBEDO:M_ALBEDO + 3, mi_]
+            if al.max() > 0:
+                med_params[M_ALBEDO:M_ALBEDO + 3, mi_] = \
+                    cie.fit_reflectance_coeffs(al)
         # flat density atlas + world->grid transforms of the grid media
         med_grid_parts = []
         med_w2g = np.zeros((12, max(len(media_objs), 1)))
@@ -630,6 +742,11 @@ class Scene:
             tex_atlas_r=atlas_np[:, 0].astype(f32),
             tex_atlas_g=atlas_np[:, 1].astype(f32),
             tex_atlas_b=atlas_np[:, 2].astype(f32),
+            tex_atlas_c0=atlas_coeff[:, 0].astype(f32),
+            tex_atlas_c1=atlas_coeff[:, 1].astype(f32),
+            tex_atlas_c2=atlas_coeff[:, 2].astype(f32),
+            env_coeff=env_coeff.astype(f32),
+            measured=tuple(measured),
             env_img_r=env_img[..., 0].reshape(-1).astype(f32),
             env_img_g=env_img[..., 1].reshape(-1).astype(f32),
             env_img_b=env_img[..., 2].reshape(-1).astype(f32),
@@ -662,7 +779,8 @@ class Scene:
             mesh_em_meta=tuple(mesh_em_meta),
             any_flip=any(s < 0.0 for s in inst_nsign),
             has_environment=env is not None,
-            env_radiance=tuple(float(x) for x in env_radiance),
+            env_radiance=(lambda e: (_lum(e),) * 3 if mono else e)(
+                tuple(float(x) for x in env_radiance)),
             tex_types_present=tuple(sorted(set(int(t) for t in tex_types))),
             n_textures=len(tex_objs),
             env_kind=env_kind,
@@ -681,6 +799,9 @@ class Scene:
                 for m in media_objs),
             any_sggx=any(m.phase.type_id == PHASE_SGGX for m in media_objs),
             any_sggx_grid=bool(sggx_parts),
+            spectral=spectral,
+            ior_spectra=tuple(ior_spectra),
+            bsdf_ior_host=tuple(bsdf_ior_host),
             # the largest majorant (or sigma_t) times the scene's diameter:
             # the volpath tracking loops' budgets (the JAX package's host
             # code)

@@ -6,8 +6,10 @@ Every texture in the scene gets a row of the texture table; bitmap images
 and volume grids concatenate into one flat rgb atlas so that a gather per
 tap evaluates any of them. Checkerboard is procedural; a mesh attribute
 is read from the per-triangle attribute table (``SceneArrays.mesh_attr``).
-BSDF and emitter rows name their texture by id. The spectral coefficient
-atlas is ROADMAP Queue A item 11.
+BSDF and emitter rows name their texture by id. In the spectral variant
+a parallel atlas holds every texel's sigmoid-polynomial coefficients
+(``tex_atlas_c0..c2``), which bitmap lookups evaluate at the lane's hero
+wavelengths.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.cie import eval_reflectance_spectrum
 from ..core.properties import Properties, register_plugin
 
 # type ids (the JAX package's numbering)
@@ -216,13 +219,16 @@ class VolumeTexture(Texture):
 # ---------------------------------------------------------------------------
 
 def eval_texture(sa, tex_id, uv_u, uv_v, p=None, b_u=None, b_v=None,
-                 prim=None):
+                 prim=None, wavelengths=None):
     """Evaluate per-lane textures at (uv_u, uv_v) as Vec3 rgb; lanes with
     ``tex_id < 0`` are the caller's to mask. ``p`` (world hit position)
     serves ``volume`` textures, ``b_u`` / ``b_v`` / ``prim`` (barycentrics
     and global triangle slot) ``mesh_attribute`` textures; where a call
     site has no surface interaction to give, those types return 0.5 gray,
-    as the JAX package's do."""
+    as the JAX package's do. With ``wavelengths`` (the spectral variant's
+    hero wavelengths) a bitmap's texels give their upsampled reflectance
+    spectrum there (the atlas's per-texel coefficients); the other types
+    keep their rgb as three wavelength values, as in the JAX package."""
     from ..core.vec import Vec3, where3
     idx = torch.clamp(tex_id, min=0).long()
 
@@ -265,8 +271,17 @@ def eval_texture(sa, tex_id, uv_u, uv_v, p=None, b_u=None, b_v=None,
                 return torch.where(wrapm == 0, rep,
                                    torch.where(wrapm == 1, mir, clp))
 
+            spectral = (wavelengths is not None
+                        and sa.tex_atlas_c0.shape[0] > 1)
+
             def fetch(xi, yi):
                 flat = (off + wrap_idx(yi, h) * w + wrap_idx(xi, w)).long()
+                if spectral:
+                    c0 = sa.tex_atlas_c0[flat]
+                    c1 = sa.tex_atlas_c1[flat]
+                    c2 = sa.tex_atlas_c2[flat]
+                    return Vec3(*(eval_reflectance_spectrum(c0, c1, c2, lam)
+                                  for lam in wavelengths))
                 return Vec3(sa.tex_atlas_r[flat], sa.tex_atlas_g[flat],
                             sa.tex_atlas_b[flat])
 
@@ -309,9 +324,7 @@ def eval_texture(sa, tex_id, uv_u, uv_v, p=None, b_u=None, b_v=None,
             h = torch.full_like(uv_u, 0.5)
             val = Vec3(h, h, h)
         else:
-            raise NotImplementedError(
-                f"texture type {tid} is not ported yet "
-                "(ROADMAP Queue A item 11)")
+            raise ValueError(f"unknown texture type {tid}")
         out = where3(lane_type == tid, val, out)
     return out
 

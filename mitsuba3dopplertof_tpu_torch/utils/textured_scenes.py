@@ -107,15 +107,16 @@ def write_surface_assets(directory: str, seed: int = 7) -> dict:
     return paths
 
 
-def write_sggx_vol(path: str):
+def write_sggx_vol(path: str, sxy_max: float = 0.1):
     """A 6-channel S grid (8 x 4 x 4) whose microflakes turn across x:
     normal to z on the left half, to y on the right, with an off-diagonal
-    Sxy that grows with z from 0 to 0.1 (every S positive definite, as a
-    microflake distribution must be: det >= 0.01)."""
+    Sxy that grows with z from 0 to ``sxy_max``. At the default 0.1 every
+    S is positive definite, as a microflake distribution must be (det >=
+    0.01); on the right half Sxy above sqrt(0.02) breaks that."""
     data = np.zeros((4, 4, 8, 6), np.float32)
     data[..., :4, :3] = [1.0, 1.0, 0.02]
     data[..., 4:, :3] = [1.0, 0.02, 1.0]
-    data[..., 3] = np.linspace(0.0, 0.1, 4)[:, None, None]
+    data[..., 3] = np.linspace(0.0, sxy_max, 4)[:, None, None]
     write_vol(path, data)
 
 

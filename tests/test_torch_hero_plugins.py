@@ -376,8 +376,8 @@ def test_grid_density_matches_jax():
     assert float(ours.max()) > 0.0
 
 
-@pytest.mark.parametrize("kind,item", [("measured", "item 10"),
-                                       ("specfilm", "item 11")])
+@pytest.mark.parametrize("kind,item", [("measured_polarized", "item 11"),
+                                       ("polarizer", "item 11")])
 def test_deferred_plugins_name_item_10(kind, item):
     """The plugins still deferred name their ROADMAP Queue A item."""
     with pytest.raises(NotImplementedError, match=item):

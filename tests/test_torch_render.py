@@ -239,11 +239,11 @@ def test_import_pulls_in_no_jax():
 
 def test_unported_features_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 11"):
-        mt.set_variant("cuda_spectral")
+        mt.set_variant("cuda_rgb_polarized")
     assert mt.set_variant("cuda_rgb") == "cuda_rgb"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mt.load_dict({"type": "measured"})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        mt.load_dict({"type": "measured_polarized"})
     with pytest.raises(NotImplementedError, match="item 3"):
         mt.dict_to_xml({"type": "scene"}, "scene.xml")
     with pytest.raises(NotImplementedError, match="item 11"):
-        mt.load_dict({"type": "specfilm"})
+        mt.load_dict({"type": "stokes"})
