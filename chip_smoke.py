@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --spectral
+    python3 chip_smoke.py --polarized
     python3 chip_smoke.py --b2-walk CHECKOUT
     python3 chip_smoke.py --b1-walk CHECKOUT
     python3 chip_smoke.py --b6-walk CHECKOUT
@@ -12,7 +13,8 @@
 Runs from the root of a checkout and needs one CUDA card; without one (or
 without the package beside it) it exits non-zero and prints no result.
 ``--spectral`` runs the build and phase 14 alone, with no kernel or
-contract line. ``--b2-walk CHECKOUT`` runs only B2's walk report (phase 4's B2 lines) on
+contract line, and ``--polarized`` the build and phase 15 alone.
+``--b2-walk CHECKOUT`` runs only B2's walk report (phase 4's B2 lines) on
 the package of another checkout, such as the parent commit unpacked with
 ``git archive``, so that two commits compare on one card in one call;
 ``--b1-walk CHECKOUT`` likewise times that checkout's B1 on phase 3's
@@ -181,9 +183,24 @@ phase raises on failure:
      and into a specfilm of three regular SRFs, measured rgb and spectral
      on the 2k sphere, the mini hero and the media scene (marked lanes
      left out where B2 runs);
- 15. a JSON line with the kernels (B2 twice more: on the hero's
+ 15. the polarized variants (utils/polarized_scenes.py, the glass and
+     media scenes, measured_polarized on a synthetic pBRDF), each timed
+     warm with its launches, in cuda_rgb_polarized unless named: the
+     canonical dopplertofpath 256x256 x 1024 on the depolarizing fast path
+     (image and B1 launches equal to cuda_rgb's), the canonical scene under
+     stokes(dopplertofpath) with the fast path off at 256x256 x 256 (S0
+     within 1e-6 of the fast path's), glass 40k under stokes 256x256 x 64
+     (B2 and B1's sphere pass) with the idle share of one strip pass,
+     measured_polarized on the 40k sphere 256x256 x 64 in both polarized
+     variants (B2), the media scene under stokes(volpath) (the spp a probe
+     fits in 15 s, B1); Malus's law and a quarter-wave plate; card against
+     CPU at 16x16 x 16 over every Stokes channel: the elements' plates,
+     the polarizing canonical (stokes in both polarized variants, and
+     ptracer), glass and measured_polarized on the 2k sphere, the media
+     scene;
+ 16. a JSON line with the kernels (B2 twice more: on the hero's
      wavefronts; B1's and B2's entries carry their launches in phase
-     11's to 14's renders as ``launches_<scene>``), then the contract
+     11's to 15's renders as ``launches_<scene>``), then the contract
      line {"ok": true, "device": {...}}.
 
 Bounds (``bound_ms``): the larger of the bytes a kernel must move (each
@@ -3359,6 +3376,283 @@ def spectral_phase(mi, reset, read, card, canon_rgb=None) -> dict:
     return launches
 
 
+# the polarized variants (phase 15)
+POLARIZED_RES = 256
+POLARIZED_CANON_SPP = 1024      # the canonical scene's own spp
+POLARIZED_MUELLER_SPP = 256     # the Mueller canonical, cut from 1024
+POLARIZED_SPP = 64              # glass and measured_polarized
+POLARIZED_MEDIA_SPPS = (64, 32, 16)
+POLARIZED_MEDIA_BUDGET_S = 15.0  # the media scene's warm render at most
+
+
+def polarized_phase(mi, reset, read, card, canon_rgb=None) -> dict:
+    """Phase 15: the polarized variants on the card, in cuda_rgb_polarized
+    unless named, each timed render warm after a 16 spp warm-up with the
+    launches read around it: (a) the canonical dopplertofpath, 256x256 x
+    1024 spp, on the depolarizing fast path: its image and B1 launches
+    equal to the cuda_rgb render's (``canon_rgb``: (image, B1 launches)
+    of phase 5's render, else rendered here); (b) the canonical scene under
+    stokes(dopplertofpath) with MI_NO_DEPOL_FASTPATH=1, 256x256 x 256 spp
+    (the full Mueller chain; its S0 within 1e-6 of the largest value of
+    the fast path's render at that spp); (c) the glass scene with the 40k
+    sphere under stokes(dopplertofpath), 256x256 x 64 (the dielectric,
+    thindielectric and conductor Mueller factors through B2 and B1's
+    sphere pass) and the idle share of one profiled strip pass; (d)
+    measured_polarized on the 40k sphere under stokes(path), 256x256 x
+    64, in cuda_rgb_polarized and cuda_spectral_polarized (B2); (e) the
+    media scene under stokes(volpath) (Rayleigh's Mueller matrix, B1) at
+    the largest of POLARIZED_MEDIA_SPPS whose warm render a 16 spp probe
+    puts within POLARIZED_MEDIA_BUDGET_S. Then (f) Malus's law through two
+    polarizers (S0 0.5, 0.25 and 0 at 0, 45 and 90 degrees, within 1e-3)
+    and circular light behind a quarter-wave plate (|S3| / S0 > 0.99),
+    and the card against the CPU at 16x16 x 16 spp with phase 8's
+    criteria over every channel (the 12 Stokes AOVs too): the three
+    elements' plates, the polarizing canonical
+    (utils/polarized_scenes.py) under stokes(dopplertofpath), in both
+    polarized variants, and under ptracer, glass and measured_polarized
+    on the 2k sphere, the media scene. Leaves the
+    variant at cuda_rgb. Returns the timed renders' launches by scene and
+    kernel row."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mitsuba3dopplertof_tpu_torch.utils import measured_data as md
+    from mitsuba3dopplertof_tpu_torch.utils import polarized_scenes as ps
+    from mitsuba3dopplertof_tpu_torch.utils import textured_scenes as ts
+    from mitsuba3dopplertof_tpu_torch.utils.bench_scenes import (
+        ANIMATED_SIZES, write_uv_sphere_obj, write_uv_sphere_ply)
+    from mitsuba3dopplertof_tpu_torch.utils.profile_render import \
+        device_breakdown
+    res = POLARIZED_RES
+    both = ("closest_hit", "any_hit")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="polarized_")
+    launches = {}
+
+    def stokes(nested: dict):
+        return mi.load_dict({"type": "stokes", "nested": nested})
+
+    def timed(tag, scene, spp, rows, integ=None, n_ch=15):
+        img, counts, warm_s = timed_render(mi, reset, read, card, res, tag,
+                                           scene, spp, 16, integ, rows,
+                                           n_ch)
+        return img, counts, warm_s
+
+    def summary(tag, img):
+        s0, s1, s2, s3 = (img[..., 3 + 3 * i:6 + 3 * i].sum(-1)
+                          for i in range(4))
+        lit = s0.abs() > 1e-3 * float(s0.abs().max())
+        dolp = torch.sqrt(s1 * s1 + s2 * s2)[lit] / s0[lit].abs()
+        docp = s3.abs()[lit] / s0[lit].abs()
+        print(f"{tag}: mean degree of linear polarization "
+              f"{float(dolp.mean()):.4g}, of circular {float(docp.mean()):.4g}"
+              f" over {int(lit.sum())} lit pixels", flush=True)
+
+    try:
+        pbsdf = md.write_pbsdf(os.path.join(tmp, "pol.pbsdf"))
+        mesh = {}
+        for size in ("40k", "2k"):
+            nu, nv = ANIMATED_SIZES[size]
+            mesh[size] = os.path.join(tmp, f"sphere_{nu}x{nv}")
+            write_uv_sphere_obj(mesh[size] + ".obj", nu, nv)
+            write_uv_sphere_ply(mesh[size] + ".ply", nu, nv)
+        sggx = os.path.join(tmp, "sggx.vol")
+        ts.write_sggx_vol(sggx)
+        def glass(size, spp, r, dv=None):
+            d = glass_dict(mesh[size] + ".ply", spp, r)
+            d["integrator"] = {"type": "stokes", "nested": d["integrator"]}
+            return mi.load_dict(d, device=dv)
+
+        def measured(size, spp, r, dv=None):
+            return mi.load_dict(md.measured_polarized_sphere_dict(
+                pbsdf, mesh[size] + ".obj", spp, r, integrator={
+                    "type": "stokes",
+                    "nested": {"type": "path", "max_depth": 4}}), device=dv)
+
+        def media(spp, r, dv=None):
+            d = ts.media_scene(sggx, spp, r)
+            d["integrator"] = {"type": "stokes", "nested": d["integrator"]}
+            return mi.load_dict(d, device=dv)
+
+        # ---- (a) the canonical scene on the fast path ---------------------
+        if canon_rgb is None:
+            mi.set_variant("cuda_rgb")
+            scene = mi.load_file(CANONICAL, spp=POLARIZED_CANON_SPP,
+                                 resx=res, resy=res)
+            rgb, rgb_counts, _ = timed(
+                "canonical dopplertofpath (cuda_rgb)", scene,
+                POLARIZED_CANON_SPP, {"B1": both}, n_ch=3)
+            rgb_b1 = rgb_counts["B1"]
+        else:
+            rgb, rgb_b1 = canon_rgb
+        mi.set_variant("cuda_rgb_polarized")
+        scene = mi.load_file(CANONICAL, spp=POLARIZED_CANON_SPP, resx=res,
+                              resy=res)
+        fast, launches["canonical_fast_polarized"], _ = timed(
+            "canonical dopplertofpath (cuda_rgb_polarized, fast path)",
+            scene, POLARIZED_CANON_SPP, {"B1": both}, n_ch=3)
+        same = bool(torch.equal(fast, rgb))
+        fast_l = launches["canonical_fast_polarized"]["B1"]
+        same_l = fast_l == rgb_b1
+        print(f"canonical fast path against cuda_rgb: image equal bit for "
+              f"bit {same}; B1 launches {fast_l} against {rgb_b1}: equal "
+              f"{same_l}", flush=True)
+        if not (same and same_l):
+            fail("the polarized fast path differs from the cuda_rgb render")
+        del rgb, fast
+
+        # ---- (b) the full Mueller chain on the canonical scene ------------
+        spp_m = POLARIZED_MUELLER_SPP
+        scene = mi.load_file(CANONICAL, spp=spp_m, resx=res, resy=res)
+        fast = mi.render(scene, spp=spp_m, seed=0)
+        integ = stokes(scene.integrator)
+        os.environ["MI_NO_DEPOL_FASTPATH"] = "1"
+        try:
+            full, launches["canonical_mueller_polarized"], warm_s = timed(
+                "canonical stokes(dopplertofpath) (cuda_rgb_polarized, "
+                "MI_NO_DEPOL_FASTPATH=1)", scene, spp_m, {"B1": both},
+                integ)
+        finally:
+            del os.environ["MI_NO_DEPOL_FASTPATH"]
+        scale = float(fast.abs().max())
+        err = float((full[..., :3] - fast).abs().max())
+        s_rest = float(full[..., 6:].abs().max())
+        print(f"canonical Mueller S0 against the fast path at {spp_m} spp: "
+              f"max abs diff {err:.3g} (scale {scale:.3g}, relative "
+              f"{err / max(scale, 1e-30):.3g}); max |S1..S3| {s_rest:.3g}; "
+              f"B1 launches {launches['canonical_mueller_polarized']['B1']}",
+              flush=True)
+        if not err <= 1e-6 * scale:
+            fail("the Mueller canonical's S0 differs from the fast path")
+        del scene, fast, full
+
+        # ---- (c) glass 40k under stokes -----------------------------------
+        scene = glass("40k", POLARIZED_SPP, res)
+        img, launches["glass_polarized"], warm_s = timed(
+            "glass 40k stokes(dopplertofpath) (cuda_rgb_polarized) through "
+            "B2 and B1's sphere pass", scene, POLARIZED_SPP,
+            {"B2": both, "B1": both})
+        summary("glass 40k", img)
+        # the idle share of one strip pass (the warm-up was one)
+        one_pass = GLASS_PROFILE_SPP
+        t0 = time.perf_counter()
+        mi.render(scene, spp=one_pass, seed=0)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        idle = device_breakdown(mi, scene, one_pass, pass_s)
+        print(f"glass 40k stokes, one strip pass ({res}x{res}x{one_pass}, "
+              f"warm {pass_s:.3f} s): the card idles {100 * idle:.1f}% of it "
+              f"({card})", flush=True)
+        del scene, img
+
+        # ---- (d) measured_polarized, rgb and spectral ---------------------
+        for name in ("cuda_rgb_polarized", "cuda_spectral_polarized"):
+            mi.set_variant(name)
+            key = f"measured_{name.split('_')[1]}_polarized"
+            img, launches[key], _ = timed(
+                f"measured_polarized 40k stokes(path) ({name}) through B2",
+                measured("40k", POLARIZED_SPP, res), POLARIZED_SPP,
+                {"B2": both})
+            summary(f"measured_polarized 40k ({name})", img)
+        mi.set_variant("cuda_rgb_polarized")
+
+        # ---- (e) the media scene under stokes(volpath) --------------------
+        scene = media(16, res)
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.render(scene, spp=16, seed=0)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        spp_v = next((s for s in POLARIZED_MEDIA_SPPS
+                      if probe_s * s / 16 <= POLARIZED_MEDIA_BUDGET_S), 16)
+        print(f"media stokes(volpath) probe 16 spp: warm {probe_s:.3f} s; "
+              f"rendering at {spp_v} spp", flush=True)
+        img, launches["media_polarized"], _ = timed(
+            "media stokes(volpath) (cuda_rgb_polarized) through B1", scene,
+            spp_v, {"B1": ("closest_hit",)})
+        summary("media stokes(volpath)", img)
+        del scene, img
+
+        # ---- (f) Malus, a quarter-wave plate, card against the CPU --------
+        t_step = time.perf_counter()
+        for t2, expect in ((0.0, 0.5), (45.0, 0.25), (90.0, 0.0)):
+            sc = mi.load_dict(ps.plate_scene(
+                [({"type": "polarizer", "theta": 0.0}, 2.0),
+                 ({"type": "polarizer", "theta": t2}, 1.0)], spp=16))
+            s0 = float(mi.render(sc, spp=16, seed=0)[..., :3].mean())
+            print(f"Malus: polarizers at 0 and {t2:g} degrees: S0 {s0:.6f} "
+                  f"(expected {expect})", flush=True)
+            if not abs(s0 - expect) < 1e-3:
+                fail("Malus's law does not hold on the card")
+        img = mi.render(mi.load_dict(ps.plate_scene(ps.QUARTER_WAVE,
+                                                    spp=16)),
+                        spp=16, seed=0).cpu().numpy()
+        S = ps.stokes_channels(img)
+        circ = np.abs(S[3]) / np.maximum(S[0], 1e-9)
+        print(f"quarter-wave plate: |S3| / S0 {circ.min():.6f} (at least "
+              "0.99)", flush=True)
+        if not (circ > 0.99).all():
+            fail("no circular light behind the quarter-wave plate")
+
+        def canonical(integrator=None, stokes_on=True):
+            xml = ps.polarizing_canonical_xml(stokes=stokes_on,
+                                              integrator=integrator)
+
+            def load(dv):
+                return mi.load_string(xml, spp=16, resx=16, resy=16,
+                                      device=dv)
+            return load
+
+        ptracer = ('<integrator type="ptracer"><integer name="max_depth" '
+                   'value="4"/></integrator>')
+        cases = (
+            ("plates (polarizer, retarder, circular)", "cuda_rgb_polarized",
+             lambda dv: mi.load_dict(ps.plate_scene(ps.ELEMENTS, spp=16,
+                                                    res=16), device=dv),
+             "B1"),
+            ("polarizing canonical stokes(dopplertofpath)",
+             "cuda_rgb_polarized", canonical(), "B1"),
+            ("polarizing canonical stokes(dopplertofpath)",
+             "cuda_spectral_polarized", canonical(), "B1"),
+            ("polarizing canonical ptracer", "cuda_rgb_polarized",
+             canonical(ptracer, False), "B1"),
+            ("glass 2k stokes", "cuda_rgb_polarized",
+             lambda dv: glass("2k", 16, 16, dv), "B2"),
+            ("measured_polarized 2k stokes", "cuda_rgb_polarized",
+             lambda dv: measured("2k", 16, 16, dv), "B2"),
+            ("media stokes(volpath)", "cuda_rgb_polarized",
+             lambda dv: media(16, 16, dv), "B1"))
+        for label, name, load, row in cases:
+            mi.set_variant(name)
+            img_c = mi.render(load("cpu"), spp=16, seed=0).numpy()
+            reset()
+            img_g = mi.render(load(None), spp=16, seed=0).cpu().numpy()
+            counts = read()
+            if counts[row]["closest_hit"] <= 0:
+                fail(f"{label} ({name}) card vs cpu: launches {counts}")
+            scale = float(np.abs(img_c).max())
+            close = np.isclose(img_g, img_c, rtol=1e-4, atol=1e-4 * scale)
+            rel_mean = (abs(img_g.mean() - img_c.mean())
+                        / max(abs(img_c.mean()), 1e-30))
+            print(f"cuda vs cpu {label} ({name}) 16x16x16, {img_g.shape[-1]}"
+                  f" channels: {close.mean() * 100:.2f}% of values within "
+                  f"tolerance, mean rel diff {rel_mean:.3g}, max abs diff "
+                  f"{float(np.abs(img_g - img_c).max()):.3g} (scale "
+                  f"{scale:.3g})", flush=True)
+            if (close.mean() < 0.99 or rel_mean > 1e-3 or scale <= 0.0
+                    or not np.isfinite(img_g).all()):
+                fail(f"cuda vs cpu {label} ({name}): outside tolerance")
+        print(f"Malus, quarter-wave and card vs cpu, polarized: "
+              f"{time.perf_counter() - t_step:.1f} s", flush=True)
+    finally:
+        mi.set_variant("cuda_rgb")
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4019,6 +4313,7 @@ def main() -> int:
     if not torch.equal(img, img2):
         print("note: two renders differ (max "
               f"{float((img - img2).abs().max()):.3g})", flush=True)
+    canon_rgb = (img, dict(launches_c["B1"]))
 
     # ---- 6. the main path, large scene: B2, then each alternate route ----
     obj40 = big["40k animated"][0]
@@ -4154,6 +4449,10 @@ def main() -> int:
     spectral = spectral_phase(mi, reset_counts, read_counts, card,
                               launches_c["B1"])
 
+    # ---- 15. the polarized variants ----------------------------------------
+    polarized = polarized_phase(mi, reset_counts, read_counts, card,
+                                canon_rgb)
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     entries = [("intersect_bruteforce", B1_SOURCE, B1_TPU, b1,
@@ -4165,7 +4464,7 @@ def main() -> int:
                  times_l[row], launches_l[row], errs_l[row])
                 for row, _, name, line in ALTERNATES]
     kernels = []
-    # the launches of phase 11's to 14's renders, under the kernels they
+    # the launches of phase 11's to 15's renders, under the kernels they
     # ran
     dialect_rows = {"intersect_bruteforce": "B1", "intersect_v4": "B2"}
     for name, src, tpu, times, launches, errs_k in entries:
@@ -4181,7 +4480,8 @@ def main() -> int:
                 for scene_name, counts in (*dialect.items(),
                                            *integrators.items(),
                                            *textured.items(),
-                                           *spectral.items()):
+                                           *spectral.items(),
+                                           *polarized.items()):
                     if dialect_rows[name] in counts:
                         kernels[-1][f"launches_{scene_name}"] = counts[
                             dialect_rows[name]][form]
@@ -4194,9 +4494,10 @@ def main() -> int:
     return 0
 
 
-def spectral_main() -> int:
+def spectral_main(phase=None) -> int:
     """``--spectral``: the card, the build and phase 14 alone (no kernel
-    line, no contract line): a quick check of the spectral path."""
+    line, no contract line): a quick check of the spectral path; with
+    ``phase`` (``--polarized``: ``polarized_phase``) that phase instead."""
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -4219,7 +4520,7 @@ def spectral_main() -> int:
     def read_counts():
         return {row: dict(m.LAUNCHES_BY_FORM) for row, m in counted.items()}
     t0 = time.perf_counter()
-    spectral_phase(mi, reset_counts, read_counts, card)
+    (phase or spectral_phase)(mi, reset_counts, read_counts, card)
     print(f"wall {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
@@ -4227,6 +4528,8 @@ def spectral_main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--spectral":
         sys.exit(spectral_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--polarized":
+        sys.exit(spectral_main(polarized_phase))
     if len(sys.argv) == 3 and sys.argv[1] == "--b2-walk":
         sys.exit(b2_walk_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--b1-walk":
@@ -4240,7 +4543,8 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--b5-walk":
         sys.exit(b5_walk_main(sys.argv[2]))
     if len(sys.argv) != 1:
-        fail("usage: chip_smoke.py [--spectral | --b2-walk CHECKOUT | "
+        fail("usage: chip_smoke.py [--spectral | --polarized | "
+             "--b2-walk CHECKOUT | "
              "--b1-walk CHECKOUT | --b6-walk CHECKOUT | --b3-walk CHECKOUT | "
              "--b4-walk CHECKOUT | --b5-walk CHECKOUT]")
     sys.exit(main())

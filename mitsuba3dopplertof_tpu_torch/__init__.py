@@ -5,7 +5,9 @@ A port of the JAX package ``mitsuba3dopplertof_tpu`` (the reference it is
 tested against), module for module. It imports torch and never jax.
 
     import mitsuba3dopplertof_tpu_torch as mi
-    mi.set_variant("cuda_rgb")     # or "cuda_spectral", "cuda_mono"
+    mi.set_variant("cuda_rgb")     # or "cuda_spectral", "cuda_mono",
+                                   # "cuda_rgb_polarized",
+                                   # "cuda_spectral_polarized"
     scene = mi.load_file("scenes/canonical/scene.xml")
     img = mi.render(scene, spp=1024, seed=0)      # (H, W, 3) tensor
 
@@ -40,6 +42,9 @@ from . import volumes as _volumes          # noqa: F401
 from .integrators import volpath as _volpath  # noqa: F401
 from .integrators import extras as _extras    # noqa: F401
 from .integrators import ptracer as _ptracer  # noqa: F401
+from .integrators import polarized as _polarized  # noqa: F401
+from .core import mueller
+from .core.mueller import fresnel_polarized
 
 from .core.fresolver import file_resolver
 from .io.dict_loader import load_dict as _load_dict
@@ -48,16 +53,10 @@ from .render.scene import Scene
 
 _DEVICE = _torch.device("cuda")
 
-# variant -> None, or the ROADMAP item that ports it; the JAX package's
-# counterparts are tpu_rgb, tpu_spectral, tpu_mono, tpu_rgb_polarized and
-# tpu_spectral_polarized
-_VARIANTS = {
-    "cuda_rgb": None,
-    "cuda_spectral": None,
-    "cuda_mono": None,
-    "cuda_rgb_polarized": "ROADMAP Queue A item 11",
-    "cuda_spectral_polarized": "ROADMAP Queue A item 11",
-}
+# the JAX package's counterparts are tpu_rgb, tpu_spectral, tpu_mono,
+# tpu_rgb_polarized and tpu_spectral_polarized
+_VARIANTS = ("cuda_rgb", "cuda_spectral", "cuda_mono", "cuda_rgb_polarized",
+             "cuda_spectral_polarized")
 _VARIANT = "cuda_rgb"
 
 
@@ -85,15 +84,13 @@ def set_variant(*names) -> str:
     """Select the rendering variant (the reference's mitsuba.set_variant):
     ``cuda_rgb`` (the default), ``cuda_spectral`` (hero-wavelength
     triplets with sigmoid spectral upsampling and analytic CIE
-    conversion) or ``cuda_mono`` (luminance). It shapes the scenes
-    compiled afterwards. The polarized variants raise NotImplementedError
-    naming the ROADMAP item that ports them."""
+    conversion), ``cuda_mono`` (luminance), ``cuda_rgb_polarized`` or
+    ``cuda_spectral_polarized`` (Mueller-matrix transport: the film holds
+    S0, and the ``stokes`` integrator adds S0..S3). It shapes the scenes
+    compiled afterwards."""
     global _VARIANT
     for n in names:
         if n in _VARIANTS:
-            if _VARIANTS[n] is not None:
-                raise NotImplementedError(
-                    f"variant '{n}' is not ported yet ({_VARIANTS[n]})")
             _VARIANT = n
             return n
     raise RuntimeError(f"No supported variant in {names}; "
@@ -144,4 +141,5 @@ def render(scene: Scene, spp: int = 0, seed: int = 0, sensor=None,
 
 __all__ = ["load_file", "load_string", "load_dict", "dict_to_xml", "render",
            "Scene", "set_variant", "variant", "variants", "set_device",
-           "get_device", "xml_to_dict", "__version__"]
+           "get_device", "xml_to_dict", "mueller", "fresnel_polarized",
+           "__version__"]

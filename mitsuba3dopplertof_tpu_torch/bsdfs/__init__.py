@@ -2,9 +2,16 @@
 ``bsdfs/__init__.py``: diffuse, with a constant or textured reflectance,
 twosided, null, conductor, roughconductor, dielectric, thindielectric,
 roughdielectric, plastic, roughplastic, pplastic, principled,
-principledthin, mask, blendbsdf and measured; the principled lobes are in
-``bsdfs/principled_impl.py``, the measured BSDF's warps in
-``bsdfs/measured_impl.py``).
+principledthin, mask, blendbsdf, measured, the polarizing elements
+polarizer, retarder and circular, and measured_polarized; the principled
+lobes are in ``bsdfs/principled_impl.py``, the measured BSDF's warps in
+``bsdfs/measured_impl.py``, the measured pBRDF's tables in
+``bsdfs/measured_polarized_impl.py``).
+
+In every variant this dispatch is the scalar (intensity) BSDF: the
+polarizing elements transmit 0.5, 1 and 0.5 times their transmittance and
+measured_polarized reflects its M00. The polarized variants' Mueller
+factors are in ``integrators/polarized.py``.
 
 Each BSDF compiles to one row of a parameter table (type id + float
 params); ``eval_pdf_sample`` evaluates every type present in the scene over
@@ -24,6 +31,7 @@ row.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -52,7 +60,11 @@ BSDF_THINDIELECTRIC = 8
 BSDF_BLEND = 9
 BSDF_MASK = 10
 BSDF_PRINCIPLED = 11
+BSDF_POLARIZER = 12
+BSDF_RETARDER = 13
+BSDF_CIRCULAR = 14
 BSDF_MEASURED = 15
+BSDF_MEASURED_POL = 16
 BSDF_PRINCIPLED_THIN = 17
 
 N_BSDF_PARAMS = 24
@@ -70,7 +82,12 @@ P_MF_DIST = 12        # roughconductor: 1.0 = beckmann, 0.0 = ggx
 P_REFL_TEX = 14       # texture id driving the reflectance (-1 = constant)
 P_NMAP_TEX = 15       # normal- or height-map texture id (-1 = none)
 P_BMAP_SCALE = 16     # > 0: the P_NMAP_TEX texture is a height map
-P_MEASURED_IDX = 17   # measured: its entry in the scene's measured tables
+P_MEASURED_IDX = 17   # measured / measured_polarized: its entry in the
+                      # scene's measured (measured_pol) tables
+P_ALPHA_SAMPLE = 16   # measured_polarized: GGX alpha of its sampling
+# polarizer / retarder / circular rows
+P_POL_THETA = 4       # the element's rotation angle (radians)
+P_POL_DELTA = 5       # the retarder's phase difference (radians)
 # mask / blendbsdf rows: the nested rows and the probability of row 1
 P_NESTED0 = 4
 P_NESTED1 = 5
@@ -1085,6 +1102,105 @@ class Measured(BSDF):
         return p
 
 
+@register_plugin("bsdf", "polarizer")
+class Polarizer(Null):
+    """Linear polarizer (reference src/bsdfs/polarizer.cpp): a delta
+    transmission attenuated by the Malus average 0.5 in the scalar
+    variants, the rotated linear-polarizer Mueller matrix in the
+    polarized ones (``integrators/polarized.py``)."""
+    type_id = BSDF_POLARIZER
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.theta = math.radians(props.get_float("theta", 0.0))
+        t = props.get_float("transmittance", 1.0)
+        self.transmittance = (t, t, t)
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_REFL:P_REFL + 3] = self.transmittance
+        p[P_POL_THETA] = self.theta
+        return p
+
+
+@register_plugin("bsdf", "retarder")
+class Retarder(Null):
+    """Wave retarder (reference src/bsdfs/retarder.cpp): the identity on
+    intensity, a phase shift between its fast and slow axes in the
+    polarized variants."""
+    type_id = BSDF_RETARDER
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        self.theta = math.radians(props.get_float("theta", 0.0))
+        self.delta = math.radians(props.get_float("delta", 90.0))
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_REFL:P_REFL + 3] = 1.0
+        p[P_POL_THETA] = self.theta
+        p[P_POL_DELTA] = self.delta
+        return p
+
+
+@register_plugin("bsdf", "circular")
+class CircularPolarizer(Polarizer):
+    """Circular polarizer (reference src/bsdfs/circular.cpp)."""
+    type_id = BSDF_CIRCULAR
+
+
+@register_plugin("bsdf", "measured_polarized")
+class MeasuredPolarized(BSDF):
+    """Measured polarized pBRDF (reference src/bsdfs/
+    measured_polarized.cpp): the 4x4 Mueller matrix interpolated over
+    (phi_d, theta_d, theta_h, wavelength) with the reflection-plane Stokes
+    rotations (``bsdfs/measured_polarized_impl.py``) in the polarized
+    variants, its M00 in the others; sampled by a cosine / GGX mixture
+    with ``alpha_sample``. The channels read the tables at three fixed
+    wavelengths in every variant (``wavelength`` pins one), as the JAX
+    package's do."""
+    type_id = BSDF_MEASURED_POL
+    flags = FLAG_SMOOTH
+
+    def __init__(self, props: Properties):
+        super().__init__(props)
+        from ..core.fresolver import resolve_filename
+        from ..io.tensor_file import read_tensor_file
+        from .measured_polarized_impl import build_pbsdf_tables
+        fname = resolve_filename(props.get_string("filename"))
+        self.alpha_sample = props.get_float("alpha_sample", 0.1)
+        self.wavelength = props.get_float("wavelength", -1.0)
+        self.tables = build_pbsdf_tables(read_tensor_file(fname))
+        self.measured_index = -1     # the compile assigns it
+
+    def params_row(self):
+        p = np.zeros(N_BSDF_PARAMS)
+        p[P_MEASURED_IDX] = float(self.measured_index)
+        p[P_ALPHA_SAMPLE] = self.alpha_sample
+        return p
+
+    def pol_wavelengths(self):
+        from .measured_polarized_impl import RGB_WAVELENGTHS
+        if self.wavelength > 0.0:
+            return (self.wavelength,) * 3
+        return RGB_WAVELENGTHS
+
+
+def _polarizer_like_dispatch(factor):
+    """The scalar variants' polarizing elements: a null-style delta
+    transmission of ``factor`` times the P_REFL transmittance (reference
+    polarizer.cpp's unpolarized branch: 0.5 transmittance)."""
+    def fn(param, wi, wo_nee, s1, s2x, s2y):
+        z = torch.zeros_like(wi.z)
+        ones = torch.ones_like(wi.z)
+        true_ = ones > 0.0
+        w = Vec3(param(P_REFL) * factor, param(P_REFL + 1) * factor,
+                 param(P_REFL + 2) * factor)
+        return BSDFSampleResult(Vec3(z, z, z), z, -wi, w, ones, ones, true_,
+                                true_)
+    return fn
+
+
 _DISPATCH = {
     BSDF_DIFFUSE: _diffuse_eval_pdf_sample,
     BSDF_NULL: _null_eval_pdf_sample,
@@ -1095,6 +1211,9 @@ _DISPATCH = {
     BSDF_ROUGHPLASTIC: _roughplastic_eval_pdf_sample,
     BSDF_ROUGHDIELECTRIC: _roughdielectric_eval_pdf_sample,
     BSDF_THINDIELECTRIC: _thindielectric_eval_pdf_sample,
+    BSDF_POLARIZER: _polarizer_like_dispatch(0.5),
+    BSDF_RETARDER: _polarizer_like_dispatch(1.0),
+    BSDF_CIRCULAR: _polarizer_like_dispatch(0.5),
 }
 
 
@@ -1204,12 +1323,20 @@ def eval_pdf_sample(sa, lane_bsdf, wi: Vec3, wo_nee: Vec3, s1, s2x, s2y,
                 rk = measured_eval_pdf_sample(tbl, wi, wo_nee, s2x, s2y,
                                               wavelengths)
                 r = rk if r is None else _select(m_idx == k, rk, r)
+        elif tid == BSDF_MEASURED_POL:
+            # the tables' own wavelengths in every variant (the JAX
+            # package's measured_pol_wls)
+            from .measured_polarized_impl import pbsdf_eval_pdf_sample
+            m_idx = param(P_MEASURED_IDX).to(torch.int32)
+            alpha = param(P_ALPHA_SAMPLE)
+            r = None
+            for k, (tbl, wls) in enumerate(zip(sa.measured_pol,
+                                               sa.measured_pol_wls)):
+                rk = pbsdf_eval_pdf_sample(tbl, alpha, wi, wo_nee, s1, s2x,
+                                           s2y, wavelengths=wls)
+                r = rk if r is None else _select(m_idx == k, rk, r)
         else:
-            fn = _DISPATCH.get(int(tid))
-            if fn is None:
-                raise NotImplementedError(
-                    f"BSDF type id {tid} is not ported yet "
-                    "(ROADMAP Queue A item 11)")
+            fn = _DISPATCH[int(tid)]
             if tid in TEXTURED_TYPES and tex_refl is not None:
                 r = fn(param, wi, wo_nee, s1, s2x, s2y, tex_refl, tex_mask)
             elif (tid in (BSDF_CONDUCTOR, BSDF_ROUGHCONDUCTOR)
@@ -1236,5 +1363,8 @@ __all__ = [
     "BSDF_THINDIELECTRIC", "BSDF_BLEND", "BSDF_MASK", "BSDF_PRINCIPLED",
     "BSDF_PRINCIPLED_THIN", "BSDF_MEASURED", "Measured", "P_REFL",
     "P_TWOSIDED", "P_REFL_TEX", "P_NMAP_TEX", "P_BMAP_SCALE",
-    "TEXTURED_TYPES", "P_MEASURED_IDX",
+    "TEXTURED_TYPES", "P_MEASURED_IDX", "BSDF_POLARIZER", "BSDF_RETARDER",
+    "BSDF_CIRCULAR", "BSDF_MEASURED_POL", "P_POL_THETA", "P_POL_DELTA",
+    "P_ALPHA_SAMPLE", "Polarizer", "Retarder", "CircularPolarizer",
+    "MeasuredPolarized",
 ]

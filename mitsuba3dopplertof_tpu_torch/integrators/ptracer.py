@@ -1,5 +1,5 @@
 """Adjoint particle tracer (port of the JAX package's
-``integrators/ptracer.py``, the rgb path; reference
+``integrators/ptracer.py``, in every variant; reference
 src/integrators/ptracer.cpp).
 
 Light paths start on the emitters and every vertex connects to the sensor.
@@ -14,6 +14,12 @@ constant.cpp / envmap.cpp sample_ray). Sensors: perspective (the
 reference's importance W = (1/A) / cos^3(theta) / dist^2, perspective.cpp
 :384), thinlens (one lens sample a light path) and orthographic / distant
 (importance 1 / film area); other sensors are refused.
+
+In the polarized variants a light path carries its Stokes vector (the
+emitters are unpolarized, so the Mueller throughput's first column) and
+takes the photon-order Mueller factors of ``integrators/polarized.py`` at
+every interaction and connection; the film records S0, which no basis
+rotation changes.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import math
 
 import torch
 
+from ..core import mueller as mu
 from ..core import warp
 from ..core.cie import hero_to_srgb, hero_wavelengths
 from ..core.properties import Properties, register_plugin
@@ -474,6 +481,12 @@ class PTracerIntegrator(SamplingIntegrator):
                 block = connect(block, o, emit_n, contrib,
                                 active & has_direct & (cos_e > 0))
 
+            polarized = bool(sa.polarized)
+            if polarized:
+                from . import polarized as pol
+                present = pol.polarizing_present(sa)
+                S = (throughput, z3, z3, z3)
+
             # ---- the bounces ----------------------------------------------
             for depth_i in range(integrator.loop_iterations):
                 if not bool(active.any()):
@@ -493,13 +506,30 @@ class PTracerIntegrator(SamplingIntegrator):
                                           s2[0], s2[1], tex_refl, tex_mask,
                                           wavelengths)
                 # the vertex -> camera splat (bs.val_nee = f cos(wo_cam))
-                block = connect(block, si.p, si.n, throughput * bs.val_nee,
-                                act)
+                if polarized:
+                    # row 0 of the connection's Mueller matrix on the
+                    # path's Stokes vector
+                    lane_type = sa.bsdf_type[lane_bsdf]
+                    M_c = pol.light_bounce_mueller(
+                        sa, si, bs, lane_bsdf, lane_type, bs.val_nee,
+                        present, out_local=wo_cam, wavelengths=wavelengths)
+                    conn_val = (M_c[0] * S[0] + M_c[1] * S[1]
+                                + M_c[2] * S[2] + M_c[3] * S[3])
+                else:
+                    conn_val = throughput * bs.val_nee
+                block = connect(block, si.p, si.n, conn_val, act)
 
                 # continue the light path
                 wo_world = si.to_world(bs.wo)
                 new_ray = si.spawn_ray(wo_world)
                 throughput = where3(act, throughput * bs.weight, throughput)
+                if polarized:
+                    M_b = pol.light_bounce_mueller(
+                        sa, si, bs, lane_bsdf, lane_type,
+                        where3(act, bs.weight, Vec3.ones(n, device=dev)),
+                        present, wavelengths=wavelengths)
+                    S_new = mu.mm_apply_stokes(M_b, S)
+                    S = tuple(where3(act, a, b) for a, b in zip(S_new, S))
                 # Russian roulette after rr_depth bounces (ptracer.cpp)
                 tm = vmax(throughput)
                 rr, state = sampler.next_1d(state, act)
@@ -510,6 +540,8 @@ class PTracerIntegrator(SamplingIntegrator):
                 rr_scale = torch.where(act, 1.0 / torch.clamp(rr_p, min=1e-8),
                                        1.0)
                 throughput = throughput * rr_scale
+                if polarized:
+                    S = tuple(c * rr_scale for c in S)
                 active = act & cont & (tm > 0.0)
                 ray = Ray(where3(active, new_ray.o, ray.o),
                           where3(active, wo_world, ray.d), ray.time,

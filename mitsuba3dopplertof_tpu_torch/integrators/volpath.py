@@ -1,5 +1,5 @@
 """Volumetric path tracer (port of the JAX package's
-``integrators/volpath.py``, its rgb, mono and spectral path; reference
+``integrators/volpath.py``, in every variant; reference
 src/integrators/volpath.cpp).
 
 Homogeneous media sample their free flights by the channel-mean
@@ -18,7 +18,14 @@ package's lane for lane. The phase of a medium event is the row's
 at the event, ``_sggx_S6``), Rayleigh or tabulated, for the sampled
 direction and for NEE alike. In the spectral variant sigma_t is its
 peak times its sigmoid spectrum at the hero wavelengths, and the albedo
-its sigmoid spectrum. The Stokes branch is ROADMAP Queue A item 11.
+its sigmoid spectrum.
+
+The polarized variants' Stokes branch (``stokes=True``) carries a Mueller
+throughput beside the scalar one: surface bounces and their NEE take the
+path loop's Mueller factors (``integrators/polarized.py``), transmittance
+scales all four Stokes components, Rayleigh events apply the exact
+scattering matrix (sampled bounces and NEE alike), and the other phases
+act as ideal depolarizers.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from ..bsdfs import (FLAG_NULL, FLAG_SMOOTH,
                      eval_pdf_sample as bsdf_eval_pdf_sample)
+from ..core import mueller as mu
 from ..core.cie import eval_reflectance_spectrum
 from ..core.logger import profile_phase
 from ..core.properties import register_plugin
@@ -318,6 +326,13 @@ class VolPathIntegrator(MonteCarloIntegrator):
         return _volpath_loop(self, sa, sampler, state, ray, active,
                              wavelengths)
 
+    def sample_stokes(self, sa, sampler, state, ray, active,
+                      wavelengths=None):
+        """Polarized volumetric transport: (Stokes 4-tuple, valid,
+        state)."""
+        return _volpath_loop(self, sa, sampler, state, ray, active,
+                             wavelengths, stokes=True)
+
 
 @register_plugin("integrator", "volpathmis")
 class VolPathMISIntegrator(VolPathIntegrator):
@@ -327,7 +342,7 @@ class VolPathMISIntegrator(VolPathIntegrator):
 
 
 def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
-                  wavelengths=None):
+                  wavelengths=None, stokes=False):
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
 
@@ -350,6 +365,11 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
     null_ids = [i for i, f in enumerate(sa.bsdf_flags_host) if f & FLAG_NULL]
     depth_cap = min(integrator.max_depth, 2 ** 31 - 1)
     nee_on = sa.n_emitters > 0
+    if stokes:
+        from . import polarized as pol
+        present = pol.polarizing_present(sa)
+        T_mm = mu.mm_identity(zero)
+        S_res = tuple(Vec3(zero, zero, zero) for _ in range(4))
 
     def med(j, med_id):
         return sa.med_params[j][torch.clamp(med_id, min=0).long()]
@@ -408,6 +428,9 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
             w_het = where3(scat_het, Vec3(al_r, al_g, al_b), ones3)
             w_med = where3(is_het, w_het, w_med)
         throughput = throughput * w_med
+        if stokes:
+            # attenuation does not depolarize: it scales every component
+            T_mm = mu.mm_scale(T_mm, w_med)
 
         # ---------------- emission on surface hits / env --------------
         surf_evt = active & ~hit_med & si.valid
@@ -439,6 +462,10 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
                 sa, ds_hit, prim=si.prim, time=ray.time))
             scale = torch.where(emit_mask, mis_weight(prev_pdf, em_pdf), 0.0)
             result = result + throughput * em_val * scale
+            if stokes:
+                # unpolarized emitters: the throughput's first column
+                S_add = pol.first_column(T_mm, em_val * scale)
+                S_res = tuple(S_res[i] + S_add[i] for i in range(4))
 
         active_next = ((depth + 1) < depth_cap) & active & (hit_med
                                                             | si.valid)
@@ -515,6 +542,24 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
             mis_em = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd))
             scale = torch.where(nee_ok, mis_em, 0.0)
             result = result + throughput * val * em_weight * scale
+            if stokes:
+                # the exact Mueller matrix on roughconductor and measured
+                # surfaces and on Rayleigh events, the depolarizer on the
+                # other connections (medium events take type -1)
+                v_nee = val * em_weight * scale
+                lt_nee = torch.where(hit_med, -1,
+                                     sa.bsdf_type[lane_bsdf.long()])
+                S_add = pol.camera_nee_stokes_add(
+                    sa, si, bs, si.to_local(ds.d), lane_bsdf, lt_nee, T_mm,
+                    v_nee, wavelengths)
+                if sa.any_rayleigh:
+                    is_ray_n = hit_med & (torch.abs(
+                        med(M_PHASE, medium) - 2.0) < 0.5)
+                    TMr = mu.mm_mul(T_mm, pol.renormalize(
+                        pol.rayleigh_scatter_mueller(ray.d, ds.d), v_nee))
+                    S_add = tuple(where3(is_ray_n, TMr[4 * i], S_add[i])
+                                  for i in range(4))
+                S_res = tuple(S_res[i] + S_add[i] for i in range(4))
 
         # next ray
         wo_world_surf = si.to_world(bs.wo)
@@ -523,6 +568,20 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
 
         surf_next = active_next & ~hit_med
         throughput = where3(surf_next, throughput * bs.weight, throughput)
+        if stokes:
+            M_b = pol.camera_bounce_mueller(
+                sa, si, bs, lane_bsdf, sa.bsdf_type[lane_bsdf.long()],
+                where3(surf_next, bs.weight, ones3), present, wavelengths)
+            # phase scattering: the depolarizer for HG, SGGX and tabulated
+            # phases (weight 1: sigma_s rode w_med), Rayleigh's exact
+            # scattering matrix (rayleigh.cpp's polarized phase)
+            M_p = mu.depolarizer(ones3)
+            if sa.any_rayleigh:
+                is_ray_p = torch.abs(med(M_PHASE, medium) - 2.0) < 0.5
+                M_p = mu.mm_where(is_ray_p, pol.rayleigh_scatter_mueller(
+                    ray.d, wo_phase), M_p)
+            M_b = mu.mm_where(hit_med & active_next, M_p, M_b)
+            T_mm = mu.mm_where(active_next, mu.mm_mul(T_mm, M_b), T_mm)
         eta = eta * torch.where(surf_next, bs.eta, 1.0)
         valid_ray = valid_ray | (active & (hit_med | si.valid))
 
@@ -557,14 +616,19 @@ def _volpath_loop(integrator, sa, sampler, state, ray: Ray, active,
         rr_scale = torch.where(rr_active,
                                1.0 / torch.clamp(rr_prob, min=1e-8), 1.0)
         throughput = throughput * rr_scale
+        if stokes:
+            T_mm = mu.mm_scale(T_mm, rr_scale)
         active = active_next & (~rr_active | rr_continue) & (tmax != 0.0)
 
         ray = Ray(where3(active_next, o_next, ray.o),
                   where3(active_next, d_next, ray.d), ray.time,
                   torch.full((n,), float("inf"), device=dev))
 
-    spec = where3(valid_ray, result, Vec3(zero, zero, zero))
-    return spec, valid_ray, state, []
+    zero3 = Vec3(zero, zero, zero)
+    if stokes:
+        return (tuple(where3(valid_ray, s, zero3) for s in S_res), valid_ray,
+                state)
+    return where3(valid_ray, result, zero3), valid_ray, state, []
 
 
 __all__ = ["VolPathIntegrator"]

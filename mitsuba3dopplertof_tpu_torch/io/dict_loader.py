@@ -23,8 +23,6 @@ _CATEGORIES = ["integrator", "sensor", "sampler", "film", "rfilter", "shape",
 # plugins of the JAX package that the port does not have yet, by the
 # ROADMAP.md Queue A item that ports them
 _DEFERRED = {
-    "ROADMAP Queue A item 11": ("measured_polarized", "stokes", "polarizer",
-                                "retarder", "circular"),
     "ROADMAP Queue A item 12": ("prb_basic", "prb", "prbvolpath",
                                 "prb_reparam", "direct_reparam",
                                 "emission_reparam"),

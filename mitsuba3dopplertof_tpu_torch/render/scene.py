@@ -1,10 +1,10 @@
 """Scene assembly and compilation into device SoA tables (port of the JAX
 package's ``render/scene.py``: ``Scene.compile`` for the shapes, BSDFs
 (with the wrappers' nested rows and the shared null row of ``mask``, and
-the measured BSDFs' tables), textures, emitters (area lights on spheres
-included), the constant and envmap environments and media the port has,
-in the rgb, spectral and mono variants; ``build_si``, ``ray_intersect``
-and ``ray_test``).
+the measured BSDFs' and the measured pBRDFs' tables), textures, emitters
+(area lights on spheres included), the constant and envmap environments
+and media, in every variant: rgb, spectral, mono, rgb_polarized and
+spectral_polarized; ``build_si``, ``ray_intersect`` and ``ray_test``).
 
 The variant at compile time shapes the tables, as in the JAX package:
 mono collapses every rgb input to its BT.709 luminance; spectral stores
@@ -13,7 +13,9 @@ BSDF types' reflectance, of emitters (with their peak), of media's
 sigma_t (with its peak) and albedo, of every texel of the bitmap atlas
 (``tex_atlas_c0..c2``, from the coefficient lattice) and of the envmap
 (``env_coeff``, fitted per texel on the scene's device), and names each
-named-material conductor's eta / k spectra (``ior_spectra``).
+named-material conductor's eta / k spectra (``ior_spectra``);
+spectral_polarized compiles as spectral. The polarized variants set
+``polarized``, which the integrators read.
 
 The host compiles the shape graph into flat component-wise triangle /
 instance / BSDF / emitter tables (each column a (T,) tensor). Triangle slot
@@ -73,11 +75,8 @@ class SceneArrays:
         "mesh_em_meta", "sensor_medium", "n_media", "any_hetero", "any_flip",
         "max_optical_depth_hint", "any_nmap", "any_sggx", "any_sggx_grid",
         "any_rayleigh", "tab_phase_tables", "spectral", "ior_spectra",
-        "bsdf_ior_host",
+        "bsdf_ior_host", "polarized", "measured_pol_wls",
     ]
-    # a JAX SceneArrays with any of these set uses a feature the port
-    # does not have yet
-    _UNPORTED_META = {"polarized": "ROADMAP Queue A item 11"}
 
     def __init__(self, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
                  device):
@@ -100,6 +99,11 @@ class SceneArrays:
         from ..bsdfs.measured_impl import tables_from
         self.measured = tuple(tables_from(t, device)
                               for t in arrays.get("measured") or ())
+        # the measured pBRDFs' tables, by P_MEASURED_IDX (their channels'
+        # wavelengths are measured_pol_wls)
+        from ..bsdfs.measured_polarized_impl import pbsdf_tables_to
+        self.measured_pol = tuple(pbsdf_tables_to(t, device)
+                                  for t in arrays.get("measured_pol") or ())
         # the tensors' own device: "cuda" resolves to "cuda:<current>"
         self.device = self.inst_t0.device
         for k in self.META_FIELDS:
@@ -121,21 +125,18 @@ def from_jax_scene_arrays(arrays: Dict[str, np.ndarray], meta,
     """The port's tables from the JAX package's compiled ``SceneArrays``,
     given as numpy arrays (``arrays``, by field name) and its metadata
     (``meta``: a mapping or an object with the same attributes), and its
-    ``chunk_aabb``, ``mesh_attr`` and ``measured`` tables (from ``arrays``
-    or ``meta``). The JAX package's BVHs (``bvh``, ``anim_blas``) are left
-    behind: the card does not use them.
-    Raises NotImplementedError for scenes using features the port lacks."""
+    ``chunk_aabb``, ``mesh_attr``, ``measured`` and ``measured_pol``
+    tables (from ``arrays`` or ``meta``). The JAX package's BVHs (``bvh``,
+    ``anim_blas``) are left behind: the card does not use them."""
     get = (meta.get if isinstance(meta, dict)
            else lambda k, d=None: getattr(meta, k, d))
-    for k, item in SceneArrays._UNPORTED_META.items():
-        if get(k, None):
-            raise NotImplementedError(f"scene uses '{k}' ({item})")
     arrays = dict(arrays)
     for k in ("chunk_aabb", "mesh_attr"):
         if arrays.get(k) is None and get(k) is not None:
             arrays[k] = np.asarray(get(k))
-    if arrays.get("measured") is None:
-        arrays["measured"] = get("measured")
+    for k in ("measured", "measured_pol"):
+        if arrays.get(k) is None:
+            arrays[k] = get(k)
     return SceneArrays(arrays, {k: get(k) for k in SceneArrays.META_FIELDS},
                        device)
 
@@ -201,7 +202,8 @@ class Scene:
 
     def _compile_host(self):
         from .. import variant
-        from ..bsdfs import (BlendBSDF, Diffuse, Mask, Measured, Null,
+        from ..bsdfs import (BlendBSDF, Diffuse, Mask, Measured,
+                             MeasuredPolarized, Null,
                              P_NMAP_TEX, P_REFL, TEXTURED_TYPES)
         from ..bsdfs.ior_data import CONDUCTOR_SPECTRA
         from ..core import cie
@@ -213,8 +215,10 @@ class Scene:
         from ..ops.intersect_stream import chunk_aabbs
         from ..shapes import RectangleShape
 
-        spectral = variant() == "cuda_spectral"
+        spectral = variant() in ("cuda_spectral", "cuda_spectral_polarized")
         mono = variant() == "cuda_mono"
+        polarized = variant() in ("cuda_rgb_polarized",
+                                  "cuda_spectral_polarized")
 
         def _lum(rgb3):
             # BT.709 luminance: the reference's mono variants collapse rgb
@@ -323,9 +327,13 @@ class Scene:
             bsdf_objs.append(Diffuse(Properties("diffuse")))
         bsdf_type = np.array([b.type_id for b in bsdf_objs], np.int32)
         bsdf_flags = np.array([b.flags for b in bsdf_objs], np.int32)
-        measured = []
+        measured, measured_pol, measured_pol_wls = [], [], []
         for b in bsdf_objs:
-            if isinstance(b, Measured):
+            if isinstance(b, MeasuredPolarized):
+                b.measured_index = len(measured_pol)
+                measured_pol.append(b.tables)
+                measured_pol_wls.append(tuple(b.pol_wavelengths()))
+            elif isinstance(b, Measured):
                 b.measured_index = len(measured)
                 measured.append(b.tables)
         bsdf_params = np.stack([b.params_row() for b in bsdf_objs]).T
@@ -747,6 +755,7 @@ class Scene:
             tex_atlas_c2=atlas_coeff[:, 2].astype(f32),
             env_coeff=env_coeff.astype(f32),
             measured=tuple(measured),
+            measured_pol=tuple(measured_pol),
             env_img_r=env_img[..., 0].reshape(-1).astype(f32),
             env_img_g=env_img[..., 1].reshape(-1).astype(f32),
             env_img_b=env_img[..., 2].reshape(-1).astype(f32),
@@ -800,6 +809,8 @@ class Scene:
             any_sggx=any(m.phase.type_id == PHASE_SGGX for m in media_objs),
             any_sggx_grid=bool(sggx_parts),
             spectral=spectral,
+            polarized=polarized,
+            measured_pol_wls=tuple(measured_pol_wls),
             ior_spectra=tuple(ior_spectra),
             bsdf_ior_host=tuple(bsdf_ior_host),
             # the largest majorant (or sigma_t) times the scene's diameter:

@@ -9,7 +9,10 @@ to be downloaded. The port's copy of the synthesis in the JAX package's
     write_ggx_copper_bsdf("ggx_cu.bsdf")
 
 Also ``measured_sphere_dict``: a UV-sphere mesh with that BSDF, as the
-benchmark scenes' static mesh.
+benchmark scenes' static mesh; and a synthetic measured polarized pBRDF
+(``write_pbsdf``, the synthesis of the JAX package's
+``tests/test_measured_polarized.py``, with ``polarizing_mueller`` as its
+default content) with ``measured_polarized_sphere_dict``.
 """
 
 from __future__ import annotations
@@ -141,5 +144,59 @@ def measured_sphere_dict(bsdf_path: str, obj_path, spp: int,
     return scene
 
 
+def polarizing_mueller(phi_d, theta_d, theta_h, wvl):
+    """An analytic, partly polarizing pBRDF cell: a lobe around the half
+    vector that fades with the wavelength, linear diattenuation growing
+    with theta_d and a retardance that turns with phi_d."""
+    a = (0.6 * np.exp(-8.0 * theta_h * theta_h) + 0.05
+         + 0.1 * (wvl - 450.0) / 200.0)
+    b = -0.4 * a * np.sin(theta_d) ** 2
+    c = 0.5 * a * np.cos(theta_d)
+    s = 0.2 * a * np.sin(theta_d) * np.cos(phi_d)
+    return np.array([[a, b, 0, 0], [b, a, 0, 0], [0, 0, c, -s],
+                     [0, 0, s, c]], np.float32)
+
+
+def pbsdf_fields(m_fn=polarizing_mueller, Np: int = 4, Nd: int = 5,
+                 Nh: int = 6, wvls=(450, 500, 550, 600, 650)) -> dict:
+    """The fields of a ``.pbsdf`` file: M[p, d, h, w] = m_fn(phi_d,
+    theta_d, theta_h, wvl), a (4, 4) matrix, on uniform grids of phi_d in
+    [-pi, pi] and theta_d, theta_h in [0, pi / 2]."""
+    pd = np.linspace(-np.pi, np.pi, Np, dtype=np.float32)
+    td = np.linspace(0, np.pi / 2, Nd, dtype=np.float32)
+    th = np.linspace(0, np.pi / 2, Nh, dtype=np.float32)
+    wv = np.asarray(wvls, np.uint16)
+    M = np.zeros((Np, Nd, Nh, len(wvls), 4, 4), np.float32)
+    for a, p in enumerate(pd):
+        for b, d in enumerate(td):
+            for c, h in enumerate(th):
+                for e, w in enumerate(wv):
+                    M[a, b, c, e] = m_fn(p, d, h, float(w))
+    return {"theta_h": th.reshape(1, -1), "theta_d": td.reshape(1, -1),
+            "phi_d": pd.reshape(1, -1), "wvls": wv, "M": M}
+
+
+def write_pbsdf(path: str, **kw) -> str:
+    """Write a synthetic ``.pbsdf`` (``pbsdf_fields(**kw)``); returns
+    ``path``."""
+    from ..io.tensor_file import write_tensor_file
+    write_tensor_file(path, pbsdf_fields(**kw))
+    return path
+
+
+def measured_polarized_sphere_dict(pbsdf_path: str, obj_path, spp: int,
+                                   res: int = 256, tf=None,
+                                   integrator=None) -> dict:
+    """``measured_sphere_dict`` with the ``measured_polarized`` BSDF of
+    ``pbsdf_path`` (GGX sampling alpha 0.2) on the sphere."""
+    scene = measured_sphere_dict(pbsdf_path, obj_path, spp, res, tf,
+                                 integrator)
+    scene["mesh"]["bsdf"] = {"type": "measured_polarized",
+                             "filename": pbsdf_path,
+                             "alpha_sample": 0.2}
+    return scene
+
+
 __all__ = ["ggx_copper_fields", "write_ggx_copper_bsdf",
-           "measured_sphere_dict"]
+           "measured_sphere_dict", "polarizing_mueller", "pbsdf_fields",
+           "write_pbsdf", "measured_polarized_sphere_dict"]

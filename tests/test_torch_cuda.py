@@ -1092,3 +1092,90 @@ def test_spectral_on_card_matches_cpu(cuda, tmp_path, variant, case):
     if case == "mono":
         assert np.array_equal(g[..., 0], g[..., 1])
         assert np.array_equal(g[..., 0], g[..., 2])
+
+
+def _polarized_case(case, tmp_path):
+    """(variant, loader of a scene on a device, kernel module, whether to
+    leave tie lanes out) of chip_smoke.py's phase-15 card-vs-CPU cases at
+    16x16 x 16 spp."""
+    from mitsuba3dopplertof_tpu_torch.utils import measured_data as md
+    from mitsuba3dopplertof_tpu_torch.utils import polarized_scenes as ps
+    from mitsuba3dopplertof_tpu_torch.utils import textured_scenes as ts
+    d = str(tmp_path)
+    if case == "plates":
+        return ("cuda_rgb_polarized", lambda dev: mt.load_dict(
+            ps.plate_scene(ps.ELEMENTS, spp=16, res=16), device=dev), ik,
+            False)
+    if case.startswith("canonical") or case == "ptracer":
+        xml = ps.polarizing_canonical_xml(
+            stokes=case != "ptracer",
+            integrator=('<integrator type="ptracer"><integer '
+                        'name="max_depth" value="4"/></integrator>'
+                        if case == "ptracer" else None))
+        return ("cuda_spectral_polarized" if case.endswith("spectral")
+                else "cuda_rgb_polarized",
+                lambda dev: mt.load_string(xml, spp=16, resx=16, resy=16,
+                                           device=dev), ik, False)
+    if case == "media":
+        ts.write_sggx_vol(f"{d}/sggx.vol")
+
+        def media(dev):
+            sd = ts.media_scene(f"{d}/sggx.vol", 16, 16)
+            sd["integrator"] = {"type": "stokes",
+                                "nested": sd["integrator"]}
+            return mt.load_dict(sd, device=dev)
+        return "cuda_rgb_polarized", media, ik, False
+    stokes = {"type": "stokes", "nested": {"type": "path", "max_depth": 4}}
+    if case == "measured":
+        pbsdf = md.write_pbsdf(os.path.join(d, "pol.pbsdf"))
+        obj = os.path.join(d, "sphere_2k.obj")
+        write_uv_sphere_obj(obj, *ANIMATED_SIZES["2k"])
+        return ("cuda_rgb_polarized",
+                lambda dev: mt.load_dict(md.measured_polarized_sphere_dict(
+                    pbsdf, obj, 16, 16, integrator=stokes), device=dev),
+                v4, True)
+    glass_dict = _chip_smoke().glass_dict
+    ply = os.path.join(d, "sphere_2k.ply")
+    write_uv_sphere_ply(ply, *ANIMATED_SIZES["2k"])
+
+    def glass(dev):
+        gd = glass_dict(ply, 16, 16)
+        gd["integrator"] = {"type": "stokes", "nested": gd["integrator"]}
+        return mt.load_dict(gd, device=dev)
+    return "cuda_rgb_polarized", glass, v4, True
+
+
+@pytest.mark.parametrize("case", ["plates", "canonical", "canonical_spectral",
+                                  "ptracer", "glass", "measured", "media"])
+def test_polarized_on_card_matches_cpu(cuda, tmp_path, variant, case):
+    """chip_smoke.py's phase-15 cases at 16x16 x 16 spp, card against CPU
+    with phase 8's criteria over every channel (the 12 Stokes AOVs too):
+    the three elements' plates and the polarizing canonical under
+    stokes(dopplertofpath) in cuda_rgb_polarized and
+    cuda_spectral_polarized, and under ptracer (B1); glass and
+    measured_polarized on the 2k sphere (B2; tie lanes left out, at most
+    10%); the media scene under stokes(volpath) (B1)."""
+    import contextlib
+    from torch_ties import TieRecorder
+    name, load, mod, ties = _polarized_case(case, tmp_path)
+    variant(name)
+    ctx = contextlib.nullcontext()
+    if ties:
+        rec = TieRecorder(16 * 16 * 16, "cpu")
+        with rec.hooked():
+            mt.render(load("cpu"), spp=16, seed=0)
+        assert int(rec.marked.sum()) <= 0.1 * rec.marked.numel()
+        ctx = rec.dropped()
+    imgs = []
+    with ctx:
+        for dev in (cuda, "cpu"):
+            mod.reset_launch_counts()
+            imgs.append(mt.render(load(dev), spp=16, seed=0).cpu().numpy())
+            if dev is cuda:
+                assert mod.LAUNCHES_BY_FORM["closest_hit"] > 0
+    g, c = imgs
+    assert g.shape[-1] == (3 if case == "ptracer" else 15)
+    scale = np.abs(c).max()
+    assert scale > 0.0 and np.isfinite(g).all()
+    assert np.isclose(g, c, rtol=1e-4, atol=1e-4 * scale).mean() >= 0.99
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())

@@ -29,7 +29,7 @@ from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
                                                        from_jax_scene_arrays)
 from mitsuba3dopplertof_tpu_torch.utils import hero_scene as th
 
-from torch_port_helpers import (MINI_HERO, fresh_hero_report,
+from torch_port_helpers import (MINI_HERO, fresh_hero_report, jax_op_by_op,
                                 jax_python_obj_loader, mini_hero_dict)
 from torch_ties import TieRecorder
 from torch_threads import shared_cores  # noqa: F401 (autouse)
@@ -117,7 +117,8 @@ def test_mini_hero_matches_jax(integrator, monkeypatch):
     monkeypatch.setattr(ji, "block_splat_wavefront", splat_kept)
     with jax_python_obj_loader():
         scene = mj.load_dict(mini_hero_dict(False, integrator))
-    ref = np.asarray(mj.render(scene, spp=spp, seed=0))
+    with jax_op_by_op():
+        ref = np.asarray(mj.render(scene, spp=spp, seed=0))
     assert img.shape == ref.shape == (res, res, 3)
     assert np.isfinite(img).all()
     scale = np.abs(ref).max()

@@ -376,9 +376,21 @@ def test_grid_density_matches_jax():
     assert float(ours.max()) > 0.0
 
 
-@pytest.mark.parametrize("kind,item", [("measured_polarized", "item 11"),
-                                       ("polarizer", "item 11")])
-def test_deferred_plugins_name_item_10(kind, item):
-    """The plugins still deferred name their ROADMAP Queue A item."""
+@pytest.mark.parametrize("kind,item", [("measured_polarized", None),
+                                       ("polarizer", None),
+                                       ("prb_basic", "item 12"),
+                                       ("prb", "item 12")])
+def test_deferred_plugins_name_item_10(kind, item, tmp_path):
+    """The plugins still deferred (the AD integrators) name their ROADMAP
+    Queue A item; item 11's polarized plugins are ported."""
+    if item is None:
+        d = {"type": kind}
+        if kind == "measured_polarized":
+            from mitsuba3dopplertof_tpu_torch.utils.measured_data import \
+                write_pbsdf
+            d["filename"] = write_pbsdf(str(tmp_path / "m.pbsdf"))
+        assert type(mt.load_dict(d)).__name__ in ("MeasuredPolarized",
+                                                  "Polarizer")
+        return
     with pytest.raises(NotImplementedError, match=item):
         mt.load_dict({"type": kind})

@@ -21,7 +21,7 @@ import mitsuba3dopplertof_tpu_torch as mt
 from mitsuba3dopplertof_tpu_torch.render.scene import (SceneArrays,
                                                        from_jax_scene_arrays)
 
-from torch_port_helpers import fresh_import_report
+from torch_port_helpers import fresh_import_report, jax_op_by_op
 from torch_threads import shared_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,16 +47,18 @@ def _cpu():
 
 def _render_jax(integrator):
     """The JAX package's render with ``integrator`` wrapped: dopplertofpath
-    (the scene's own) in ``moment``, path in ``aov``. The first three
-    channels are the plain render's, bit for bit (checked in the JAX
-    package before the fixture took them: no other JAX render is made)."""
+    (the scene's own) in ``moment``, path in ``aov``, run op by op
+    (``jax_op_by_op``). The first three channels are the plain render's,
+    bit for bit (checked in the JAX package before the fixture took them:
+    no other JAX render is made)."""
     scene = mj.load_file(CANONICAL, **SIZE)
     if integrator == "dopplertofpath":
         wrapped = {"type": "moment", "nested": scene.integrator}
     else:
         wrapped = {"type": "aov", "aovs": AOVS, "nested": dict(PATH)}
-    return np.asarray(mj.render(scene, spp=16, seed=0,
-                                integrator=mj.load_dict(wrapped)))
+    with jax_op_by_op():
+        return np.asarray(mj.render(scene, spp=16, seed=0,
+                                    integrator=mj.load_dict(wrapped)))
 
 
 def _render_port(integrator, **render_kw):
@@ -68,7 +70,7 @@ def _render_port(integrator, **render_kw):
 
 @pytest.fixture(scope="module")
 def jax_renders():
-    # each JAX render compiles for ~10 s: share them across the module
+    # a few seconds each: share them across the module
     return {k: _render_jax(k) for k in ("dopplertofpath", "path")}
 
 
@@ -190,8 +192,9 @@ def test_spp_slice_passes_match_jax(monkeypatch):
     size = dict(spp=4, resx=8, resy=8)
     monkeypatch.setenv("MI_SPP_SLICE_PASSES", "1")
     scene_j = mj.load_file(CANONICAL, **size)
-    ref = np.asarray(scene_j.integrator.render(scene_j, spp=4, seed=0,
-                                               max_lanes=128))
+    with jax_op_by_op():
+        ref = np.asarray(scene_j.integrator.render(scene_j, spp=4, seed=0,
+                                                   max_lanes=128))
     scene = mt.load_file(CANONICAL, device="cpu", **size)
     img = scene.integrator.render(scene, spp=4, seed=0,
                                   max_lanes=128).numpy()
@@ -238,12 +241,16 @@ def test_import_pulls_in_no_jax():
 
 
 def test_unported_features_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mt.set_variant("cuda_rgb_polarized")
-    assert mt.set_variant("cuda_rgb") == "cuda_rgb"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mt.load_dict({"type": "measured_polarized"})
+    """The polarized variants and plugins (item 11) are ported; the AD
+    integrators (item 12) and dict_to_xml still name their items."""
+    try:
+        assert mt.set_variant("cuda_rgb_polarized") == "cuda_rgb_polarized"
+    finally:
+        assert mt.set_variant("cuda_rgb") == "cuda_rgb"
+    assert type(mt.load_dict({"type": "polarizer"})).__name__ == "Polarizer"
+    with pytest.raises(NotImplementedError, match="item 12"):
+        mt.load_dict({"type": "prb_basic"})
     with pytest.raises(NotImplementedError, match="item 3"):
         mt.dict_to_xml({"type": "scene"}, "scene.xml")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mt.load_dict({"type": "stokes"})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        mt.load_dict({"type": "prb"})

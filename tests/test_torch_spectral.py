@@ -301,15 +301,14 @@ def test_spectra_match_jax(kind, variant, lattice):
 def test_variants_and_refusals(variant):
     assert mt.variants() == ["cuda_rgb", "cuda_spectral", "cuda_mono",
                              "cuda_rgb_polarized", "cuda_spectral_polarized"]
-    for name in ("spectral", "mono", "rgb"):
+    for name in ("spectral", "mono", "rgb_polarized", "spectral_polarized",
+                 "rgb"):
         assert variant(name) == mt.variant() == f"cuda_{name}"
-    for name in ("cuda_rgb_polarized", "cuda_spectral_polarized"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            mt.set_variant(name)
     assert mt.variant() == "cuda_rgb"
-    for kind in ("stokes", "polarizer", "retarder", "circular",
-                 "measured_polarized"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for kind in ("polarizer", "retarder", "circular"):
+        assert mt.load_dict({"type": kind}).type_id in (12, 13, 14)
+    for kind in ("prb_basic", "prb"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             mt.load_dict({"type": kind})
     film = mt.load_dict(ss.specfilm_film(8))
     assert film.srf_names == ["srf_0", "srf_1", "srf_2"]

@@ -91,6 +91,63 @@ def _fresh_process(code: str):
     return tuple(out.stdout.split("\n"))
 
 
+@contextlib.contextmanager
+def jax_op_by_op():
+    """While open, the JAX package's renders run op by op: its pass
+    functions (the camera path's and ptracer's) are called unjitted, and
+    its bounce and tracking loops (``integrators.bounce_loop``) and its
+    pass loops are Python loops (``MI_NO_FUSED_PASSES``), so each jnp
+    function runs as its own cached program. The draws are the compiled
+    render's, early exit included. Far cheaper on the CPU than one XLA
+    program per scene, or than
+    ``jax.disable_jit()``, which also runs each jnp function's primitives
+    one by one (a measured_polarized sphere: 3 s warm against 11 s); like
+    the latter, no multiply-add is fused across operations."""
+    from mitsuba3dopplertof_tpu import integrators as ji
+    from mitsuba3dopplertof_tpu.integrators import ptracer as jpt
+    saved = ji.bounce_loop, ji._build_pass_fn, os.environ.get(
+        "MI_NO_FUSED_PASSES"), jpt.jax
+
+    class _Unjitted:
+        """The jax module as ptracer sees it, its ``jit`` the identity."""
+        def __getattr__(self, name):
+            return getattr(saved[3], name)
+
+        @staticmethod
+        def jit(fn, **kw):
+            return fn
+
+    def bounce_loop(bounce, carry, iterations, allow_early_exit=True):
+        early = (allow_early_exit and not ji._STATIC_BOUNCE_LOOP
+                 and not os.environ.get("MI_NO_EARLY_EXIT"))
+        for i in range(iterations):
+            if early and not bool(jnp.any(carry[-1])):
+                break
+            carry = bounce(i, carry)
+        return carry
+
+    def build_pass_fn(*args, **kw):
+        raw = saved[1](*args, **kw).raw
+
+        def pass_fn(*a):
+            return raw(*a)
+        pass_fn.raw = raw
+        return pass_fn
+
+    ji.bounce_loop, ji._build_pass_fn = bounce_loop, build_pass_fn
+    jpt.jax = _Unjitted()
+    os.environ["MI_NO_FUSED_PASSES"] = "1"
+    try:
+        yield
+    finally:
+        ji.bounce_loop, ji._build_pass_fn = saved[:2]
+        jpt.jax = saved[3]
+        if saved[2] is None:
+            del os.environ["MI_NO_FUSED_PASSES"]
+        else:
+            os.environ["MI_NO_FUSED_PASSES"] = saved[2]
+
+
 def fresh_import_report():
     """A fresh interpreter imports every module of the port and renders
     nothing; the lines it prints, once per process: the default device's

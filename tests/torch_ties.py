@@ -95,11 +95,12 @@ class TieRecorder:
     @contextlib.contextmanager
     def hooked(self):
         """Record every query of the integrators (the path loop, volpath,
-        direct, aov, ptracer) while the context is open."""
+        direct, aov, ptracer, the polarized path loop) while the context
+        is open."""
         from mitsuba3dopplertof_tpu_torch import integrators as pi
         from mitsuba3dopplertof_tpu_torch.integrators import (
-            extras as ex, ptracer as pt, volpath as vp)
-        mods = (pi, vp, ex, pt)
+            extras as ex, polarized as po, ptracer as pt, volpath as vp)
+        mods = (pi, vp, ex, pt, po)
         saved = [(m, k, getattr(m, k)) for m in mods
                  for k in ("ray_intersect", "ray_test")]
         # a module that binds the queries itself would escape the hooks
